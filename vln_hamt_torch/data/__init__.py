@@ -1,0 +1,10 @@
+from .nav_graph import NavGraph, build_nav_tables
+from .feature_db import FeatureDB, SyntheticFeatureDB, build_feature_table
+
+__all__ = [
+    "NavGraph",
+    "build_nav_tables",
+    "FeatureDB",
+    "SyntheticFeatureDB",
+    "build_feature_table",
+]

@@ -1,0 +1,141 @@
+"""Hermetic synthetic worlds for tests and benchmarks.
+
+The reference has no test fixtures at all (SURVEY §4); everything needs
+Matterport scan data and the MatterSim binary. We generate deterministic
+random navigation graphs + instruction data + features so the full
+pipeline (env -> model -> agent -> metrics) runs anywhere. For the same
+seed this builds the same world as ``vln_hamt_tpu/data/fixtures.py``
+(tested); the task-variant fixtures are not part of the port yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .feature_db import SyntheticFeatureDB
+from .nav_graph import NavGraph
+
+
+@dataclasses.dataclass
+class SyntheticWorld:
+    graphs: Dict[str, NavGraph]
+    instr_data: List[dict]
+    feat_db: SyntheticFeatureDB
+
+    @property
+    def scans(self) -> List[str]:
+        return sorted(self.graphs)
+
+
+def make_synthetic_graph(
+    scan: str,
+    num_nodes: int = 24,
+    rng: Optional[np.random.Generator] = None,
+    extent: float = 18.0,
+    z_extent: float = 2.5,
+    connect_radius: float = 6.0,
+    max_degree: int = 10,
+) -> NavGraph:
+    """A random geometric graph embedded in 3D, guaranteed connected.
+
+    Nodes are sampled in an extent x extent x z_extent box; nodes within
+    ``connect_radius`` are linked (bounded to ``max_degree``), then a
+    chain over a random ordering guarantees connectivity. Mirrors the
+    scale of Matterport scans (edges typically 1.5-4 m).
+    """
+    if rng is None:
+        # crc32, not hash(): str hashing is salted per process
+        rng = np.random.default_rng(zlib.crc32(scan.encode()))
+    pos = np.empty((num_nodes, 3))
+    pos[:, 0] = rng.uniform(0, extent, num_nodes)
+    pos[:, 1] = rng.uniform(0, extent, num_nodes)
+    pos[:, 2] = rng.uniform(0, z_extent, num_nodes)
+
+    d = np.sqrt(((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1))
+    adj = (d < connect_radius) & (d > 1e-6)
+
+    # Bound the degree: keep the closest max_degree neighbors per node.
+    for u in range(num_nodes):
+        nbrs = np.nonzero(adj[u])[0]
+        if len(nbrs) > max_degree:
+            order = nbrs[np.argsort(d[u, nbrs])]
+            drop = order[max_degree:]
+            adj[u, drop] = False
+            adj[drop, u] = False
+
+    # Ensure connectivity with a chain over a random permutation.
+    perm = rng.permutation(num_nodes)
+    for a, b in zip(perm[:-1], perm[1:]):
+        adj[a, b] = adj[b, a] = True
+
+    node_ids = [f"{scan}_vp{i:04d}" for i in range(num_nodes)]
+    return NavGraph(scan, node_ids, pos, adj | adj.T)
+
+
+def make_synthetic_world(
+    num_scans: int = 2,
+    nodes_per_scan: int = 24,
+    num_items: int = 32,
+    path_hops: Tuple[int, int] = (4, 7),
+    instr_len: Tuple[int, int] = (12, 40),
+    vocab_size: int = 30522,
+    feat_dim: int = 768,
+    seed: int = 0,
+) -> SyntheticWorld:
+    rng = np.random.default_rng(seed)
+    graphs = {
+        f"scan{j:02d}": make_synthetic_graph(f"scan{j:02d}", nodes_per_scan, rng)
+        for j in range(num_scans)
+    }
+    scans = sorted(graphs)
+
+    instr_data: List[dict] = []
+    for i in range(num_items):
+        scan = scans[int(rng.integers(num_scans))]
+        g = graphs[scan]
+        hops = int(rng.integers(path_hops[0], path_hops[1] + 1))
+        # sample a start; walk outward on shortest paths to a goal at
+        # roughly `hops` graph distance
+        start = int(rng.integers(g.num_nodes))
+        # pick the goal whose shortest path has the desired hop count if
+        # possible, otherwise the farthest reachable node
+        path = None
+        candidates = rng.permutation(g.num_nodes)
+        for goal in candidates:
+            goal = int(goal)
+            if goal == start or not np.isfinite(g.dist[start, goal]):
+                continue
+            p = g.shortest_path(start, goal)
+            if len(p) - 1 == hops:
+                path = p
+                break
+            if path is None or len(p) > len(path):
+                path = p
+        assert path is not None and len(path) >= 2
+
+        n_tok = int(rng.integers(instr_len[0], instr_len[1] + 1))
+        # [CLS] body [SEP]; avoid special/pad ids in the body
+        body = rng.integers(1000, min(vocab_size, 29000), n_tok - 2).tolist()
+        enc = [101] + body + [102]
+        heading = float(rng.integers(12)) * (np.pi / 6.0)
+        instr_data.append(
+            {
+                "instr_id": f"{i}_0",
+                "path_id": i,
+                "scan": scan,
+                "path": [g.node_ids[v] for v in path],
+                "heading": heading,
+                "instruction": " ".join(str(t) for t in body),
+                "instr_encoding": enc,
+            }
+        )
+
+    return SyntheticWorld(
+        graphs=graphs,
+        instr_data=instr_data,
+        feat_db=SyntheticFeatureDB(feat_dim=feat_dim),
+    )

@@ -1,0 +1,325 @@
+"""HAMT — History Aware Multimodal Transformer (torch), the port of
+``vln_hamt_tpu/models/hamt.py``.
+
+Parity target: the reference NavCMT (``finetune_src/models/
+vilmodel_cmt.py:610-728``) and its ``Critic`` (``finetune_src/models/
+model_HAMT.py``). Submodules carry the reference's names, so
+``HAMT.state_dict()`` is a NavCMT state dict: released reference
+weights load by name, and ``vln_hamt_tpu/models/convert.py:
+convert_navcmt_state_dict`` maps it onto the JAX package's params.
+The reference's three string-dispatched forward modes are explicit
+methods:
+
+- :meth:`HAMT.encode_text`     — once per episode (mode='language')
+- :meth:`HAMT.encode_history`  — one history token per step (mode='history')
+- :meth:`HAMT.plan`            — cross-modal step -> action logits + state
+                                 (mode='visual'); history arrives as a fixed
+                                 (B, T_max+1, D) cache with a length mask.
+
+This slice computes the evaluation forward (no dropout, fp32);
+``plan_ref``, ``encode_history_seq`` and ``fuse`` wait for later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs import ModelConfig
+from .layers import CrossModalLayer, TransformerLayer, TransformerStack, extend_mask, run_layers
+
+
+def _ln(d: int) -> nn.LayerNorm:
+    return nn.LayerNorm(d, eps=1e-12)
+
+
+class TextEmbeddings(nn.Module):
+    """word + position + token-type embeddings (vilmodel_cmt.py:39-68).
+
+    The token-type table is shared with observation embeddings (obs
+    tokens use type id 1, vilmodel_cmt.py:681-684).
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
+        self.LayerNorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+    def forward(self, txt_ids: torch.Tensor) -> torch.Tensor:
+        l = txt_ids.shape[1]
+        if l > self.position_embeddings.num_embeddings:
+            raise ValueError(f"text length {l} exceeds the position table "
+                             f"({self.position_embeddings.num_embeddings})")
+        pos_ids = torch.arange(l, device=txt_ids.device)[None, :]
+        emb = (self.word_embeddings(txt_ids)
+               + self.position_embeddings(pos_ids)
+               + self.token_type_embeddings(torch.zeros_like(txt_ids)))
+        return self.LayerNorm(emb)
+
+
+class Encoder(nn.Module):
+    """LxmertEncoder (vilmodel_cmt.py:426-452): text, history-only,
+    obs-only and cross-modal stacks."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.layer = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_l_layers))
+        self.h_layers = (nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_h_layers))
+                         if cfg.num_h_layers > 0 else None)
+        self.r_layers = (nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_r_layers))
+                         if cfg.num_r_layers > 0 else None)
+        self.x_layers = nn.ModuleList(CrossModalLayer(cfg) for _ in range(cfg.num_x_layers))
+
+
+class ImageEmbeddings(nn.Module):
+    """Observation embeddings (vilmodel_cmt.py:498-521)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.img_linear = nn.Linear(cfg.image_feat_size, d)
+        self.img_layer_norm = _ln(d)
+        self.ang_linear = nn.Linear(cfg.angle_feat_size, d)
+        self.ang_layer_norm = _ln(d)
+        self.nav_type_embedding = nn.Embedding(3, d)
+        self.layer_norm = _ln(d)
+
+
+class HistoryEmbeddings(nn.Module):
+    """History embeddings (vilmodel_cmt.py:523-594)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.img_linear = nn.Linear(cfg.image_feat_size, d)
+        self.img_layer_norm = _ln(d)
+        self.ang_linear = nn.Linear(cfg.angle_feat_size, d)
+        self.ang_layer_norm = _ln(d)
+        self.position_embeddings = nn.Embedding(cfg.max_action_steps, d)
+        self.type_embedding = nn.Embedding(1, d)
+        self.layer_norm = _ln(d)
+        if cfg.hist_enc_pano:
+            self.pano_img_linear = nn.Linear(cfg.image_feat_size, d)
+            self.pano_img_layer_norm = _ln(d)
+            self.pano_ang_linear = nn.Linear(cfg.angle_feat_size, d)
+            self.pano_ang_layer_norm = _ln(d)
+            self.pano_encoder = TransformerStack(cfg, cfg.num_h_pano_layers)
+
+
+class NextActionPrediction(nn.Module):
+    """Action head (vilmodel_cmt.py:597-607): net.0 dense, net.1 ReLU,
+    net.2 LN, net.3 the dropout slot (identity in eval), net.4 dense."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.net = nn.Sequential(nn.Linear(d, d), nn.ReLU(), _ln(d), nn.Identity(),
+                                 nn.Linear(d, 1))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class HAMT(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"compute dtype {cfg.dtype!r}: the port runs float32 "
+                "(bfloat16 compute is ROADMAP item A8)")
+        self.config = cfg
+        self.embeddings = TextEmbeddings(cfg)
+        self.encoder = Encoder(cfg)
+        self.img_embeddings = ImageEmbeddings(cfg)
+        self.hist_embeddings = HistoryEmbeddings(cfg)
+        self.next_action = NextActionPrediction(cfg.hidden_size)
+
+    # ------------------------------------------------------------------
+    def encode_text(self, txt_ids: torch.Tensor, txt_mask: torch.Tensor) -> torch.Tensor:
+        """mode='language' (vilmodel_cmt.py:632-653).
+
+        Returns (B, L, D), or (X+1, B, L, D) stacked per-x-layer language
+        states when ``no_lang_ca`` (precomputed lang stream).
+        """
+        ext = extend_mask(txt_mask)
+        x = self.embeddings(txt_ids)
+        x = run_layers(self.encoder.layer, x, ext)
+        if self.config.no_lang_ca:
+            all_states = [x]
+            for layer in self.encoder.x_layers:
+                x = layer.lang_only(x, ext)
+                all_states.append(x)
+            return torch.stack(all_states, dim=0)
+        return x
+
+    # ------------------------------------------------------------------
+    def init_history(self, batch_size: int) -> torch.Tensor:
+        """The global [CLS] history token (vilmodel_cmt.py:569-572)."""
+        he = self.hist_embeddings
+        type_ids = torch.zeros(batch_size, dtype=torch.long, device=he.cls_token.device)
+        cls = he.cls_token.view(1, -1) + he.type_embedding(type_ids)
+        return he.layer_norm(cls)
+
+    def encode_history(
+        self,
+        hist_img: torch.Tensor,  # (B, D_img) current-view feature
+        hist_ang: torch.Tensor,  # (B, A) chosen-action angle feature
+        step,  # int, 0-d or (B,) integer tensor: the step id
+        pano_img: Optional[torch.Tensor] = None,  # (B, V, D_img)
+        pano_ang: Optional[torch.Tensor] = None,  # (B, V, A)
+    ) -> torch.Tensor:
+        """One per-step history token (vilmodel_cmt.py:574-594)."""
+        he = self.hist_embeddings
+        b = hist_img.shape[0]
+        if isinstance(step, int):
+            if not 0 <= step < he.position_embeddings.num_embeddings:
+                raise ValueError(f"history step {step} outside the position "
+                                 f"table ({he.position_embeddings.num_embeddings})")
+            step = torch.tensor(step, device=hist_img.device)
+        step = step.to(torch.long).expand(b)
+        emb = (he.img_layer_norm(he.img_linear(hist_img))
+               + he.ang_layer_norm(he.ang_linear(hist_ang))
+               + he.position_embeddings(step)
+               + he.type_embedding(torch.zeros_like(step)))
+        if self.config.hist_enc_pano:
+            pano = (he.pano_img_layer_norm(he.pano_img_linear(pano_img))
+                    + he.pano_ang_layer_norm(he.pano_ang_linear(pano_ang)))
+            # reference passes an all-zeros additive mask (attend all 36)
+            pano = he.pano_encoder(pano, None)
+            emb = emb + pano.mean(dim=1)
+        return he.layer_norm(emb)
+
+    # ------------------------------------------------------------------
+    def embed_obs(self, ob_img, ob_ang, ob_nav) -> torch.Tensor:
+        """ImageEmbeddings (vilmodel_cmt.py:498-521): obs token type = 1."""
+        ie = self.img_embeddings
+        type_emb = self.embeddings.token_type_embeddings(torch.ones_like(ob_nav))
+        emb = (ie.img_layer_norm(ie.img_linear(ob_img))
+               + ie.ang_layer_norm(ie.ang_linear(ob_ang))
+               + type_emb
+               + ie.nav_type_embedding(ob_nav))
+        return ie.layer_norm(emb)
+
+    def plan(
+        self,
+        txt_embeds: torch.Tensor,  # (B, L, D) or (X+1, B, L, D) if no_lang_ca
+        txt_mask: torch.Tensor,  # (B, L) bool
+        hist_tokens: torch.Tensor,  # (B, H, D) fixed-size history cache
+        hist_mask: torch.Tensor,  # (B, H) bool
+        ob_img: torch.Tensor,  # (B, N, D_img)
+        ob_ang: torch.Tensor,  # (B, N, A)
+        ob_nav: torch.Tensor,  # (B, N) int
+        ob_mask: torch.Tensor,  # (B, N) bool
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """mode='visual' (vilmodel_cmt.py:663-728): one planning step.
+
+        Returns (act_logits (B, N), state (B, D)). Invalid actions
+        (nav type 0) get -inf logits; state is txt[CLS] * hist[CLS]
+        (model_HAMT.py:63) or hist[CLS] under no_lang_ca.
+        """
+        cfg = self.config
+        enc = self.encoder
+        ext_hist = extend_mask(hist_mask)
+        ext_ob = extend_mask(ob_mask)
+        ext_txt = extend_mask(txt_mask)
+
+        hist = hist_tokens
+        if enc.h_layers is not None:
+            hist = run_layers(enc.h_layers, hist, ext_hist)
+        ob = self.embed_obs(ob_img, ob_ang, ob_nav)
+        if enc.r_layers is not None:
+            ob = run_layers(enc.r_layers, ob, ext_ob)
+
+        h = hist_tokens.shape[1]
+        visn = torch.cat([hist, ob], dim=1)
+        visn_mask = torch.cat([ext_hist, ext_ob], dim=-1)
+
+        lang = txt_embeds[0] if cfg.no_lang_ca else txt_embeds
+        for li, layer in enumerate(enc.x_layers):
+            if cfg.no_lang_ca:
+                lang = txt_embeds[li]
+            lang, visn = layer(lang, ext_txt, visn, visn_mask)
+
+        hist_out = visn[:, :h]
+        ob_out = visn[:, h:]
+
+        # action head (vilmodel_cmt.py:714-726)
+        if cfg.no_lang_ca or cfg.act_pred_token == "ob":
+            head_in = ob_out
+        elif cfg.act_pred_token == "ob_txt":
+            head_in = ob_out * lang[:, :1]
+        elif cfg.act_pred_token == "ob_hist":
+            head_in = ob_out * hist_out[:, :1]
+        elif cfg.act_pred_token == "ob_txt_hist":
+            head_in = ob_out * (lang[:, :1] + hist_out[:, :1])
+        else:
+            raise ValueError(f"bad act_pred_token {cfg.act_pred_token!r}")
+
+        logits = self.next_action(head_in).squeeze(-1).float()
+        logits = logits.masked_fill(ob_nav == 0, -math.inf)
+
+        if cfg.no_lang_ca:
+            state = hist_out[:, 0]
+        else:
+            state = lang[:, 0] * hist_out[:, 0]
+        return logits, state.float()
+
+
+class Critic(nn.Module):
+    """768 -> 512 -> 1 value head (model_HAMT.py:258-269): state2value.0
+    dense, .1 ReLU, .2 the dropout slot (identity in eval), .3 dense."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.state2value = nn.Sequential(nn.Linear(cfg.hidden_size, 512), nn.ReLU(),
+                                         nn.Identity(), nn.Linear(512, 1))
+
+    def forward(self, state: torch.Tensor) -> torch.Tensor:
+        return self.state2value(state).squeeze(-1).float()
+
+
+# ----------------------------------------------------------------------
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers, drawn from ``generator``:
+    Dense kernels lecun-normal (truncated at 2 std), biases zero, Embed
+    tables normal with variance 1/D, LayerNorm ones/zeros, and the
+    history [CLS] token zero (``vln_hamt_tpu/models/hamt.py:109-111``).
+    """
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.embedding_dim),
+                            generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, HistoryEmbeddings):
+            nn.init.zeros_(m.cls_token)
+
+
+def init_hamt(cfg: ModelConfig, seed: int = 0) -> Tuple[HAMT, Critic]:
+    """A HAMT and a Critic on the CPU, initialized from ``seed``.
+
+    Built on the meta device first, so construction draws nothing from
+    torch's global generator; every weight comes from one seeded
+    ``torch.Generator`` and is the same on every machine.
+    """
+    with torch.device("meta"):
+        model, critic = HAMT(cfg), Critic(cfg)
+    model.to_empty(device="cpu")
+    critic.to_empty(device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    init_weights_(model, g)
+    init_weights_(critic, g)
+    return model, critic

@@ -1,0 +1,208 @@
+"""Transformer building blocks (torch), the port of
+``vln_hamt_tpu/models/layers.py``.
+
+Numerical parity targets with the reference BERT/LXMERT blocks
+(``finetune_src/models/vilmodel_cmt.py``):
+- erf-based GELU (vilmodel_cmt.py:22-28), NOT the tanh approximation
+- LayerNorm eps 1e-12
+- additive attention masks of ``(1 - mask) * -10000`` (vilmodel_cmt.py:
+  634-636) rather than -inf fills, so converted checkpoints reproduce
+  reference logits
+- post-LN residual blocks (BertSelfOutput / BertOutput)
+
+Modules are named after the reference's so that a port ``state_dict``
+is a reference NavCMT state dict (``models/convert.py``). Every
+attention goes through :func:`vln_hamt_torch.ops.fused_attention`: the
+CUDA kernel on the card, its plain torch twin on the CPU. This slice
+computes the evaluation forward only: dropout arrives with training.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs import ModelConfig
+from ..ops.attention import fused_attention
+
+
+def erf_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * 0.5 * (1 + erf(x / sqrt(2))) — parity vilmodel_cmt.py:22-28."""
+    return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+ACT2FN = {"gelu": erf_gelu, "relu": torch.relu, "swish": nn.functional.silu}
+
+
+def extend_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(B, L) bool/int -> (B, 1, 1, L) additive mask with -10000 at pads."""
+    m = mask.to(dtype)
+    return ((1.0 - m) * -10000.0)[:, None, None, :]
+
+
+class MultiHeadAttention(nn.Module):
+    """Q from `hidden`, K/V from `context` (self-attn when identical).
+
+    Covers BertSelfAttention (vilmodel_cmt.py:71-129) and BertOutAttention
+    (297-348); the reference's separate classes are the same math.
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.num_heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
+        width = self.num_heads * self.head_dim
+        self.query = nn.Linear(cfg.hidden_size, width)
+        self.key = nn.Linear(cfg.hidden_size, width)
+        self.value = nn.Linear(cfg.hidden_size, width)
+
+    def forward(self, hidden: torch.Tensor, context: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, lq, _ = hidden.shape
+        lk = context.shape[1]
+        h, dh = self.num_heads, self.head_dim
+        # (B, L, H, Dh) projections seen as (B, H, L, Dh) strided views:
+        # the kernel reads them in place, no transpose copies
+        q = self.query(hidden).view(b, lq, h, dh).transpose(1, 2)
+        k = self.key(context).view(b, lk, h, dh).transpose(1, 2)
+        v = self.value(context).view(b, lk, h, dh).transpose(1, 2)
+        if attn_mask is None:
+            add_mask = hidden.new_zeros((b, lk), dtype=torch.float32)
+        else:
+            add_mask = attn_mask.reshape(attn_mask.shape[0], -1)
+        out = fused_attention(q, k, v, add_mask)
+        return out.transpose(1, 2).reshape(b, lq, h * dh).to(hidden.dtype)
+
+
+class AttnOutput(nn.Module):
+    """dense -> LN(x + residual): BertSelfOutput (:132-143), and
+    BertOutput (:171-185) when it follows an :class:`Intermediate`."""
+
+    def __init__(self, cfg: ModelConfig, in_size: Optional[int] = None):
+        super().__init__()
+        self.dense = nn.Linear(in_size or cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(self.dense(x) + residual)
+
+
+class Attention(nn.Module):
+    """MHA + output projection/LN (BertAttention / BertXAttention).
+
+    The reference names the attention ``self`` in BertAttention and
+    ``att`` in BertXAttention; ``cross`` picks the name so state dicts
+    match.
+    """
+
+    def __init__(self, cfg: ModelConfig, cross: bool = False):
+        super().__init__()
+        self._att_name = "att" if cross else "self"
+        self.add_module(self._att_name, MultiHeadAttention(cfg))
+        self.output = AttnOutput(cfg)
+
+    def forward(self, hidden, context=None, attn_mask=None):
+        context = hidden if context is None else context
+        attn = getattr(self, self._att_name)(hidden, context, attn_mask)
+        return self.output(attn, hidden)
+
+
+class Intermediate(nn.Module):
+    """BertIntermediate (:159-168): dense + activation."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.act = ACT2FN[cfg.hidden_act]
+
+    def forward(self, x):
+        return self.act(self.dense(x))
+
+
+def feed_forward(inter: Intermediate, out: AttnOutput, x: torch.Tensor):
+    """FeedForward: BertIntermediate + BertOutput (:159-185).
+
+    A function over the two modules rather than a module of its own,
+    because the reference registers the pair under its owner's names
+    (``intermediate``/``output`` in BertLayer, ``lang_inter``/
+    ``lang_output`` in LXRTXLayer), which the state dicts keep."""
+    return out(inter(x), x)
+
+
+class TransformerLayer(nn.Module):
+    """Self-attention block (BertLayer, :188-201)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.attention = Attention(cfg)
+        self.intermediate = Intermediate(cfg)
+        self.output = AttnOutput(cfg, cfg.intermediate_size)
+
+    def forward(self, x, attn_mask=None):
+        x = self.attention(x, None, attn_mask)
+        return feed_forward(self.intermediate, self.output, x)
+
+
+class TransformerStack(nn.Module):
+    """N self-attention layers (BertEncoder, :204-234)."""
+
+    def __init__(self, cfg: ModelConfig, num_layers: int):
+        super().__init__()
+        self.layer = nn.ModuleList(TransformerLayer(cfg) for _ in range(num_layers))
+
+    def forward(self, x, attn_mask=None):
+        return run_layers(self.layer, x, attn_mask)
+
+
+def run_layers(layers, x, attn_mask=None):
+    for layer in layers:
+        x = layer(x, attn_mask)
+    return x
+
+
+class CrossModalLayer(nn.Module):
+    """LXRTX layer (vilmodel_cmt.py:361-424).
+
+    Shared cross-attention applied both directions (the reference reuses
+    ``self.visual_attention`` for lang->visn and visn->lang), then
+    per-stream self-attention + FFN. ``no_lang_ca`` freezes the language
+    stream entirely (its per-layer states are precomputed at text
+    encoding time, vilmodel_cmt.py:645-652).
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.no_lang_ca = cfg.no_lang_ca
+        self.visual_attention = Attention(cfg, cross=True)
+        self.lang_self_att = Attention(cfg)
+        self.visn_self_att = Attention(cfg)
+        self.lang_inter = Intermediate(cfg)
+        self.lang_output = AttnOutput(cfg, cfg.intermediate_size)
+        self.visn_inter = Intermediate(cfg)
+        self.visn_output = AttnOutput(cfg, cfg.intermediate_size)
+
+    def forward(self, lang, lang_mask, visn, visn_mask
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.no_lang_ca:
+            lang_x = lang
+        else:
+            lang_x = self.visual_attention(lang, visn, visn_mask)
+        visn_x = self.visual_attention(visn, lang, lang_mask)
+
+        if not self.no_lang_ca:
+            lang_x = self.lang_self_att(lang_x, None, lang_mask)
+        visn_x = self.visn_self_att(visn_x, None, visn_mask)
+
+        if self.no_lang_ca:
+            lang_out = lang_x
+        else:
+            lang_out = feed_forward(self.lang_inter, self.lang_output, lang_x)
+        return lang_out, feed_forward(self.visn_inter, self.visn_output, visn_x)
+
+    def lang_only(self, lang, lang_mask):
+        """The no_lang_ca precompute path (vilmodel_cmt.py:647-651):
+        lang self-attention + FFN without any visual input."""
+        lang_x = self.lang_self_att(lang, None, lang_mask)
+        return feed_forward(self.lang_inter, self.lang_output, lang_x)
