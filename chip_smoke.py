@@ -6,23 +6,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device   -- card name, count, torch / CUDA versions, nvidia-smi name
                and power limit.
-2. build    -- nvcc build of every kernel of the main path from this
-               checkout's sources, with the -Xptxas -v report.
+2. build    -- nvcc builds of every kernel of the main paths from this
+               checkout's sources, one nvcc per source, all started
+               together, with the -Xptxas -v reports.
 3. kernels  -- each kernel against its plain torch twin on the card at
-               the main path's shapes (batch 32, full width), fp32 and
-               bf16, dropout off and on; kernel, plain and library-call
-               times and the card's bound for the same work.
-4. slice    -- the main path: full-width R2R greedy evaluation
+               the main paths' shapes (batch 32, full width), fp32 and
+               bf16, dropout off and on: the attention forward, and the
+               attention backward (dq, dk, dv and the mask cotangent dm);
+               kernel, plain and library-call times and the card's bound
+               for the same work; the backward checked and timed at the
+               training batch of 8 too, at the training path's shapes.
+4. slice    -- the serving path: full-width R2R greedy evaluation
                (HAMTAgent.eval_split_device, `r2r` preset, fp32, seeded
                random weights) over a synthetic world at batch 32;
-               episodes/s, SR/SPL/nDTW, and the kernel launch counts of
-               that run (279 attention launches per batch).
+               episodes/s, SR/SPL/nDTW, and the kernel launches of that
+               run (279 forward launches per batch, no backward).
 5. parity   -- the same full-width model and weights at batch 4, once on
                the card and once on the CPU (plain attention): per-step
                logits within tolerance and identical trajectories.
+6. train    -- the training path: full-width R2R imitation learning
+               (HAMTAgent.train_iteration("teacher"), `r2r` preset, fp32,
+               production dropout, adamw lr 1e-5, clip 40, batch 8,
+               T = 15) over the same world; 3 warm-up and 20 timed
+               updates: IL episodes/s, the losses, and 279 forward and
+               240 backward launches per update. Then 15 updates on one
+               repeated batch (lr 1e-4, dropout off): the loss must fall.
+7. train_parity -- one IL update's loss and every parameter's gradient,
+               card against CPU, batch 4, dropout off, same weights and
+               batch; with the preset's fix_lang / fix_hist flags (240
+               backward launches), and with both off (277: the text and
+               panorama backward shapes too).
 
-The second-to-last line is the kernel summary {"kernels": [...]}; the
-last is {"ok": true, "device": {...}}. Without a CUDA device, or without
+The second-to-last line is the kernel summary {"kernels": [...]}, each
+kernel at the batch of its main path: the forward's launches from the
+serving slice and its times at batch 32, the backward's from the
+training slice and its times at batch 8. The last is {"ok": true, "device": {...}}. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero before
 printing either.
 """
@@ -35,6 +53,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -43,38 +62,244 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 B, H, DH = 32, 12, 64
-TOL = {  # kernel vs plain twin, max abs error
+TRAIN_B = 8  # the r2r preset's training batch
+TOL = {  # forward kernel vs plain twin, max abs error
     (torch.float32, 0.0): 1e-5,  # fp32, another summation order
     (torch.bfloat16, 0.0): 1e-5,  # bf16 inputs widened to fp32 alike on both sides
     (torch.float32, 0.1): 2e-5,  # kept values scaled by 1 / (1 - rate)
     (torch.bfloat16, 0.1): 2e-5,
 }
+# backward kernel vs plain twin, max abs error over the tensor's max abs
+# value. fp32: sums of at most 65 (dq, dk, dv) or 12 x 65 (dm) products
+# in another order than cuBLAS's. bf16 dq, dk, dv: both sides round an
+# fp32 value to bf16, and a last-bit fp32 difference may flip that
+# rounding by one bf16 step, 2^-8 of the value. dm is fp32 always.
+BWD_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
+BWD_DM_RTOL = 2e-5
 PARITY_LOGIT_ATOL = 1e-3  # card vs CPU after 13 fp32 layers per step
+# card vs CPU, one IL update: the loss relative, each gradient tensor
+# within 1e-3 of its own largest entry, plus 1e-6 of the model's largest
+# gradient for tensors that are zero in exact arithmetic and rounding
+# noise on both sides (the attention key biases, the action head's
+# LayerNorm and output biases: a softmax ignores a shift of its inputs)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-3, 1e-6
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 50, warmup: int = 3,
+                 hold_cycles: int = 100_000_000) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls queued behind a
+    sleeping stream (``hold_cycles`` GPU cycles, tens of ms) and timed
+    between two events, so the host's time to issue them (Python,
+    autograd, ctypes) does not count, only the device's back-to-back
+    work. The sleep must outlast the queueing, which is checked: a call
+    of many kernels fills the device's launch queue (about a thousand
+    launches) and blocks the host, so the run is halved until it fits."""
     for _ in range(warmup):
         fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(hold_cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    stop.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        if iters < 10:
+            raise RuntimeError(f"the host took {host_ms} ms to queue {iters} calls")
+        return cuda_time_ms(fn, iters // 2, 0, hold_cycles)
+    return ev[1].elapsed_time(ev[2]) / iters
 
 
-def attention_bound_ms(lq: int, lk: int, elt_bytes: int):
-    """Least time for one launch: q, k, v read once, the (B, Lk) fp32
-    mask read once, the fp32 output written once, over HBM; and
+def attention_bound_ms(b: int, lq: int, lk: int, elt_bytes: int):
+    """Least time for one forward launch: q, k, v read once, the (B, Lk)
+    fp32 mask read once, the fp32 output written once, over HBM; and
     4*B*H*Lq*Lk*Dh fp32 FLOPs over the CUDA cores' peak."""
-    nbytes = B * H * (lq + 2 * lk) * DH * elt_bytes + B * lk * 4 + B * H * lq * DH * 4
-    flops = 4 * B * H * lq * lk * DH
+    nbytes = b * H * (lq + 2 * lk) * DH * elt_bytes + b * lk * 4 + b * H * lq * DH * 4
+    flops = 4 * b * H * lq * lk * DH
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def attention_bwd_bound_ms(b: int, lq: int, lk: int, elt_bytes: int):
+    """Least time for one backward launch: q, k, v (input type), g (fp32)
+    and the (B, Lk) fp32 mask read once, dq, dk, dv (input type) and dm
+    (fp32) written once; 10*B*H*Lq*Lk*Dh fp32 FLOPs (the recomputed
+    scores, g v^T, dv, dq and dk)."""
+    qkv = b * H * (lq + 2 * lk) * DH * elt_bytes
+    nbytes = 2 * qkv + b * H * lq * DH * 4 + 2 * b * lk * 4
+    flops = 10 * b * H * lq * lk * DH
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def reset_counts(attn) -> None:
+    for name in attn.launch_counts:
+        attn.launch_counts[name] = 0
+
+
+def kernel_inputs(b, lq, lk, dtype, gen, dev):
+    """q, k, v as the layer hands them over ((B, H, L, Dh) views of
+    (B, L, H, Dh)), a 0 / -10000 mask, and an output cotangent laid out
+    as the layer's gradient arrives."""
+    view = lambda l: torch.randn(b, l, H, DH, device=dev, generator=gen).to(dtype).transpose(1, 2)
+    q, k, v = view(lq), view(lk), view(lk)
+    m = torch.where(torch.rand(b, lk, device=dev, generator=gen) < 0.8, 0.0, -10000.0)
+    g = torch.randn(b, lq, H, DH, device=dev, generator=gen).transpose(1, 2)
+    return q, k, v, m, g
+
+
+def sdpa_backward(q, k, v, m, g, dtype):
+    """The backward alone of scaled_dot_product_attention with a mask
+    that takes a gradient: autograd.grad on a retained graph (the
+    library yardstick; the port never calls it)."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    mask4 = m[:, None, None, :].to(dtype).detach().requires_grad_()
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask4)
+    return lambda: torch.autograd.grad(out, (*leaves, mask4), g.to(out.dtype),
+                                       retain_graph=True)
+
+
+def check_bwd(attn, q, k, v, m, g, seed, rate, where):
+    """The backward kernel against its plain twin on the same inputs:
+    each output's relative error, raising above its tolerance; and the
+    largest absolute error."""
+    got = attn.attention_bwd(q, k, v, m, g, seed, rate)
+    want = attn.attention_bwd_reference(q, k, v, m, g, seed, rate)
+    torch.cuda.synchronize()
+    errs, abs_err = {}, 0.0
+    for name, x, y in zip(("dq", "dk", "dv", "dm"), got, want):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"backward {name}: {x.shape} {x.dtype} vs "
+                                 f"{y.shape} {y.dtype}")
+        errs[name] = rel_err(x, y)
+        tol = BWD_DM_RTOL if name == "dm" else BWD_RTOL[q.dtype]
+        if not errs[name] <= tol:
+            raise AssertionError(f"attention backward {where} {q.dtype} rate {rate}: "
+                                 f"{name} rel err {errs[name]} > {tol}")
+        abs_err = max(abs_err, (x.float() - y.float()).abs().max().item())
+    return errs, abs_err
+
+
+def phase_kernels(attn, dev, fwd_mix, bwd_mix):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fwd_rows, bwd_rows, fwd_err, bwd_err = [], [], 0.0, 0.0
+    seed = 2**31 + 7  # above int32: exercises the 32-bit wrap
+    for (lq, lk) in fwd_mix:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, g = kernel_inputs(B, lq, lk, dtype, gen, dev)
+            for rate in (0.0, 0.1):
+                got = attn.fused_attention(q, k, v, m, dropout_rate=rate, dropout_seed=seed)
+                want = attn.attention_reference(q, k, v, m, seed, rate)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = TOL[(dtype, rate)]
+                if not err <= tol:
+                    raise AssertionError(f"attention ({lq},{lk}) {dtype} rate {rate}: "
+                                         f"max abs err {err} > {tol}")
+                fwd_err = max(fwd_err, err)
+                row = {"lq": lq, "lk": lk, "dtype": str(dtype).split(".")[1], "rate": rate,
+                       "max_abs_err": err, "tol": tol}
+                if rate == 0.0:
+                    bytes_ms, flops_ms = attention_bound_ms(B, lq, lk, q.element_size())
+                    mask4 = m[:, None, None, :].to(dtype)
+                    row.update(
+                        ms=cuda_time_ms(lambda: attn.fused_attention(q, k, v, m)),
+                        plain_ms=cuda_time_ms(lambda: attn.attention_reference(q, k, v, m)),
+                        library_ms=cuda_time_ms(
+                            lambda: torch.nn.functional.scaled_dot_product_attention(
+                                q, k, v, attn_mask=mask4)),
+                        bytes_ms=bytes_ms, flops_ms=flops_ms)
+                fwd_rows.append(row)
+
+                # the backward at the same inputs, dropout bits included
+                errs, err = check_bwd(attn, q, k, v, m, g, seed, rate, f"B {B} ({lq},{lk})")
+                bwd_err = max(bwd_err, err)
+                brow = {"lq": lq, "lk": lk, "dtype": str(dtype).split(".")[1], "rate": rate,
+                        "rel_err": errs, "rtol": BWD_RTOL[dtype], "dm_rtol": BWD_DM_RTOL}
+                if rate == 0.0:
+                    bytes_ms, flops_ms = attention_bwd_bound_ms(B, lq, lk, q.element_size())
+                    brow.update(
+                        ms=cuda_time_ms(lambda: attn.attention_bwd(q, k, v, m, g)),
+                        plain_ms=cuda_time_ms(
+                            lambda: attn.attention_bwd_reference(q, k, v, m, g)),
+                        library_ms=cuda_time_ms(sdpa_backward(q, k, v, m, g, dtype)),
+                        bytes_ms=bytes_ms, flops_ms=flops_ms, main_path=(lq, lk) in bwd_mix)
+                bwd_rows.append(brow)
+    emit("kernels", kernel="attention_fwd", batch=B, heads=H, head_dim=DH, results=fwd_rows)
+    emit("kernels", kernel="attention_bwd", batch=B, heads=H, head_dim=DH, results=bwd_rows)
+
+    # the backward at the training batch and the main path's own shapes:
+    # checked at both rates, timed with dropout off
+    b8 = []
+    for (lq, lk) in bwd_mix:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, g = kernel_inputs(TRAIN_B, lq, lk, dtype, gen, dev)
+            for rate in (0.0, 0.1):
+                errs, err = check_bwd(attn, q, k, v, m, g, seed, rate,
+                                      f"B {TRAIN_B} ({lq},{lk})")
+                bwd_err = max(bwd_err, err)
+                row = {"lq": lq, "lk": lk, "dtype": str(dtype).split(".")[1], "rate": rate,
+                       "rel_err": errs}
+                if rate == 0.0:
+                    bytes_ms, flops_ms = attention_bwd_bound_ms(TRAIN_B, lq, lk,
+                                                                q.element_size())
+                    row.update(
+                        ms=cuda_time_ms(lambda: attn.attention_bwd(q, k, v, m, g)),
+                        plain_ms=cuda_time_ms(
+                            lambda: attn.attention_bwd_reference(q, k, v, m, g)),
+                        library_ms=cuda_time_ms(sdpa_backward(q, k, v, m, g, dtype)),
+                        bytes_ms=bytes_ms, flops_ms=flops_ms)
+                b8.append(row)
+    emit("kernels", kernel="attention_bwd", batch=TRAIN_B, heads=H, head_dim=DH, results=b8)
+    return fwd_rows, b8, fwd_err, bwd_err
+
+
+def weighted(rows, mix, key):
+    """Mean of ``key`` over fp32, dropout-off rows, weighted by the
+    launches of each shape in ``mix``."""
+    by_shape = {(r["lq"], r["lk"]): r for r in rows
+                if r["dtype"] == "float32" and "ms" in r}
+    return sum(n * key(by_shape[s]) for s, n in mix.items()) / sum(mix.values())
+
+
+def summary_row(name, source, replaces, launches, max_err, rows, mix, batch):
+    """The kernel's line of the summary: ``launches`` from the run of its
+    main path, times and bound from ``rows`` timed at that path's batch
+    and shapes, weighted by its launches per shape."""
+    bytes_mean = weighted(rows, mix, lambda r: r["bytes_ms"])
+    flops_mean = weighted(rows, mix, lambda r: r["flops_ms"])
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "batch": batch, "max_abs_err": max_err,
+        "ms": weighted(rows, mix, lambda r: r["ms"]),
+        "plain_ms": weighted(rows, mix, lambda r: r["plain_ms"]),
+        "bound_ms": weighted(rows, mix, lambda r: max(r["bytes_ms"], r["flops_ms"])),
+        "bound_by": "bytes" if bytes_mean >= flops_mean else "operations",
+        "library_ms": weighted(rows, mix, lambda r: r["library_ms"]),
+    }
+
+
+def il_gradients(agent, ep):
+    """Loss and named gradients of one IL update's loss, no step."""
+    agent.model.train()
+    agent.critic.train()
+    loss = agent._il_loss(ep, agent.cfg.train.teacher_weight)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
+             if p.grad is not None}
+    return loss.item(), grads
 
 
 def main() -> int:
@@ -99,19 +324,25 @@ def main() -> int:
          cuda=torch.version.cuda, nvidia_smi=smi)
 
     # ------------------------------------------------------------- build
-    built = attn.build_library()
-    ptxas = [ln.strip() for ln in built["ptxas"].splitlines()
-             if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit("build", seconds=built["seconds"], library=built["path"], ptxas=ptxas)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(attn.SOURCES)) as pool:
+        builds = dict(zip(attn.SOURCES, pool.map(attn.build_library, attn.SOURCES)))
+    for name, built in builds.items():
+        ptxas = [ln.strip() for ln in built["ptxas"].splitlines()
+                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+        emit("build", kernel=name, seconds=built["seconds"], library=built["path"],
+             ptxas=ptxas)
+    emit("build", wall_seconds=time.perf_counter() - t0)
 
     # ------------------------------------------------- the slice's world
     cfg, world = slice_config(B, seed=0)
     mcfg, t_max = cfg.model, cfg.env.max_action_len
     n_ob = cfg.env.max_candidates + 1 + 36
     l_txt, l_pano, l_visn = cfg.env.max_instr_len, 36, t_max + 1 + n_ob
-    # attention launches per greedy batch, by (Lq, Lk): the text stack
-    # once, then per step the panorama encoder and, in each cross-modal
-    # layer, cross-attention both ways and the two self-attentions
+    # forward launches per greedy batch or IL update, by (Lq, Lk): the
+    # text stack once, then per step the panorama encoder and, in each
+    # cross-modal layer, cross-attention both ways and the two
+    # self-attentions
     mix = collections.Counter()
     mix[(l_txt, l_txt)] += mcfg.num_l_layers + t_max * mcfg.num_x_layers
     mix[(l_pano, l_pano)] += t_max * mcfg.num_h_pano_layers
@@ -119,51 +350,20 @@ def main() -> int:
     mix[(l_visn, l_txt)] += t_max * mcfg.num_x_layers
     mix[(l_visn, l_visn)] += t_max * mcfg.num_x_layers
     per_batch = sum(mix.values())
+    # backward launches per IL update: fix_lang_embedding and
+    # fix_hist_embedding keep the text and panorama stacks out of the
+    # graph, so only the cross-modal layers' attentions run backward
+    bwd_mix = collections.Counter({s: t_max * mcfg.num_x_layers for s in
+                                   ((l_txt, l_txt), (l_txt, l_visn), (l_visn, l_txt),
+                                    (l_visn, l_visn))})
+    per_update_bwd = sum(bwd_mix.values())
+    if per_batch != 279 or per_update_bwd != 240:
+        raise AssertionError(f"launch mix {mix} / {bwd_mix}: expected 279 and 240")
 
     # ----------------------------------------------------------- kernels
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rows, max_err = [], 0.0
-    for (lq, lk) in mix:
-        for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn(B, lq, H, DH, device=dev, generator=gen).to(dtype).transpose(1, 2)
-            k = torch.randn(B, lk, H, DH, device=dev, generator=gen).to(dtype).transpose(1, 2)
-            v = torch.randn(B, lk, H, DH, device=dev, generator=gen).to(dtype).transpose(1, 2)
-            m = torch.where(torch.rand(B, lk, device=dev, generator=gen) < 0.8, 0.0, -10000.0)
-            for rate in (0.0, 0.1):
-                seed = 2**31 + 7  # above int32: exercises the 32-bit wrap
-                got = attn.fused_attention(q, k, v, m, dropout_rate=rate, dropout_seed=seed)
-                want = attn.attention_reference(q, k, v, m, seed, rate)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                tol = TOL[(dtype, rate)]
-                if not err <= tol:
-                    raise AssertionError(f"attention ({lq},{lk}) {dtype} rate {rate}: "
-                                         f"max abs err {err} > {tol}")
-                max_err = max(max_err, err)
-                row = {"lq": lq, "lk": lk, "dtype": str(dtype).split(".")[1], "rate": rate,
-                       "max_abs_err": err, "tol": tol}
-                if rate == 0.0:
-                    bytes_ms, flops_ms = attention_bound_ms(lq, lk, q.element_size())
-                    mask4 = m[:, None, None, :].to(dtype)
-                    row.update(
-                        ms=cuda_time_ms(lambda: attn.fused_attention(q, k, v, m)),
-                        plain_ms=cuda_time_ms(lambda: attn.attention_reference(q, k, v, m)),
-                        library_ms=cuda_time_ms(
-                            lambda: torch.nn.functional.scaled_dot_product_attention(
-                                q, k, v, attn_mask=mask4)),
-                        bytes_ms=bytes_ms, flops_ms=flops_ms)
-                rows.append(row)
-    emit("kernels", kernel="attention_fwd", batch=B, heads=H, head_dim=DH, results=rows)
-
-    # main-path mix at fp32, dropout off: per-launch means weighted by
-    # the launches of one greedy batch
-    fp32 = {(r["lq"], r["lk"]): r for r in rows if r["dtype"] == "float32" and "ms" in r}
-
-    def mean(key_fn):
-        return sum(n * key_fn(fp32[s]) for s, n in mix.items()) / per_batch
-
-    bytes_mean = mean(lambda r: r["bytes_ms"])
-    flops_mean = mean(lambda r: r["flops_ms"])
+    # timed at each main path's batch: the forward at the serving slice's
+    # 32, the backward at the training slice's 8
+    fwd_rows, bwd_rows, fwd_err, bwd_err = phase_kernels(attn, dev, mix, bwd_mix)
 
     # ------------------------------------------------------------- slice
     env = slice_env(cfg, world, seed=0)
@@ -171,17 +371,16 @@ def main() -> int:
     agent.enable_feature_table()
     agent.eval_split_device()  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    for name in attn.launch_counts:
-        attn.launch_counts[name] = 0
+    reset_counts(attn)
     t0 = time.perf_counter()
     preds = agent.eval_split_device()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(attn.launch_counts)
+    slice_launches = dict(attn.launch_counts)
     batches = len(world.instr_data) // B + 1  # iterate until an instr_id repeats
-    if per_batch != 279 or launches["attention_fwd"] != per_batch * batches:
-        raise AssertionError(f"attention launches {launches} != 279 x {batches} batches "
-                             f"(per batch by shape: {mix})")
+    if slice_launches != {"attention_fwd": per_batch * batches, "attention_bwd": 0}:
+        raise AssertionError(f"attention launches {slice_launches} != 279 x {batches} batches "
+                             f"and no backward (per batch by shape: {mix})")
     metrics, _ = env.eval_metrics(preds)
     if len(preds) != len(world.instr_data):
         raise AssertionError(f"{len(preds)} predictions for {len(world.instr_data)} items")
@@ -195,9 +394,10 @@ def main() -> int:
          episodes=len(preds), rollouts=batches * B, seconds=seconds,
          episodes_per_s=len(preds) / seconds, rollouts_per_s=batches * B / seconds,
          sr=metrics["sr"], spl=metrics["spl"], ndtw=metrics["nDTW"],
-         launches=launches, launches_per_batch=per_batch, shape_mix=
+         launches=slice_launches, launches_per_batch=per_batch, shape_mix=
          {f"{lq}x{lk}": n for (lq, lk), n in mix.items()},
-         attention_ms_per_batch=mean(lambda r: r["ms"]) * per_batch)
+         attention_ms_per_batch=weighted(fwd_rows, mix, lambda r: r["ms"]) * per_batch)
+    del agent
 
     # ------------------------------------------------------------ parity
     small = cfg.replace(train={"batch_size": 4})
@@ -224,17 +424,106 @@ def main() -> int:
         raise AssertionError(f"card vs CPU logits differ by {logit_err}")
     emit("parity", batch=4, t_max=t_max, max_abs_logit_err=logit_err,
          tol=PARITY_LOGIT_ATOL, trajectories_identical=True)
+    del pagent, outs
 
-    summary = {"kernels": [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "vln_hamt_torch/csrc/attention.cu",
-        "replaces": "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel
-        "launches": launches["attention_fwd"], "max_abs_err": max_err,
-        "ms": mean(lambda r: r["ms"]), "plain_ms": mean(lambda r: r["plain_ms"]),
-        "bound_ms": mean(lambda r: max(r["bytes_ms"], r["flops_ms"])),
-        "bound_by": "bytes" if bytes_mean >= flops_mean else "operations",
-        "library_ms": mean(lambda r: r["library_ms"]),
-    }]}
+    # ------------------------------------------------------------- train
+    tcfg = cfg.replace(train={"batch_size": TRAIN_B, "feedback": "teacher"})
+    tr = tcfg.train
+    if (tr.optim, tr.lr, tr.grad_clip, tr.weight_decay) != ("adamw", 1e-5, 40.0, 0.0):
+        raise AssertionError(f"the r2r preset's optimizer changed: {tr}")
+    agent = HAMTAgent(tcfg, slice_env(tcfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    for _ in range(3):  # warm-up: allocator, cuBLAS workspaces
+        agent.train_iteration("teacher", sync=False)
+    torch.cuda.synchronize()
+    iters = 20
+    reset_counts(attn)
+    t0 = time.perf_counter()
+    losses = [agent.train_iteration("teacher", sync=False)["loss"] for _ in range(iters)]
+    losses = torch.stack(losses).cpu()  # waits for the last update
+    seconds = time.perf_counter() - t0
+    train_launches = dict(attn.launch_counts)
+    want = {"attention_fwd": per_batch * iters, "attention_bwd": per_update_bwd * iters}
+    if train_launches != want:
+        raise AssertionError(f"IL launches {train_launches} != {want} "
+                             f"(279 forward, 240 backward per update)")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite IL losses {losses.tolist()}")
+    emit("train", preset="r2r", hidden=mcfg.hidden_size, batch=TRAIN_B, t_max=t_max,
+         optim=tr.optim, lr=tr.lr, grad_clip=tr.grad_clip,
+         dropout=[mcfg.hidden_dropout_prob, mcfg.attention_probs_dropout_prob,
+                  mcfg.feat_dropout], updates=iters, seconds=seconds,
+         il_episodes_per_s=iters * TRAIN_B / seconds, ms_per_update=seconds / iters * 1e3,
+         loss_mean=losses.mean().item(), loss_first=losses[0].item(),
+         loss_last=losses[-1].item(), launches=train_launches,
+         launches_per_update={k: v / iters for k, v in train_launches.items()},
+         bwd_shape_mix={f"{lq}x{lk}": n for (lq, lk), n in bwd_mix.items()},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del agent
+
+    # one repeated batch, dropout off, lr 1e-4: the loss must fall
+    no_drop = {"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
+               "feat_dropout": 0.0, "pred_head_dropout_prob": 0.0, "critic_dropout": 0.0}
+    ocfg = tcfg.replace(model=no_drop, train={"lr": 1e-4})
+    agent = HAMTAgent(ocfg, slice_env(ocfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    ep = agent._ep_to_device(agent.env.teacher_episode())
+    fit = torch.stack([agent._il_update(ep, 1.0) for _ in range(15)]).cpu()
+    if not torch.isfinite(fit).all() or not fit[-1] < fit[0]:
+        raise AssertionError(f"15 updates on one batch did not lower the loss: {fit.tolist()}")
+    emit("train", overfit_losses=fit.tolist())
+    del agent
+
+    # ------------------------------------------------------ train_parity
+    pcfg = cfg.replace(model=no_drop, train={"batch_size": 4, "feedback": "teacher"})
+    for fix in (True, False):
+        fcfg = pcfg.replace(model={"fix_lang_embedding": fix, "fix_hist_embedding": fix})
+        res = {}
+        reset_counts(attn)
+        for device in ("cuda", "cpu"):
+            pagent = HAMTAgent(fcfg, slice_env(fcfg, world, seed=0), seed=0, device=device)
+            pagent.enable_feature_table()
+            res[device] = il_gradients(pagent, pagent._ep_to_device(pagent.env.teacher_episode()))
+            del pagent
+        counts = dict(attn.launch_counts)
+        (loss_g, grads_g), (loss_c, grads_c) = res["cuda"], res["cpu"]
+        loss_err = abs(loss_g - loss_c) / abs(loss_c)
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"card vs CPU IL loss {loss_g} vs {loss_c}")
+        if grads_g.keys() != grads_c.keys():
+            raise AssertionError(f"gradients on different parameters: "
+                                 f"{sorted(grads_g.keys() ^ grads_c.keys())}")
+        top = max(g.abs().max().item() for g in grads_c.values())
+        worst = 0.0  # largest error over its tolerance
+        for name, gc in grads_c.items():
+            scale = gc.abs().max().item()
+            err = (grads_g[name] - gc).abs().max().item()
+            tol = TRAIN_GRAD_REL * scale + TRAIN_GRAD_FLOOR * top
+            if not err <= tol:
+                raise AssertionError(f"card vs CPU gradient of {name}: {err} (max {scale})")
+            worst = max(worst, err / tol)
+        # with the flags off the text stack and the panorama encoder run
+        # backward too, except at the last step: its history token is
+        # never read, so autograd skips that encoder (the JAX package's
+        # scan runs it on a zero cotangent)
+        want_bwd = per_update_bwd + (0 if fix else mcfg.num_l_layers
+                                     + (t_max - 1) * mcfg.num_h_pano_layers)
+        if counts != {"attention_fwd": per_batch, "attention_bwd": want_bwd}:
+            raise AssertionError(f"train_parity launches {counts}, expected "
+                                 f"{per_batch} / {want_bwd}")
+        emit("train_parity", fix_lang_and_hist=fix, batch=4, loss_cuda=loss_g, loss_cpu=loss_c,
+             loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL, tensors=len(grads_c),
+             max_grad_err_over_tol=worst, grad_rel_tol=TRAIN_GRAD_REL,
+             grad_floor=TRAIN_GRAD_FLOOR, launches=counts)
+
+    summary = {"kernels": [
+        summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
+                    "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel
+                    slice_launches["attention_fwd"], fwd_err, fwd_rows, mix, B),
+        summary_row("attention_bwd", "vln_hamt_torch/csrc/attention_bwd.cu",
+                    "vln_hamt_tpu/ops/attention.py:85",  # _attn_bwd_kernel
+                    train_launches["attention_bwd"], bwd_err, bwd_rows, bwd_mix, TRAIN_B),
+    ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -82,3 +82,71 @@ def test_strided_views_and_checks():
         tops.fused_attention(tq, tk, tv, tm[:, :-1])
     with pytest.raises(ValueError):
         tops.fused_attention(tq, tk, tv, tm, dropout_rate=0.1)  # no seed
+
+
+# ------------------------------------------------------------ backward
+# as tests/test_ops_vision.py:92-98: fp32 gradients of O(1) inputs
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+
+
+def _jax_grads(fn, q, k, v, m, g):
+    """(dq, dk, dv, dm) of fn(q, k, v, m) for the cotangent g."""
+    import jax
+
+    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v, m)))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.3, 1234), (0.3, 2**31 + 7),
+                                       (0.3, -5), (0.3, 2**32 - 1)])
+def test_backward_matches_jax(rate, seed):
+    """The backward twin and the autograd Function (CPU) against jax.grad
+    of the XLA reference and against the Pallas custom VJP in interpret
+    mode, which runs _attn_bwd_kernel; dm included."""
+    q, k, v, m = _inputs(seed % 89 + 1)
+    g = np.random.default_rng(seed % 7).standard_normal(q.shape).astype(np.float32)
+    js = _jax_seed(seed)
+    want_ref = _jax_grads(lambda *a: _attention_reference(*a, js, rate), q, k, v, m, g)
+    want_kernel = _jax_grads(lambda *a: jax_fused_attention(
+        *a, interpret=True, dropout_rate=rate, dropout_seed=js if rate > 0 else None),
+        q, k, v, m, g)
+
+    tq, tk, tv, tm, tg = (torch.from_numpy(x) for x in (q, k, v, m, g))
+    twin = tops.attention_bwd_reference(tq, tk, tv, tm, tg, seed, rate)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv, tm)]
+    before = dict(tops.launch_counts)
+    out = tops.fused_attention(*leaves, dropout_rate=rate,
+                               dropout_seed=seed if rate > 0 else None)
+    fn_grads = torch.autograd.grad(out, leaves, tg)
+    assert tops.launch_counts == before
+    for name, a, b_, w1, w2 in zip("qkvm", twin, fn_grads, want_ref, want_kernel):
+        for got in (a, b_):
+            np.testing.assert_allclose(got.numpy(), w1, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                       err_msg=name)
+            np.testing.assert_allclose(got.numpy(), w2, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                       err_msg=name)
+
+
+def test_backward_through_strided_views():
+    """The layer's (B, L, H, Dh) projections seen as (B, H, L, Dh) views:
+    gradients land in the projections' layout and equal those of
+    contiguous inputs."""
+    q, k, v, m = _inputs(5)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(q.shape).astype(np.float32))
+    grads = []
+    for strided in (False, True):
+        leaves = [torch.from_numpy(x.transpose(0, 2, 1, 3).copy() if strided else x)
+                  .requires_grad_() for x in (q, k, v)]
+        args = [x.transpose(1, 2) if strided else x for x in leaves]
+        out = tops.fused_attention(*args, torch.from_numpy(m), dropout_rate=0.3,
+                                   dropout_seed=77)
+        (out * g).sum().backward()
+        grads.append([x.grad.transpose(1, 2) if strided else x.grad for x in leaves])
+    for a, b_ in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b_.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_dropout_seed_must_be_a_host_int():
+    q, k, v, m = (torch.from_numpy(x) for x in _inputs(2))
+    with pytest.raises(TypeError, match="host int"):
+        tops.fused_attention(q, k, v, m, dropout_rate=0.1, dropout_seed=torch.tensor(3))

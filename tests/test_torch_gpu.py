@@ -50,3 +50,89 @@ def test_kernel_matches_plain(cuda, dtype, rate, lq, lk):
     assert got.shape == want.shape == (b, h, lq, dh)
     err = (got - want).abs().max().item()
     assert err <= TOL[(dtype, rate)], err
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+# Backward, relative to each tensor's largest value. fp32: sums of at
+# most 65 products (dq, dk, dv) or 12 x 65 terms (dm) in another order
+# than cuBLAS's, each rounding within 6e-8 of the terms' scale. bf16
+# outputs: both sides round an fp32 value to bf16, and a last-bit
+# difference in fp32 may flip that rounding by one bf16 step, 2^-8 of
+# the value. dm is fp32 in both cases.
+BWD_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
+BWD_DM_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("lq,lk", [(60, 60), (36, 36), (60, 65), (65, 60), (65, 65)])
+def test_backward_kernel_matches_plain(cuda, dtype, rate, lq, lk):
+    g = torch.Generator(device=cuda).manual_seed(lq * 1000 + lk + 7)
+    b, h, dh = 4, 12, 64
+    q = torch.randn(b, lq, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    k = torch.randn(b, lk, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    v = torch.randn(b, lk, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
+    m = torch.where(torch.rand(b, lk, device=cuda, generator=g) < 0.8, 0.0, -10000.0)
+    # the cotangent as the layer hands it over: a view of (B, Lq, H, Dh)
+    cot = torch.randn(b, lq, h, dh, device=cuda, generator=g).transpose(1, 2)
+    seed = 2**31 + 11
+    n0 = tops.launch_counts["attention_bwd"]
+    got = tops.attention_bwd(q, k, v, m, cot, seed, rate)
+    torch.cuda.synchronize()
+    assert tops.launch_counts["attention_bwd"] == n0 + 1
+    want = tops.attention_bwd_reference(q, k, v, m, cot, seed, rate)
+    for name, x, y in zip(("dq", "dk", "dv", "dm"), got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        err = _rel_err(x, y)
+        print(f"bwd {lq}x{lk} {dtype} rate {rate} {name}: rel err {err:.3g}")
+        assert err <= (BWD_DM_RTOL if name == "dm" else BWD_RTOL[dtype]), (name, err)
+
+
+def test_autograd_function_launches_both_kernels(cuda):
+    """fused_attention on CUDA tensors that require grad: the forward and
+    backward kernels run once each, and the gradients are the twins'."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, h, lq, lk, dh = 2, 12, 65, 60, 64
+    q = torch.randn(b, lq, h * dh, device=cuda, generator=g).requires_grad_()
+    kv = torch.randn(b, lk, h * dh, device=cuda, generator=g).requires_grad_()
+    m = torch.where(torch.rand(b, lk, device=cuda, generator=g) < 0.8, 0.0, -10000.0)
+    m.requires_grad_()
+    split = lambda x, l: x.view(b, l, h, dh).transpose(1, 2)
+    before = dict(tops.launch_counts)
+    out = tops.fused_attention(split(q, lq), split(kv, lk), split(kv * 2, lk), m,
+                               dropout_rate=0.1, dropout_seed=123)
+    out.transpose(1, 2).reshape(b, lq, h * dh).pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert tops.launch_counts["attention_fwd"] == before["attention_fwd"] + 1
+    assert tops.launch_counts["attention_bwd"] == before["attention_bwd"] + 1
+    got = (q.grad, kv.grad, m.grad)
+    q2, kv2, m2 = (x.detach().clone().requires_grad_() for x in (q, kv, m))
+    ref = tops.attention_reference(split(q2, lq), split(kv2, lk), split(kv2 * 2, lk), m2,
+                                   123, 0.1)
+    ref.transpose(1, 2).reshape(b, lq, h * dh).pow(2).sum().backward()
+    for x, y in zip(got, (q2.grad, kv2.grad, m2.grad)):
+        assert _rel_err(x, y) <= 1e-4
+
+
+def test_backward_without_mask_gradient(cuda):
+    """A mask that takes no gradient (the model's masks never do): the
+    backward kernel skips dm and still gives the twin's dq, dk, dv."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, h, lq, lk, dh = 2, 12, 65, 60, 64
+    q, k, v = (torch.randn(b, h, l, dh, device=cuda, generator=g).requires_grad_()
+               for l in (lq, lk, lk))
+    m = torch.where(torch.rand(b, lk, device=cuda, generator=g) < 0.8, 0.0, -10000.0)
+    cot = torch.randn(b, h, lq, dh, device=cuda, generator=g)
+    n0 = tops.launch_counts["attention_bwd"]
+    out = tops.fused_attention(q, k, v, m, dropout_rate=0.1, dropout_seed=9)
+    got = torch.autograd.grad(out, (q, k, v), cot)
+    torch.cuda.synchronize()
+    assert tops.launch_counts["attention_bwd"] == n0 + 1
+    want = tops.attention_bwd_reference(q.detach(), k.detach(), v.detach(), m, cot, 9, 0.1)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(x, y) <= BWD_RTOL[torch.float32], name

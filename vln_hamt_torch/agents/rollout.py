@@ -1,5 +1,7 @@
 """Device-resident episode computation (torch), the port of
-``vln_hamt_tpu/agents/rollout.py`` for greedy evaluation.
+``vln_hamt_tpu/agents/rollout.py``: the greedy rollout of evaluation
+(:func:`build_device_rollout`) and the teacher-forced episode of IL
+training (:func:`build_episode_forward`).
 
 The reference interleaves per-step GPU forwards with Python list
 appends and simulator calls (``agent_cmt.py:248-529``). Here a whole
@@ -17,8 +19,9 @@ bookkeeping (agent_cmt.py:305-306,399-401) without ragged shapes.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -96,12 +99,16 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs):
 
     core(txt_embeds, txt_mask, hist_cache, hist_len, t, pano_feat,
          view_index, cand_point, cand_ang, live, forbid, given_action, mode)
-      -> action (B,), logits (B, N), value (B,), hist_cache, hist_len
+      -> action (B,), logits (B, N), state (B, D), value (B,), hist_cache,
+         hist_len
 
     ``t`` is a step id on the device: 0-d (lock-step rollout) or (B,)
     (per-sample positions); the new history token goes to slot ``t+1``
-    of each sample. The cache is updated in place (eval holds no graph,
-    and in-place saves a (B, T+1, D) copy per step).
+    of each sample. ``forbid`` (B, N) masks actions of ``argmax`` mode.
+    The cache is written out of place, as the JAX package's
+    ``dynamic_update_slice``: under autograd an op that saved the old
+    cache for its backward (a linear layer of ``h_layers``, say) would
+    otherwise see it change.
     """
 
     def core(txt_embeds, txt_mask, hist_cache, hist_len, t,
@@ -112,9 +119,8 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs):
         logits, state = model.plan(
             txt_embeds, txt_mask, hist_cache, hist_mask(hist_len, h_max),
             ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
-        masked_logits = logits.masked_fill(forbid, -math.inf)
         if mode == "argmax":
-            action = torch.argmax(masked_logits, dim=-1)
+            action = torch.argmax(logits.masked_fill(forbid, -math.inf), dim=-1)
         elif mode == "teacher":
             action = given_action
         else:
@@ -129,10 +135,10 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs):
         new_tok = model.encode_history(ob["hist_img"], act_ang, t,
                                        ob["pano_img"], ob["pano_ang"])
         b = hist_cache.shape[0]
-        rows = torch.arange(b, device=hist_cache.device)
-        hist_cache[rows, t.expand(b) + 1] = new_tok.to(hist_cache.dtype)
+        index = (torch.arange(b, device=hist_cache.device), t.expand(b) + 1)
+        hist_cache = hist_cache.index_put(index, new_tok.to(hist_cache.dtype))
         hist_len = hist_len + live.to(hist_len.dtype)
-        return action, logits, value, hist_cache, hist_len
+        return action, logits, state, value, hist_cache, hist_len
 
     return core
 
@@ -204,7 +210,7 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             live = ~ended
             cg, valid, cand_point, cand_ang = cand_tables(node, view)
             pano = feat_table[node]
-            action, logits, value, hist_cache, hist_len = core(
+            action, logits, _, value, hist_cache, hist_len = core(
                 txt_embeds, txt_mask, hist_cache, hist_len, steps[t], pano,
                 view, cand_point, cand_ang, live, forbid, given, "argmax")
 
@@ -247,3 +253,83 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
         return ep, extras
 
     return rollout
+
+
+@dataclasses.dataclass
+class EpisodeOutputs:
+    logits: torch.Tensor  # (T, B, N) float32
+    states: torch.Tensor  # (T, B, D)
+    values: torch.Tensor  # (T, B)
+    last_value: torch.Tensor  # (B,) bootstrap value of the final obs
+    hist_cache: torch.Tensor  # (B, T+1, D) final history cache
+
+
+def build_episode_forward(model: HAMT, critic: Critic, ob_type: str = "pano"
+                          ) -> Callable[..., EpisodeOutputs]:
+    """The teacher-forced episode of ``vln_hamt_tpu/agents/rollout.py:
+    build_episode_forward`` (:147-262): the whole recorded episode through
+    the model, differentiable end to end.
+
+    Returns episode_forward(ep, feat_table=None) -> EpisodeOutputs, where
+    ``ep`` holds device tensors in the compact observation schema:
+    txt_ids (B, L), txt_mask (B, L), view_index (B, T), cand_point
+    (B, T, C), cand_ang (B, T, C, A), actions (B, T) (the slots taken;
+    STOP once ended), step_mask (B, T), and either pano_feat
+    (B, T, V, D) or node_idx (B, T) rows of ``feat_table`` (N, V, D).
+    Optional final_{pano_feat | node_idx}, final_view_index,
+    final_cand_point and final_cand_ang give the observation after the
+    last action, for the bootstrap value (no gradient); without them
+    ``last_value`` is zero. Dropout follows the modules' train/eval
+    mode. The loop over T only enqueues work: nothing is read back.
+    """
+    cfg = model.config
+    device = next(model.parameters()).device
+    expand_obs = make_expand_obs(36, cfg.angle_feat_size, ob_type, device=device)
+    core = make_policy_core(model, critic, expand_obs)
+
+    def episode_forward(ep: Dict[str, torch.Tensor],
+                        feat_table: Optional[torch.Tensor] = None) -> EpisodeOutputs:
+        if "node_idx" in ep:
+            pano_feat = feat_table[ep["node_idx"].long()]  # one gather, (B, T, V, D)
+            final_pano = (feat_table[ep["final_node_idx"].long()]
+                          if "final_node_idx" in ep else None)
+        else:
+            pano_feat, final_pano = ep["pano_feat"], ep.get("final_pano_feat")
+        txt_mask = ep["txt_mask"]
+        b, t_steps = ep["actions"].shape
+        if t_steps > cfg.max_action_steps:
+            raise ValueError(f"episode of {t_steps} steps exceeds the history position "
+                             f"table ({cfg.max_action_steps})")
+        h_max = t_steps + 1
+
+        txt_embeds = model.encode_text(ep["txt_ids"], txt_mask)
+        hist0 = model.init_history(b)
+        hist_cache = torch.cat([hist0[:, None], hist0.new_zeros((b, t_steps, cfg.hidden_size))],
+                               dim=1)
+        hist_len = torch.ones(b, dtype=torch.int32, device=device)
+        steps = torch.arange(t_steps, device=device)
+        logits, states, values = [], [], []
+        for t in range(t_steps):
+            _, lg, state, value, hist_cache, hist_len = core(
+                txt_embeds, txt_mask, hist_cache, hist_len, steps[t], pano_feat[:, t],
+                ep["view_index"][:, t], ep["cand_point"][:, t], ep["cand_ang"][:, t],
+                ep["step_mask"][:, t], None, ep["actions"][:, t], "teacher")
+            logits.append(lg)
+            states.append(state)
+            values.append(value)
+
+        if final_pano is not None:
+            with torch.no_grad():
+                ob = expand_obs(final_pano, ep["final_view_index"], ep["final_cand_point"],
+                                ep["final_cand_ang"])
+                _, last_state = model.plan(
+                    txt_embeds, txt_mask, hist_cache, hist_mask(hist_len, h_max),
+                    ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
+                last_value = critic(last_state)
+        else:
+            last_value = torch.zeros(b, device=device)
+        return EpisodeOutputs(logits=torch.stack(logits), states=torch.stack(states),
+                              values=torch.stack(values), last_value=last_value,
+                              hist_cache=hist_cache)
+
+    return episode_forward

@@ -30,15 +30,11 @@
 // cudaError_t of the launch; the launch goes on the caller's stream and
 // does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+using namespace hamt;
 
 struct Params {
   const void* q;
@@ -58,32 +54,6 @@ struct Params {
   float inv_keep;
   int dropout;
 };
-
-__device__ __forceinline__ uint32_t splitmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Shared memory, in floats: K (Lk x (Dh + 1)), V (Lk x Dh), mask (Lk),
 // one query row per warp (kWarps x Dh), one probability row per warp
@@ -123,8 +93,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(Params p) {
   const int lane = threadIdx.x & 31;
   float* qw = qs + warp * Dh;
   float* pw = ps + warp * Lk;
-  const uint32_t key =
-      p.seed + (uint32_t)b * 0x9E3779B1u + (uint32_t)h * 0x85EBCA77u;
+  const uint32_t key = dropout_key(p.seed, b, h);
 
   for (int r = warp; r < p.Lq; r += kWarps) {
     const T* qrow = qb + r * p.qsl;
@@ -151,11 +120,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(Params p) {
     sum = warp_sum(sum);
     for (int j = lane; j < Lk; j += 32) {
       float pj = pw[j] / sum;
-      if (p.dropout) {
-        const uint32_t idx = (uint32_t)r * (uint32_t)Lk + (uint32_t)j;
-        const uint32_t bits = splitmix32(key ^ splitmix32(idx));
-        pj = bits >= p.thresh ? pj * p.inv_keep : 0.f;
-      }
+      if (p.dropout) pj = dropout_keep(key, r, j, Lk, p.thresh) ? pj * p.inv_keep : 0.f;
       pw[j] = pj;
     }
     __syncwarp();

@@ -16,7 +16,7 @@ arrays keyed by torch names.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 
@@ -126,3 +126,19 @@ def critic_params_from_flax(cparams: Tree) -> Dict[str, np.ndarray]:
     _linear(sd, "state2value.0", cparams["Dense_0"])
     _linear(sd, "state2value.3", cparams["Dense_1"])
     return sd
+
+
+def adam_state_from_flax(count, mu: Tree, nu: Tree,
+                         convert: Callable[[Tree], Dict[str, np.ndarray]]) -> Dict[str, Any]:
+    """optax's Adam state -> the port's optimizer state.
+
+    ``count``, ``mu`` and ``nu`` are the fields of optax's
+    ``ScaleByAdamState`` (``mu`` and ``nu`` as nested dicts of numpy
+    arrays, the same flax tree as the params they belong to); ``convert``
+    is the tree's params mapping, e.g. ``lambda t: params_from_flax(t,
+    cfg)`` or :func:`critic_params_from_flax`. The moments are laid out
+    as the weights are (kernels transposed), so the result feeds
+    ``agents/optim.py:OptaxOptimizer.load_adam_state``, and a JAX run and
+    a port run continue from the same step.
+    """
+    return {"count": int(np.asarray(count)), "mu": convert(mu), "nu": convert(nu)}

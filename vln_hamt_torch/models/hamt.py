@@ -16,12 +16,18 @@ methods:
                                  (mode='visual'); history arrives as a fixed
                                  (B, T_max+1, D) cache with a length mask.
 
-This slice computes the evaluation forward (no dropout, fp32);
+The model runs fp32. ``.train()`` turns on the dropouts of the JAX
+package (hidden, attention-probability, feature, action-head and critic
+dropout; see ``models/layers.py`` for where the random draws come
+from), ``.eval()`` turns them off. The ``fix_*`` flags stop gradients as
+the JAX package's ``stop_gradient`` calls do, by running the frozen part
+under ``torch.no_grad()`` (same gradients, no saved activations).
 ``plan_ref``, ``encode_history_seq`` and ``fuse`` wait for later slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -29,11 +35,18 @@ import torch
 from torch import nn
 
 from ..configs import ModelConfig
-from .layers import CrossModalLayer, TransformerLayer, TransformerStack, extend_mask, run_layers
+from .layers import (CrossModalLayer, Dropout, TransformerLayer, TransformerStack,
+                     extend_mask, run_layers)
 
 
 def _ln(d: int) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=1e-12)
+
+
+def _frozen(flag: bool):
+    """No gradient through the block when ``flag`` (a stop_gradient on
+    its output in the JAX package)."""
+    return torch.no_grad() if flag else contextlib.nullcontext()
 
 
 class TextEmbeddings(nn.Module):
@@ -50,6 +63,7 @@ class TextEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
         self.LayerNorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, txt_ids: torch.Tensor) -> torch.Tensor:
         l = txt_ids.shape[1]
@@ -60,7 +74,7 @@ class TextEmbeddings(nn.Module):
         emb = (self.word_embeddings(txt_ids)
                + self.position_embeddings(pos_ids)
                + self.token_type_embeddings(torch.zeros_like(txt_ids)))
-        return self.LayerNorm(emb)
+        return self.dropout(self.LayerNorm(emb))
 
 
 class Encoder(nn.Module):
@@ -115,11 +129,11 @@ class HistoryEmbeddings(nn.Module):
 
 class NextActionPrediction(nn.Module):
     """Action head (vilmodel_cmt.py:597-607): net.0 dense, net.1 ReLU,
-    net.2 LN, net.3 the dropout slot (identity in eval), net.4 dense."""
+    net.2 LN, net.3 dropout, net.4 dense."""
 
-    def __init__(self, d: int):
+    def __init__(self, d: int, dropout: float):
         super().__init__()
-        self.net = nn.Sequential(nn.Linear(d, d), nn.ReLU(), _ln(d), nn.Identity(),
+        self.net = nn.Sequential(nn.Linear(d, d), nn.ReLU(), _ln(d), Dropout(dropout),
                                  nn.Linear(d, 1))
 
     def forward(self, x):
@@ -138,7 +152,9 @@ class HAMT(nn.Module):
         self.encoder = Encoder(cfg)
         self.img_embeddings = ImageEmbeddings(cfg)
         self.hist_embeddings = HistoryEmbeddings(cfg)
-        self.next_action = NextActionPrediction(cfg.hidden_size)
+        self.next_action = NextActionPrediction(cfg.hidden_size, cfg.pred_head_dropout_prob)
+        self.hidden_dropout = Dropout(cfg.hidden_dropout_prob)
+        self.feat_drop = Dropout(cfg.feat_dropout)  # visual features (model_HAMT.py:18)
 
     # ------------------------------------------------------------------
     def encode_text(self, txt_ids: torch.Tensor, txt_mask: torch.Tensor) -> torch.Tensor:
@@ -147,10 +163,12 @@ class HAMT(nn.Module):
         Returns (B, L, D), or (X+1, B, L, D) stacked per-x-layer language
         states when ``no_lang_ca`` (precomputed lang stream).
         """
+        cfg = self.config
         ext = extend_mask(txt_mask)
-        x = self.embeddings(txt_ids)
-        x = run_layers(self.encoder.layer, x, ext)
-        if self.config.no_lang_ca:
+        with _frozen(cfg.fix_lang_embedding or not cfg.update_lang_bert):
+            x = self.embeddings(txt_ids)
+            x = run_layers(self.encoder.layer, x, ext)
+        if cfg.no_lang_ca:
             all_states = [x]
             for layer in self.encoder.x_layers:
                 x = layer.lang_only(x, ext)
@@ -162,9 +180,10 @@ class HAMT(nn.Module):
     def init_history(self, batch_size: int) -> torch.Tensor:
         """The global [CLS] history token (vilmodel_cmt.py:569-572)."""
         he = self.hist_embeddings
-        type_ids = torch.zeros(batch_size, dtype=torch.long, device=he.cls_token.device)
-        cls = he.cls_token.view(1, -1) + he.type_embedding(type_ids)
-        return he.layer_norm(cls)
+        with _frozen(self.config.fix_hist_embedding):
+            type_ids = torch.zeros(batch_size, dtype=torch.long, device=he.cls_token.device)
+            cls = he.cls_token.view(1, -1) + he.type_embedding(type_ids)
+            return self.hidden_dropout(he.layer_norm(cls))
 
     def encode_history(
         self,
@@ -183,28 +202,29 @@ class HAMT(nn.Module):
                                  f"table ({he.position_embeddings.num_embeddings})")
             step = torch.tensor(step, device=hist_img.device)
         step = step.to(torch.long).expand(b)
-        emb = (he.img_layer_norm(he.img_linear(hist_img))
-               + he.ang_layer_norm(he.ang_linear(hist_ang))
-               + he.position_embeddings(step)
-               + he.type_embedding(torch.zeros_like(step)))
-        if self.config.hist_enc_pano:
-            pano = (he.pano_img_layer_norm(he.pano_img_linear(pano_img))
-                    + he.pano_ang_layer_norm(he.pano_ang_linear(pano_ang)))
-            # reference passes an all-zeros additive mask (attend all 36)
-            pano = he.pano_encoder(pano, None)
-            emb = emb + pano.mean(dim=1)
-        return he.layer_norm(emb)
+        with _frozen(self.config.fix_hist_embedding):
+            emb = (he.img_layer_norm(he.img_linear(self.feat_drop(hist_img)))
+                   + he.ang_layer_norm(he.ang_linear(hist_ang))
+                   + he.position_embeddings(step)
+                   + he.type_embedding(torch.zeros_like(step)))
+            if self.config.hist_enc_pano:
+                pano = (he.pano_img_layer_norm(he.pano_img_linear(self.feat_drop(pano_img)))
+                        + he.pano_ang_layer_norm(he.pano_ang_linear(pano_ang)))
+                # reference passes an all-zeros additive mask (attend all 36)
+                pano = he.pano_encoder(self.hidden_dropout(pano), None)
+                emb = emb + pano.mean(dim=1)
+            return self.hidden_dropout(he.layer_norm(emb))
 
     # ------------------------------------------------------------------
     def embed_obs(self, ob_img, ob_ang, ob_nav) -> torch.Tensor:
         """ImageEmbeddings (vilmodel_cmt.py:498-521): obs token type = 1."""
         ie = self.img_embeddings
         type_emb = self.embeddings.token_type_embeddings(torch.ones_like(ob_nav))
-        emb = (ie.img_layer_norm(ie.img_linear(ob_img))
+        emb = (ie.img_layer_norm(ie.img_linear(self.feat_drop(ob_img)))
                + ie.ang_layer_norm(ie.ang_linear(ob_ang))
                + type_emb
                + ie.nav_type_embedding(ob_nav))
-        return ie.layer_norm(emb)
+        return self.hidden_dropout(ie.layer_norm(emb))
 
     def plan(
         self,
@@ -232,9 +252,10 @@ class HAMT(nn.Module):
         hist = hist_tokens
         if enc.h_layers is not None:
             hist = run_layers(enc.h_layers, hist, ext_hist)
-        ob = self.embed_obs(ob_img, ob_ang, ob_nav)
-        if enc.r_layers is not None:
-            ob = run_layers(enc.r_layers, ob, ext_ob)
+        with _frozen(cfg.fix_obs_embedding):
+            ob = self.embed_obs(ob_img, ob_ang, ob_nav)
+            if enc.r_layers is not None:
+                ob = run_layers(enc.r_layers, ob, ext_ob)
 
         h = hist_tokens.shape[1]
         visn = torch.cat([hist, ob], dim=1)
@@ -273,12 +294,12 @@ class HAMT(nn.Module):
 
 class Critic(nn.Module):
     """768 -> 512 -> 1 value head (model_HAMT.py:258-269): state2value.0
-    dense, .1 ReLU, .2 the dropout slot (identity in eval), .3 dense."""
+    dense, .1 ReLU, .2 dropout, .3 dense."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.state2value = nn.Sequential(nn.Linear(cfg.hidden_size, 512), nn.ReLU(),
-                                         nn.Identity(), nn.Linear(512, 1))
+                                         Dropout(cfg.critic_dropout), nn.Linear(512, 1))
 
     def forward(self, state: torch.Tensor) -> torch.Tensor:
         return self.state2value(state).squeeze(-1).float()

@@ -13,14 +13,20 @@ Numerical parity targets with the reference BERT/LXMERT blocks
 Modules are named after the reference's so that a port ``state_dict``
 is a reference NavCMT state dict (``models/convert.py``). Every
 attention goes through :func:`vln_hamt_torch.ops.fused_attention`: the
-CUDA kernel on the card, its plain torch twin on the CPU. This slice
-computes the evaluation forward only: dropout arrives with training.
+CUDA kernels on the card, their plain torch twins on the CPU.
+
+Dropout follows ``nn.Module.train()`` / ``.eval()``. In training mode
+every draw comes from the :class:`DropoutRNG` that
+:func:`set_dropout_rng` hands to the modules (the agent owns it), never
+from torch's global generator: :class:`Dropout` masks from its device
+generator, the attention kernels' 32-bit counter-hash seeds from its CPU
+generator, so choosing a seed never reads the card.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -35,6 +41,44 @@ def erf_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 ACT2FN = {"gelu": erf_gelu, "relu": torch.relu, "swish": nn.functional.silu}
+
+
+class DropoutRNG:
+    """The random streams of training-mode dropout: ``masks``, a generator
+    on the compute device for dropout masks, and ``seeds``, a CPU
+    generator for the attention kernels' 32-bit seeds."""
+
+    def __init__(self, device: Union[str, torch.device], seed: int):
+        self.masks = torch.Generator(device=device).manual_seed(seed)
+        self.seeds = torch.Generator().manual_seed(seed + 1)
+
+    def keep(self, x: torch.Tensor, p: float) -> torch.Tensor:
+        """A keep mask like ``x`` with ones at probability ``1 - p``."""
+        return torch.empty_like(x).bernoulli_(1.0 - p, generator=self.masks)
+
+    def attention_seed(self) -> int:
+        return int(torch.randint(0, 2**32, (), generator=self.seeds))
+
+
+def _rng(module: nn.Module) -> DropoutRNG:
+    if module.rng is None:
+        raise RuntimeError(f"{type(module).__name__} in training mode needs a DropoutRNG "
+                           "(models.layers.set_dropout_rng)")
+    return module.rng
+
+
+class Dropout(nn.Module):
+    """``nn.Dropout`` with its mask drawn from a :class:`DropoutRNG`."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.rng: Optional[DropoutRNG] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        return x * _rng(self).keep(x, self.p) * (1.0 / (1.0 - self.p))
 
 
 def extend_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -53,6 +97,8 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.num_heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
+        self.dropout_prob = cfg.attention_probs_dropout_prob
+        self.rng: Optional[DropoutRNG] = None
         width = self.num_heads * self.head_dim
         self.query = nn.Linear(cfg.hidden_size, width)
         self.key = nn.Linear(cfg.hidden_size, width)
@@ -72,21 +118,26 @@ class MultiHeadAttention(nn.Module):
             add_mask = hidden.new_zeros((b, lk), dtype=torch.float32)
         else:
             add_mask = attn_mask.reshape(attn_mask.shape[0], -1)
-        out = fused_attention(q, k, v, add_mask)
+        # attention-probability dropout runs inside the kernel, keyed by
+        # a fresh seed per call (layers.py:74-97 of the JAX package)
+        rate = self.dropout_prob if self.training else 0.0
+        seed = _rng(self).attention_seed() if rate > 0.0 else None
+        out = fused_attention(q, k, v, add_mask, rate, seed)
         return out.transpose(1, 2).reshape(b, lq, h * dh).to(hidden.dtype)
 
 
 class AttnOutput(nn.Module):
-    """dense -> LN(x + residual): BertSelfOutput (:132-143), and
+    """dense -> dropout -> LN(x + residual): BertSelfOutput (:132-143), and
     BertOutput (:171-185) when it follows an :class:`Intermediate`."""
 
     def __init__(self, cfg: ModelConfig, in_size: Optional[int] = None):
         super().__init__()
         self.dense = nn.Linear(in_size or cfg.hidden_size, cfg.hidden_size)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(x) + residual)
+        return self.LayerNorm(self.dropout(self.dense(x)) + residual)
 
 
 class Attention(nn.Module):
@@ -206,3 +257,10 @@ class CrossModalLayer(nn.Module):
         lang self-attention + FFN without any visual input."""
         lang_x = self.lang_self_att(lang, None, lang_mask)
         return feed_forward(self.lang_inter, self.lang_output, lang_x)
+
+
+def set_dropout_rng(module: nn.Module, rng: Optional[DropoutRNG]) -> None:
+    """Hand ``rng`` to every dropout site below ``module``."""
+    for m in module.modules():
+        if isinstance(m, (Dropout, MultiHeadAttention)):
+            m.rng = rng

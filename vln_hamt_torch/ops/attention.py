@@ -1,16 +1,21 @@
-"""Fused masked attention: the hand-written CUDA kernel and its plain twin.
+"""Fused masked attention: the hand-written CUDA kernels and their plain twins.
 
 ``fused_attention`` is the port of ``vln_hamt_tpu/ops/attention.py:
-fused_attention`` (forward only). On a CUDA tensor it launches the
-kernel in ``csrc/attention.cu``, built with ``nvcc`` for ``sm_90a`` at
-first use into ``vln_hamt_torch/build/`` (keyed by a hash of the source)
-and bound through its plain C interface with ``ctypes``. On a CPU tensor
-it runs :func:`attention_reference`, the same math in torch, which is
-also the kernel's check. It never falls back from one to the other.
+fused_attention``: one ``torch.autograd.Function`` whose forward and
+backward replace the two Pallas kernels and the custom VJP that joins
+them. On CUDA tensors it launches the kernels of ``csrc/attention.cu``
+(forward) and ``csrc/attention_bwd.cu`` (backward), each built with
+``nvcc`` for ``sm_90a`` at first use into ``vln_hamt_torch/build/``
+(keyed by a hash of its sources) and bound through its plain C
+interface with ``ctypes``. On CPU tensors it runs the plain twins
+:func:`attention_reference` and :func:`attention_bwd_reference`, the same
+math in torch, which are also the kernels' checks. It never falls back
+from one to the other.
 
-Both compute ``dropout(softmax(q k^T / sqrt(Dh) + m)) v`` in fp32 with
-the TPU kernel's counter-hash dropout, so the keep mask is bit-identical
-to ``vln_hamt_tpu/ops/attention.py:_dropout_keep_mask``.
+Forward: ``dropout(softmax(q k^T / sqrt(Dh) + m)) v`` in fp32 with the
+TPU kernel's counter-hash dropout, so the keep mask is bit-identical to
+``vln_hamt_tpu/ops/attention.py:_dropout_keep_mask``. Backward: dq, dk,
+dv and the mask cotangent dm, recomputing p with the same keep mask.
 """
 
 from __future__ import annotations
@@ -24,12 +29,15 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "attention.cu"
+CSRC = _PKG / "csrc"
+#: one shared library per kernel source; the header is part of each hash
+SOURCES = {"attention_fwd": CSRC / "attention.cu", "attention_bwd": CSRC / "attention_bwd.cu"}
+HEADERS = (CSRC / "attention_common.cuh",)
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,7 +46,7 @@ MAX_SMEM_BYTES = 232448
 
 #: kernel launches per wrapper (plain-version calls are not counted);
 #: a run resets and reads these to show which path it took
-launch_counts: Dict[str, int] = {"attention_fwd": 0}
+launch_counts: Dict[str, int] = {"attention_fwd": 0, "attention_bwd": 0}
 
 _MASK32 = 0xFFFFFFFF
 
@@ -98,55 +106,94 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
 
 
-# ----------------------------------------------------------- the kernel
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            m: torch.Tensor, g: torch.Tensor, seed: int = 0,
+                            rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """Plain torch twin of the backward kernel, the recompute formula
+    written out: (dq, dk, dv) in the input dtype, dm (B, Lk) float32.
+
+    ``g`` is the cotangent of :func:`attention_reference`'s output.
+    """
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    scale = 1.0 / dh ** 0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale + m.float()[:, None, None, :]
+    p = torch.softmax(scores, dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)  # cotangent of the dropped p
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, h, lq, lk, rate, device=q.device)
+        inv = 1.0 / (1.0 - rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    else:
+        pd = p
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd, gf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))  # softmax VJP
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dm = ds.sum(dim=(1, 2))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dm
+
+
+# ---------------------------------------------------------- the kernels
 def _find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         nvcc = "/usr/local/cuda/bin/nvcc"
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA attention kernel cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA attention kernels cannot be built")
     return nvcc
 
 
-def build_library() -> Dict[str, object]:
-    """Compile ``csrc/attention.cu`` unless a build of this source exists.
+def build_library(name: str) -> Dict[str, object]:
+    """Compile the source of kernel ``name`` (a key of :data:`SOURCES`)
+    unless a build of these sources exists.
 
     Returns ``{"path", "seconds", "ptxas"}``: the shared library, the
     nvcc wall time of this call (0.0 when the build was already there)
-    and the ``-Xptxas -v`` register / shared-memory report.
+    and the ``-Xptxas -v`` register / shared-memory report. Builds of
+    different kernels may run at the same time (one nvcc each).
     """
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"attention_{digest}.so"
-    report = BUILD_DIR / f"attention_{digest}.ptxas.txt"
+    source = SOURCES[name]
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{source.stem}_{digest}.so"
+    report = BUILD_DIR / f"{source.stem}_{digest}.ptxas.txt"
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "ptxas": report.read_text()}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stderr}")
     report.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: concurrent builders agree on one file
     return {"path": str(lib), "seconds": seconds, "ptxas": proc.stdout + proc.stderr}
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library()["path"])
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hamt_attention_fwd.argtypes = (
-        [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 14
-        + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-           i, p])
-    lib.hamt_attention_fwd.restype = i
-    lib.hamt_attention_smem_bytes.argtypes = [i, i]
-    lib.hamt_attention_smem_bytes.restype = ll
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_library(name)["path"])
+    p, i, ll, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_uint32, ctypes.c_float)
+    if name == "attention_fwd":
+        lib.hamt_attention_fwd.argtypes = (
+            [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 14 + [f32, u32, u32, f32, i, p])
+        lib.hamt_attention_fwd.restype = i
+        lib.hamt_attention_smem_bytes.argtypes = [i, i]
+        lib.hamt_attention_smem_bytes.restype = ll
+    else:
+        lib.hamt_attention_bwd.argtypes = (
+            [p] * 10 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
+        lib.hamt_attention_bwd.restype = i
+        lib.hamt_attention_bwd_smem_bytes.argtypes = [i, i, i]
+        lib.hamt_attention_bwd_smem_bytes.restype = ll
     return lib
 
 
@@ -165,24 +212,34 @@ def _check_inputs(q, k, v, m):
     return b, h, lq, lk, dh
 
 
-def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
-    b, h, lq, lk, dh = _check_inputs(q, k, v, m)
-    dtypes = {torch.float32: 0, torch.bfloat16: 1}
-    if q.dtype not in dtypes:
-        raise TypeError(f"CUDA attention takes float32 or bfloat16, got {q.dtype}")
-    devices = {t.device for t in (q, k, v, m)}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_cuda(tensors, dtype):
+    if dtype not in _DTYPES:
+        raise TypeError(f"CUDA attention takes float32 or bfloat16, got {dtype}")
+    devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
+    for name, t in tensors.items():
+        if name != "m" and t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along Dh, strides {t.stride()}")
+
+
+def _dropout_args(seed: int, rate: float):
+    return (int(seed) & _MASK32, _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0))
+
+
+def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
+    b, h, lq, lk, dh = _check_inputs(q, k, v, m)
+    _check_cuda({"q": q, "k": k, "v": v, "m": m}, q.dtype)
     m = m.to(torch.float32)
     # output stored (B, Lq, H, Dh) so the layer's merge of heads is free;
     # returned as the (B, H, Lq, Dh) view of the public layout
     out = torch.empty((b, lq, h, dh), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or lk == 0:
         return out.zero_().permute(0, 2, 1, 3)
-    lib = _library()
+    lib = _library("attention_fwd")
     smem = lib.hamt_attention_smem_bytes(lk, dh)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"attention over Lk={lk}, Dh={dh} needs {smem} B of "
@@ -190,40 +247,126 @@ def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.hamt_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
-        dtypes[q.dtype], b, h, lq, lk, dh,
+        _DTYPES[q.dtype], b, h, lq, lk, dh,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         m.stride(0), m.stride(1),
         out.stride(0), out.stride(2), out.stride(1),
-        1.0 / dh ** 0.5, int(seed) & _MASK32, _threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), stream)
+        1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     launch_counts["attention_fwd"] += 1
     return out.permute(0, 2, 1, 3)
 
 
+def _launch_bwd(q, k, v, m, g, seed: int, rate: float,
+                need_dm: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward kernel; without ``need_dm`` it skips the mask's
+    cotangent (its column sums, scratch and head-sum pass) and returns
+    None for it."""
+    b, h, lq, lk, dh = _check_inputs(q, k, v, m)
+    if g.shape != (b, h, lq, dh):
+        raise ValueError(f"cotangent shape {tuple(g.shape)} != {(b, h, lq, dh)}")
+    # g arrives as the (B, H, Lq, Dh) view of the layer's (B, Lq, H, Dh)
+    # gradient: the kernel reads it through its strides; only a float
+    # type other than fp32, or a Dh stride other than 1, costs a copy
+    g = g.to(torch.float32)
+    if g.stride(3) != 1:
+        g = g.contiguous()
+    _check_cuda({"q": q, "k": k, "v": v, "m": m, "g": g}, q.dtype)
+    m = m.to(torch.float32)
+    # dq, dk, dv stored (B, L, H, Dh): the backward of the layer's
+    # view(b, l, h, dh).transpose(1, 2) is then free
+    dq = torch.empty((b, lq, h, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, lk, h, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, lk, h, dh), dtype=q.dtype, device=q.device)
+    dm = torch.empty((b, lk), dtype=torch.float32, device=q.device) if need_dm else None
+    views = tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+    if b * h == 0 or lq == 0 or lk == 0 or dh == 0:
+        for t in (dq, dk, dv, dm):
+            if t is not None:
+                t.zero_()
+        return (*views, dm)
+    lib = _library("attention_bwd")
+    smem = lib.hamt_attention_bwd_smem_bytes(lq, lk, dh)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"attention backward over Lq={lq}, Lk={lk}, Dh={dh} needs {smem} B "
+                         f"of shared memory per block (limit {MAX_SMEM_BYTES})")
+    dm_heads = (torch.empty((b, h, lk), dtype=torch.float32, device=q.device)
+                if need_dm else None)
+    strides = [s for t in (q, k, v, g, *views) for s in t.stride()[:3]] + list(m.stride())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.hamt_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dm_heads.data_ptr() if need_dm else None, dm.data_ptr() if need_dm else None,
+        _DTYPES[q.dtype], b, h, lq, lk, dh, (ctypes.c_longlong * 23)(*strides),
+        1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
+    launch_counts["attention_bwd"] += 1
+    return (*views, dm)
+
+
+def attention_bwd(q, k, v, m, g, seed: int = 0, rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dm) of the attention at ``q, k, v, m`` for the output
+    cotangent ``g``: the backward kernel on CUDA tensors,
+    :func:`attention_bwd_reference` on CPU tensors."""
+    if q.device.type == "cpu":
+        _check_inputs(q, k, v, m)
+        return attention_bwd_reference(q, k, v, m, g, seed, rate)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, m, g, seed, rate)
+    raise ValueError(f"no attention kernel for device {q.device}")
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward and backward kernels as one differentiable op (the custom
+    VJP of ``_fused_attention_core``). Saves q, k, v, m and the seed;
+    the backward recomputes p."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, m, seed: int, rate: float):
+        ctx.save_for_backward(q, k, v, m)
+        ctx.seed, ctx.rate = seed, rate
+        if q.device.type == "cpu":
+            return attention_reference(q, k, v, m, seed, rate)
+        return _launch(q, k, v, m, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, m = ctx.saved_tensors
+        need_dm = ctx.needs_input_grad[3]  # the main path's masks take none
+        if q.device.type == "cpu":
+            dq, dk, dv, dm = attention_bwd_reference(q, k, v, m, g, ctx.seed, ctx.rate)
+        else:
+            dq, dk, dv, dm = _launch_bwd(q, k, v, m, g, ctx.seed, ctx.rate, need_dm)
+        return dq, dk, dv, dm.to(m.dtype) if need_dm else None, None, None
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     additive_mask: torch.Tensor, dropout_rate: float = 0.0,
                     dropout_seed: Optional[int] = None) -> torch.Tensor:
-    """(B, H, Lq, Dh) float32 attention output.
+    """(B, H, Lq, Dh) float32 attention output, differentiable in q, k, v
+    and the mask.
 
     ``q`` (B, H, Lq, Dh), ``k``/``v`` (B, H, Lk, Dh) may be strided views
     (Dh contiguous); ``additive_mask`` (B, Lk) holds 0 / -10000. With
     ``dropout_rate > 0`` the probabilities are dropped by the counter
-    hash of ``dropout_seed`` (a 32-bit value; negative int32 seeds wrap
-    as in the TPU kernel). CPU tensors take :func:`attention_reference`;
-    CUDA tensors launch the kernel or raise.
+    hash of ``dropout_seed``, a host integer (negative int32 seeds wrap
+    as in the TPU kernel; a tensor is refused, since reading one from the
+    card would stall the host on every call). CPU tensors take the plain
+    twins; CUDA tensors launch the kernels or raise.
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if isinstance(dropout_seed, torch.Tensor):
+        raise TypeError("dropout_seed must be a host int, not a tensor")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check_inputs(q, k, v, additive_mask)
     seed = 0 if dropout_seed is None else int(dropout_seed)
-    if q.device.type == "cpu":
-        _check_inputs(q, k, v, additive_mask)
-        return attention_reference(q, k, v, additive_mask, seed, dropout_rate)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, additive_mask, seed, dropout_rate)
-    raise ValueError(f"no attention kernel for device {q.device}")
+    return _FusedAttention.apply(q, k, v, additive_mask, seed, float(dropout_rate))

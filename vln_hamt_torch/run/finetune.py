@@ -1,13 +1,21 @@
-"""R2R greedy evaluation entry point (torch), the serving part of
-``vln_hamt_tpu/run/finetune.py``.
+"""R2R fine-tuning and evaluation entry point (torch), the port of
+``vln_hamt_tpu/run/finetune.py`` for imitation learning.
 
+    python -m vln_hamt_torch.run.finetune --task r2r --synthetic --feedback teacher \
+        [--iters N --log_every K]
     python -m vln_hamt_torch.run.finetune --task r2r --valid_only --synthetic
 
-runs the full-width ``r2r`` preset with seeded random weights over a
-hermetic fixture world on the GPU (``--cpu`` runs it on the CPU through
-the plain attention), prints ``{"valid": {split: metrics}}`` and writes
-``valid.txt`` (and ``submit_{split}.json`` with ``--submit``) under
-``--output_dir``. Training, checkpoints, real data and the other task
+run the full-width ``r2r`` preset with seeded random weights over a
+hermetic fixture world on the GPU (``--cpu`` runs on the CPU through the
+plain attention; ``--tiny`` shrinks the model and episodes). Training
+takes ``--iters`` teacher-forced IL updates; every ``--log_every`` it
+records the interval's mean loss and IL episodes/s in ``train.txt``,
+evaluates the validation split greedily, and writes ``latest.pt`` and,
+on a better SR + SPL, ``best_val_unseen.pt``; it prints
+``{"best": {...}}``. ``--valid_only`` evaluates instead, prints
+``{"valid": {split: metrics}}`` and writes ``valid.txt`` (and
+``submit_{split}.json`` with ``--submit``). ``sample`` feedback (the
+preset's default), reference checkpoints, real data and the other task
 families are not ported yet; their flags raise and name the ROADMAP
 item.
 """
@@ -17,7 +25,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Dict, List
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
 
 from ..agents.agent import HAMTAgent, resolve_device
 from ..configs import HAMTConfig, get_preset
@@ -107,11 +119,64 @@ def valid(cfg: HAMTConfig, val_envs: Dict[str, R2RNavEnv], output_dir: str,
     return results
 
 
+def selection_score(metrics: Dict[str, float]) -> float:
+    """R2R model selection: SR + SPL (main.py:204-210)."""
+    return metrics.get("spl", 0.0) + metrics.get("sr", 0.0)
+
+
+def train(cfg: HAMTConfig, train_env: R2RNavEnv, val_envs: Dict[str, R2RNavEnv],
+          output_dir: str, iters: Optional[int] = None, log_every: Optional[int] = None,
+          device=None) -> Dict[str, float]:
+    """The train/validate loop (main.py:86-222) with teacher feedback."""
+    os.makedirs(output_dir, exist_ok=True)
+    record_file = os.path.join(output_dir, "train.txt")
+    agent = HAMTAgent(cfg, train_env, seed=cfg.train.seed, device=device)
+    agent.enable_feature_table(train_env)
+    for env in val_envs.values():
+        env.feat_offsets = train_env.feat_offsets  # same graphs, one table
+    with open(os.path.join(output_dir, "training_config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    iters = iters or cfg.train.iters
+    log_every = log_every or cfg.train.log_every
+    best = {"score": -np.inf, "iter": 0}
+    step = 0
+    while step < iters:
+        interval = min(log_every, iters - step)
+        t0 = time.perf_counter()
+        # the host assembles the next episode while the device works;
+        # the losses are read once per interval
+        losses = [agent.train_iteration("teacher", sync=False)["loss"] for _ in range(interval)]
+        losses = torch.stack(losses).cpu().numpy()  # waits for the interval's work
+        dt = time.perf_counter() - t0
+        step += interval
+        if not np.isfinite(losses).all():
+            raise FloatingPointError(f"non-finite IL loss by iter {step}: {losses}")
+        write_record(record_file, f"iter {step}: loss={losses.mean():.4f}, "
+                                  f"eps_per_sec={interval * cfg.train.batch_size / dt:.2f}")
+        for name, env in val_envs.items():
+            if "test" in name:  # no ground truth to score (main.py:258-262)
+                continue
+            metrics, _ = env.eval_metrics(_merge_preds(agent.eval_split_fast(env)))
+            write_record(record_file, f"iter {step} {name}: " + ", ".join(
+                f"{k}={v:.2f}" for k, v in metrics.items()))
+            if name == "val_unseen" and selection_score(metrics) > best["score"]:
+                best = {"score": selection_score(metrics), "iter": step, **metrics}
+                agent.save(os.path.join(output_dir, "best_val_unseen.pt"))
+        agent.save(os.path.join(output_dir, "latest.pt"))
+    return best
+
+
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="HAMT greedy evaluation (PyTorch/CUDA)")
+    p = argparse.ArgumentParser(description="HAMT fine-tuning and evaluation (PyTorch/CUDA)")
     p.add_argument("--task", default="r2r", choices=sorted(PRESETS))
     p.add_argument("--output_dir", default="runs/finetune_torch")
     p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--feedback", default=None, choices=("teacher", "sample"),
+                   help="training feedback (the preset's: sample)")
+    p.add_argument("--iters", type=int, default=None)
+    p.add_argument("--log_every", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
     p.add_argument("--synthetic", action="store_true",
                    help="run on hermetic fixture worlds")
     p.add_argument("--tiny", action="store_true",
@@ -133,19 +198,23 @@ def main(argv=None):
     args = parse_args(argv)
     if args.task != "r2r":
         raise NotImplementedError(f"--task {args.task}: task variants are ROADMAP item A11")
-    if not args.valid_only:
-        raise NotImplementedError("training is ROADMAP items A2-A7; pass --valid_only")
+    cfg = get_preset(args.task)
+    feedback = args.feedback or cfg.train.feedback
+    if not args.valid_only and feedback == "sample":
+        raise NotImplementedError("'sample' feedback (the sampling rollout and the A2C "
+                                  "update) is ROADMAP items A5-A6; pass --feedback teacher")
     if not args.synthetic:
         raise NotImplementedError("real Matterport data is ROADMAP item A12; pass --synthetic")
     if args.resume_file:
         raise NotImplementedError("--resume_file: checkpoint ingestion is ROADMAP item A12")
     device = resolve_device("cpu" if args.cpu else None)
 
-    cfg = get_preset(args.task)
-    train = {"seed": args.seed}
+    tcfg = {"seed": args.seed, "feedback": feedback}
     if args.batch_size is not None:
-        train["batch_size"] = args.batch_size
-    cfg = cfg.replace(train=train)
+        tcfg["batch_size"] = args.batch_size
+    if args.lr is not None:
+        tcfg["lr"] = args.lr
+    cfg = cfg.replace(train=tcfg)
     if args.tiny:
         cfg = cfg.replace(
             model={"hidden_size": 64, "num_attention_heads": 4,
@@ -158,10 +227,16 @@ def main(argv=None):
             train={"batch_size": args.batch_size or 4},
         )
 
-    cfg, _, val_envs = build_synthetic_dataset(cfg, args.seed, test_split=args.submit)
-    results = valid(cfg, val_envs, args.output_dir, submit=args.submit, device=device)
-    print(json.dumps({"valid": results}, default=float))
-    return results
+    cfg, train_env, val_envs = build_synthetic_dataset(cfg, args.seed,
+                                                       test_split=args.submit)
+    if args.valid_only:
+        results = valid(cfg, val_envs, args.output_dir, submit=args.submit, device=device)
+        print(json.dumps({"valid": results}, default=float))
+        return results
+    best = train(cfg, train_env, val_envs, args.output_dir, args.iters, args.log_every,
+                 device=device)
+    print(json.dumps({"best": best}, default=float))
+    return best
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ fp32, seeded random weights, synthetic world of 2 scans x 36 nodes and
 ``torch.profiler``. Prints one JSON line: wall time without and with
 the profiler, summed kernel time (one stream: the device is busy that
 long), the idle share against both wall times, and kernel time by group (the
-attention kernel, matrix products, the rest); writes the per-kernel
+attention forward kernel, matrix products, the rest); writes the per-kernel
 table to ``DIR/profile_eval.txt``.
 """
 
@@ -18,7 +18,7 @@ import argparse
 import json
 import os
 import time
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -53,17 +53,41 @@ def slice_env(cfg: HAMTConfig, world: SyntheticWorld, seed: int = 0) -> R2RNavEn
 def _group(name: str) -> str:
     low = name.lower()
     if "attention_fwd_kernel" in low:
-        return "attention_kernel"
+        return "attention_fwd_kernel"
+    if "attention_bwd" in low:  # the backward kernel and its dm pass
+        return "attention_bwd_kernel"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "cublas", "matmul")):
         return "matmul"
     return "other"
+
+
+def kernel_table(prof) -> Tuple[List[Tuple[str, float, int]], Dict[str, dict]]:
+    """Device kernels of a ``torch.profiler`` trace, longest first, as
+    (name, device ms, launches), and their sums by group (the attention
+    forward and backward kernels, matrix products, the rest). Raises when
+    the trace holds no device time."""
+    # device-side events only: the CPU ops that launched them carry the
+    # same time again as their "self device time"
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    kernels.sort(key=lambda r: -r[1])
+    groups: Dict[str, dict] = {}
+    for name, ms, n in kernels:
+        g = groups.setdefault(_group(name), {"ms": 0.0, "launches": 0})
+        g["ms"] += ms
+        g["launches"] += n
+    return kernels, groups
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--out", default="chiprun_out/profile_eval")
+    p.add_argument("--out", default="runs/profile_eval")
     args = p.parse_args(argv)
     device = resolve_device()  # the card; raises without one
 
@@ -83,21 +107,8 @@ def main(argv=None):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device-side events only: the CPU ops that launched them carry the
-    # same time again as their "self device time"
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device time")
-    kernels.sort(key=lambda r: -r[1])
+    kernels, groups = kernel_table(prof)
     busy_ms = sum(ms for _, ms, _ in kernels)
-    groups = {}
-    for name, ms, n in kernels:
-        g = groups.setdefault(_group(name), {"ms": 0.0, "launches": 0})
-        g["ms"] += ms
-        g["launches"] += n
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_eval.txt"), "w") as f:
         f.write(f"{'device ms':>10} {'launches':>9}  kernel\n")
