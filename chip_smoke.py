@@ -14,8 +14,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                bf16, dropout off and on: the attention forward, and the
                attention backward (dq, dk, dv and the mask cotangent dm);
                kernel, plain and library-call times and the card's bound
-               for the same work; the backward checked and timed at the
-               training batch of 8 too, at the training path's shapes.
+               for the same work; both kernels checked and timed at the
+               training batch of 8 too, each at its training path's
+               shapes; the forward's edge cases (Lq = Lk = 1, a ragged
+               33 x 65 query block, 65 x 65 with batch elements whose
+               keys all read -10000, Dh 16 and 128) at batches 32 and 8.
+               Timing and bounds come from
+               vln_hamt_torch/run/profile_attention.py.
 4. slice    -- the serving path: full-width R2R greedy evaluation
                (HAMTAgent.eval_split_device, `r2r` preset, fp32, seeded
                random weights) over a synthetic world at batch 32;
@@ -47,19 +52,20 @@ printing either.
 
 from __future__ import annotations
 
-import collections
 import json
 import math
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+from vln_hamt_torch.agents.agent import HAMTAgent
+from vln_hamt_torch.ops import attention as attn
+from vln_hamt_torch.run.profile_attention import (
+    attention_bwd_bound_ms, cuda_time_ms, kernel_inputs, launch_mix, nvidia_smi, time_forward,
+    weighted)
+from vln_hamt_torch.run.profile_eval import slice_config, slice_env
 
 B, H, DH = 32, 12, 64
 TRAIN_B = 8  # the r2r preset's training batch
@@ -69,6 +75,10 @@ TOL = {  # forward kernel vs plain twin, max abs error
     (torch.float32, 0.1): 2e-5,  # kept values scaled by 1 / (1 - rate)
     (torch.bfloat16, 0.1): 2e-5,
 }
+# shapes the query-blocked forward tiling can get wrong, checked at both
+# batches: (Lq, Lk, Dh, every third batch element's keys all at -10000)
+EDGE_CASES = ((1, 1, DH, False), (33, 65, DH, False), (65, 65, DH, True),
+              (65, 65, 16, False), (65, 65, 128, False))
 # backward kernel vs plain twin, max abs error over the tensor's max abs
 # value. fp32: sums of at most 65 (dq, dk, dv) or 12 x 65 (dm) products
 # in another order than cuBLAS's. bf16 dq, dk, dv: both sides round an
@@ -90,74 +100,14 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 50, warmup: int = 3,
-                 hold_cycles: int = 100_000_000) -> float:
-    """Device ms per call of ``fn``: ``iters`` calls queued behind a
-    sleeping stream (``hold_cycles`` GPU cycles, tens of ms) and timed
-    between two events, so the host's time to issue them (Python,
-    autograd, ctypes) does not count, only the device's back-to-back
-    work. The sleep must outlast the queueing, which is checked: a call
-    of many kernels fills the device's launch queue (about a thousand
-    launches) and blocks the host, so the run is halved until it fits."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    torch.cuda._sleep(hold_cycles)
-    ev[1].record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    ev[2].record()
-    torch.cuda.synchronize()
-    if host_ms >= ev[0].elapsed_time(ev[1]):
-        if iters < 10:
-            raise RuntimeError(f"the host took {host_ms} ms to queue {iters} calls")
-        return cuda_time_ms(fn, iters // 2, 0, hold_cycles)
-    return ev[1].elapsed_time(ev[2]) / iters
-
-
-def attention_bound_ms(b: int, lq: int, lk: int, elt_bytes: int):
-    """Least time for one forward launch: q, k, v read once, the (B, Lk)
-    fp32 mask read once, the fp32 output written once, over HBM; and
-    4*B*H*Lq*Lk*Dh fp32 FLOPs over the CUDA cores' peak."""
-    nbytes = b * H * (lq + 2 * lk) * DH * elt_bytes + b * lk * 4 + b * H * lq * DH * 4
-    flops = 4 * b * H * lq * lk * DH
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-
-
-def attention_bwd_bound_ms(b: int, lq: int, lk: int, elt_bytes: int):
-    """Least time for one backward launch: q, k, v (input type), g (fp32)
-    and the (B, Lk) fp32 mask read once, dq, dk, dv (input type) and dm
-    (fp32) written once; 10*B*H*Lq*Lk*Dh fp32 FLOPs (the recomputed
-    scores, g v^T, dv, dq and dk)."""
-    qkv = b * H * (lq + 2 * lk) * DH * elt_bytes
-    nbytes = 2 * qkv + b * H * lq * DH * 4 + 2 * b * lk * 4
-    flops = 10 * b * H * lq * lk * DH
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-
-
 def rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
 
 
-def reset_counts(attn) -> None:
+def reset_counts() -> None:
     for name in attn.launch_counts:
         attn.launch_counts[name] = 0
-
-
-def kernel_inputs(b, lq, lk, dtype, gen, dev):
-    """q, k, v as the layer hands them over ((B, H, L, Dh) views of
-    (B, L, H, Dh)), a 0 / -10000 mask, and an output cotangent laid out
-    as the layer's gradient arrives."""
-    view = lambda l: torch.randn(b, l, H, DH, device=dev, generator=gen).to(dtype).transpose(1, 2)
-    q, k, v = view(lq), view(lk), view(lk)
-    m = torch.where(torch.rand(b, lk, device=dev, generator=gen) < 0.8, 0.0, -10000.0)
-    g = torch.randn(b, lq, H, DH, device=dev, generator=gen).transpose(1, 2)
-    return q, k, v, m, g
 
 
 def sdpa_backward(q, k, v, m, g, dtype):
@@ -171,7 +121,7 @@ def sdpa_backward(q, k, v, m, g, dtype):
                                        retain_graph=True)
 
 
-def check_bwd(attn, q, k, v, m, g, seed, rate, where):
+def check_bwd(q, k, v, m, g, seed, rate, where):
     """The backward kernel against its plain twin on the same inputs:
     each output's relative error, raising above its tolerance; and the
     largest absolute error."""
@@ -192,44 +142,52 @@ def check_bwd(attn, q, k, v, m, g, seed, rate, where):
     return errs, abs_err
 
 
-def phase_kernels(attn, dev, fwd_mix, bwd_mix):
+def check_fwd(q, k, v, m, seed, rate, where) -> float:
+    """The forward kernel against its plain twin on the same inputs: the
+    largest absolute error, raising above its tolerance or on a wrong
+    shape or a non-finite value."""
+    got = attn.fused_attention(q, k, v, m, dropout_rate=rate, dropout_seed=seed)
+    want = attn.attention_reference(q, k, v, m, seed, rate)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"attention {where}: output {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, or not finite")
+    err = (got - want).abs().max().item()
+    tol = TOL[(q.dtype, rate)]
+    if not err <= tol:
+        raise AssertionError(f"attention {where} {q.dtype} rate {rate}: "
+                             f"max abs err {err} > {tol}")
+    return err
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def phase_kernels(dev, fwd_mix, bwd_mix):
     gen = torch.Generator(device=dev).manual_seed(0)
     fwd_rows, bwd_rows, fwd_err, bwd_err = [], [], 0.0, 0.0
     seed = 2**31 + 7  # above int32: exercises the 32-bit wrap
     for (lq, lk) in fwd_mix:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, m, g = kernel_inputs(B, lq, lk, dtype, gen, dev)
+            q, k, v, m, g = kernel_inputs(B, H, lq, lk, DH, dtype, gen, dev)
             for rate in (0.0, 0.1):
-                got = attn.fused_attention(q, k, v, m, dropout_rate=rate, dropout_seed=seed)
-                want = attn.attention_reference(q, k, v, m, seed, rate)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                tol = TOL[(dtype, rate)]
-                if not err <= tol:
-                    raise AssertionError(f"attention ({lq},{lk}) {dtype} rate {rate}: "
-                                         f"max abs err {err} > {tol}")
+                err = check_fwd(q, k, v, m, seed, rate, f"B {B} ({lq},{lk})")
                 fwd_err = max(fwd_err, err)
-                row = {"lq": lq, "lk": lk, "dtype": str(dtype).split(".")[1], "rate": rate,
-                       "max_abs_err": err, "tol": tol}
+                row = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
+                       "max_abs_err": err, "tol": TOL[(dtype, rate)]}
                 if rate == 0.0:
-                    bytes_ms, flops_ms = attention_bound_ms(B, lq, lk, q.element_size())
-                    mask4 = m[:, None, None, :].to(dtype)
-                    row.update(
-                        ms=cuda_time_ms(lambda: attn.fused_attention(q, k, v, m)),
-                        plain_ms=cuda_time_ms(lambda: attn.attention_reference(q, k, v, m)),
-                        library_ms=cuda_time_ms(
-                            lambda: torch.nn.functional.scaled_dot_product_attention(
-                                q, k, v, attn_mask=mask4)),
-                        bytes_ms=bytes_ms, flops_ms=flops_ms)
+                    row.update(time_forward(q, k, v, m))
                 fwd_rows.append(row)
 
                 # the backward at the same inputs, dropout bits included
-                errs, err = check_bwd(attn, q, k, v, m, g, seed, rate, f"B {B} ({lq},{lk})")
+                errs, err = check_bwd(q, k, v, m, g, seed, rate, f"B {B} ({lq},{lk})")
                 bwd_err = max(bwd_err, err)
-                brow = {"lq": lq, "lk": lk, "dtype": str(dtype).split(".")[1], "rate": rate,
+                brow = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
                         "rel_err": errs, "rtol": BWD_RTOL[dtype], "dm_rtol": BWD_DM_RTOL}
                 if rate == 0.0:
-                    bytes_ms, flops_ms = attention_bwd_bound_ms(B, lq, lk, q.element_size())
+                    bytes_ms, flops_ms = attention_bwd_bound_ms(B, H, lq, lk, DH,
+                                                                q.element_size())
                     brow.update(
                         ms=cuda_time_ms(lambda: attn.attention_bwd(q, k, v, m, g)),
                         plain_ms=cuda_time_ms(
@@ -240,20 +198,53 @@ def phase_kernels(attn, dev, fwd_mix, bwd_mix):
     emit("kernels", kernel="attention_fwd", batch=B, heads=H, head_dim=DH, results=fwd_rows)
     emit("kernels", kernel="attention_bwd", batch=B, heads=H, head_dim=DH, results=bwd_rows)
 
+    # the forward at the training batch, which each IL update launches 279
+    # times: checked at both rates, timed with dropout off
+    fwd8 = []
+    for (lq, lk) in fwd_mix:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, _ = kernel_inputs(TRAIN_B, H, lq, lk, DH, dtype, gen, dev)
+            for rate in (0.0, 0.1):
+                err = check_fwd(q, k, v, m, seed, rate, f"B {TRAIN_B} ({lq},{lk})")
+                fwd_err = max(fwd_err, err)
+                row = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
+                       "max_abs_err": err}
+                if rate == 0.0:
+                    row.update(time_forward(q, k, v, m))
+                fwd8.append(row)
+    emit("kernels", kernel="attention_fwd", batch=TRAIN_B, heads=H, head_dim=DH, results=fwd8,
+         weighted={key: weighted(fwd8, fwd_mix, lambda r: r[key])
+                   for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "flops_ms")})
+
+    # the edge cases of the query-blocked tiling, at both batches
+    edge = []
+    for batch in (B, TRAIN_B):
+        for (lq, lk, dh, masked) in EDGE_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, m, _ = kernel_inputs(batch, H, lq, lk, dh, dtype, gen, dev, masked)
+                for rate in (0.0, 0.1):
+                    where = f"B {batch} ({lq},{lk}) Dh {dh}{' masked rows' if masked else ''}"
+                    err = check_fwd(q, k, v, m, seed, rate, where)
+                    fwd_err = max(fwd_err, err)
+                    edge.append({"batch": batch, "lq": lq, "lk": lk, "head_dim": dh,
+                                 "masked_rows": masked, "dtype": dtype_name(dtype),
+                                 "rate": rate, "max_abs_err": err})
+    emit("kernels", kernel="attention_fwd", edge_cases=edge)
+
     # the backward at the training batch and the main path's own shapes:
     # checked at both rates, timed with dropout off
     b8 = []
     for (lq, lk) in bwd_mix:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, m, g = kernel_inputs(TRAIN_B, lq, lk, dtype, gen, dev)
+            q, k, v, m, g = kernel_inputs(TRAIN_B, H, lq, lk, DH, dtype, gen, dev)
             for rate in (0.0, 0.1):
-                errs, err = check_bwd(attn, q, k, v, m, g, seed, rate,
+                errs, err = check_bwd(q, k, v, m, g, seed, rate,
                                       f"B {TRAIN_B} ({lq},{lk})")
                 bwd_err = max(bwd_err, err)
-                row = {"lq": lq, "lk": lk, "dtype": str(dtype).split(".")[1], "rate": rate,
+                row = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
                        "rel_err": errs}
                 if rate == 0.0:
-                    bytes_ms, flops_ms = attention_bwd_bound_ms(TRAIN_B, lq, lk,
+                    bytes_ms, flops_ms = attention_bwd_bound_ms(TRAIN_B, H, lq, lk, DH,
                                                                 q.element_size())
                     row.update(
                         ms=cuda_time_ms(lambda: attn.attention_bwd(q, k, v, m, g)),
@@ -264,14 +255,6 @@ def phase_kernels(attn, dev, fwd_mix, bwd_mix):
                 b8.append(row)
     emit("kernels", kernel="attention_bwd", batch=TRAIN_B, heads=H, head_dim=DH, results=b8)
     return fwd_rows, b8, fwd_err, bwd_err
-
-
-def weighted(rows, mix, key):
-    """Mean of ``key`` over fp32, dropout-off rows, weighted by the
-    launches of each shape in ``mix``."""
-    by_shape = {(r["lq"], r["lk"]): r for r in rows
-                if r["dtype"] == "float32" and "ms" in r}
-    return sum(n * key(by_shape[s]) for s, n in mix.items()) / sum(mix.values())
 
 
 def summary_row(name, source, replaces, launches, max_err, rows, mix, batch):
@@ -306,18 +289,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vln_hamt_torch.agents.agent import HAMTAgent
-    from vln_hamt_torch.ops import attention as attn
-    from vln_hamt_torch.run.profile_eval import slice_config, slice_env
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     # ------------------------------------------------------------ device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(), torch=torch.__version__,
@@ -337,33 +314,17 @@ def main() -> int:
     # ------------------------------------------------- the slice's world
     cfg, world = slice_config(B, seed=0)
     mcfg, t_max = cfg.model, cfg.env.max_action_len
-    n_ob = cfg.env.max_candidates + 1 + 36
-    l_txt, l_pano, l_visn = cfg.env.max_instr_len, 36, t_max + 1 + n_ob
-    # forward launches per greedy batch or IL update, by (Lq, Lk): the
-    # text stack once, then per step the panorama encoder and, in each
-    # cross-modal layer, cross-attention both ways and the two
-    # self-attentions
-    mix = collections.Counter()
-    mix[(l_txt, l_txt)] += mcfg.num_l_layers + t_max * mcfg.num_x_layers
-    mix[(l_pano, l_pano)] += t_max * mcfg.num_h_pano_layers
-    mix[(l_txt, l_visn)] += t_max * mcfg.num_x_layers
-    mix[(l_visn, l_txt)] += t_max * mcfg.num_x_layers
-    mix[(l_visn, l_visn)] += t_max * mcfg.num_x_layers
-    per_batch = sum(mix.values())
-    # backward launches per IL update: fix_lang_embedding and
-    # fix_hist_embedding keep the text and panorama stacks out of the
-    # graph, so only the cross-modal layers' attentions run backward
-    bwd_mix = collections.Counter({s: t_max * mcfg.num_x_layers for s in
-                                   ((l_txt, l_txt), (l_txt, l_visn), (l_visn, l_txt),
-                                    (l_visn, l_visn))})
-    per_update_bwd = sum(bwd_mix.values())
+    # attention launches by (Lq, Lk): the forward's per greedy batch or IL
+    # update, the backward's per IL update
+    mix, bwd_mix = launch_mix(cfg)
+    per_batch, per_update_bwd = sum(mix.values()), sum(bwd_mix.values())
     if per_batch != 279 or per_update_bwd != 240:
         raise AssertionError(f"launch mix {mix} / {bwd_mix}: expected 279 and 240")
 
     # ----------------------------------------------------------- kernels
     # timed at each main path's batch: the forward at the serving slice's
     # 32, the backward at the training slice's 8
-    fwd_rows, bwd_rows, fwd_err, bwd_err = phase_kernels(attn, dev, mix, bwd_mix)
+    fwd_rows, bwd_rows, fwd_err, bwd_err = phase_kernels(dev, mix, bwd_mix)
 
     # ------------------------------------------------------------- slice
     env = slice_env(cfg, world, seed=0)
@@ -371,7 +332,7 @@ def main() -> int:
     agent.enable_feature_table()
     agent.eval_split_device()  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    reset_counts(attn)
+    reset_counts()
     t0 = time.perf_counter()
     preds = agent.eval_split_device()
     torch.cuda.synchronize()
@@ -437,7 +398,7 @@ def main() -> int:
         agent.train_iteration("teacher", sync=False)
     torch.cuda.synchronize()
     iters = 20
-    reset_counts(attn)
+    reset_counts()
     t0 = time.perf_counter()
     losses = [agent.train_iteration("teacher", sync=False)["loss"] for _ in range(iters)]
     losses = torch.stack(losses).cpu()  # waits for the last update
@@ -479,7 +440,7 @@ def main() -> int:
     for fix in (True, False):
         fcfg = pcfg.replace(model={"fix_lang_embedding": fix, "fix_hist_embedding": fix})
         res = {}
-        reset_counts(attn)
+        reset_counts()
         for device in ("cuda", "cpu"):
             pagent = HAMTAgent(fcfg, slice_env(fcfg, world, seed=0), seed=0, device=device)
             pagent.enable_feature_table()

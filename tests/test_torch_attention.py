@@ -28,12 +28,18 @@ def one_thread():
     torch.set_num_threads(prev)
 
 
-def _inputs(seed, b=2, h=3, lq=6, lk=9, dh=16):
+def _inputs(seed, b=2, h=3, lq=6, lk=9, dh=16, masked_rows=False):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, lq, dh)).astype(np.float32)
     k = rng.standard_normal((b, h, lk, dh)).astype(np.float32)
     v = rng.standard_normal((b, h, lk, dh)).astype(np.float32)
     m = np.where(rng.random((b, lk)) < 0.7, 0.0, -10000.0).astype(np.float32)
+    if masked_rows:
+        # every key of batch element 0 at -10000; q and k on a grid of
+        # 1/4, so the scores and their rounding next to -10000 (an fp32
+        # step of about 1e-3) are exact in any summation order
+        m[0] = -10000.0
+        q, k = (np.round(x * 4) / 4 for x in (q, k))
     return q, k, v, m
 
 
@@ -43,10 +49,21 @@ def _jax_seed(seed):
     return jnp.asarray([seed], jnp.int32 if seed < 0 else jnp.uint32)
 
 
-@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.3, 1234), (0.3, 2**31 + 7),
-                                       (0.3, -5), (0.3, 2**32 - 1)])
-def test_plain_attention_matches_pallas(rate, seed):
-    q, k, v, m = _inputs(seed % 97)
+# (rate, seed, shape and mask of _inputs): seeds across the int32 and
+# uint32 wraps, then the cases the card kernel's query blocks could get
+# wrong -- one key, a ragged last query block, batch elements whose keys
+# all read -10000 -- with dropout off and with a seed above 2**31
+_PLAIN_CASES = [pytest.param(rate, seed, {}, id=f"{rate}-{seed}") for rate, seed in
+                [(0.0, 0), (0.3, 1234), (0.3, 2**31 + 7), (0.3, -5), (0.3, 2**32 - 1)]] + [
+    pytest.param(rate, seed, shape, id=f"{name}-{rate}")
+    for name, shape in [("lk1", dict(lq=1, lk=1)), ("ragged", dict(lq=33, lk=65)),
+                        ("masked_rows", dict(lq=65, lk=65, masked_rows=True))]
+    for rate, seed in [(0.0, 0), (0.3, 2**31 + 7)]]
+
+
+@pytest.mark.parametrize("rate,seed,shape", _PLAIN_CASES)
+def test_plain_attention_matches_pallas(rate, seed, shape):
+    q, k, v, m = _inputs(seed % 97, **shape)
     jargs = [jnp.asarray(x) for x in (q, k, v, m)]
     want_kernel = np.asarray(jax_fused_attention(
         *jargs, interpret=True, dropout_rate=rate,
@@ -67,6 +84,55 @@ def test_keep_mask_bit_identical(seed):
     want = np.asarray(_dropout_keep_mask(_jax_seed(seed), b, h, lq, lk, rate))
     got = tops.dropout_keep_mask(seed, b, h, lq, lk, rate).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _layer_view(dtype=torch.float32, b=2, l=5, h=3, dh=16, offset=0):
+    """The (B, H, L, Dh) view of a (B, L, H * Dh) projection, as the layer
+    hands it to the kernel, starting ``offset`` elements into its buffer."""
+    buf = torch.zeros(offset + b * l * h * dh, dtype=dtype)
+    return buf[offset:].view(b, l, h, dh).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", tops.FWD_HEAD_DIMS)
+def test_kernel_layout_checks_accept_layer_views(dtype, dh):
+    """The forward kernel's argument checks, run on CPU tensors (no card
+    needed): the layer's strided views at every instantiated head width
+    pass, as does Lk = 256 and a size-1 batch whose stride is unused."""
+    x = _layer_view(dtype, dh=dh)
+    tops.check_fwd_layout(x, x, x)
+    long_k = _layer_view(dtype, l=tops.FWD_MAX_LK, dh=dh)
+    tops.check_fwd_layout(x, long_k, long_k)
+    one = torch.zeros(15 * dh, dtype=dtype).as_strided((1, 3, 5, dh), (7, 5 * dh, dh, 1))
+    tops.check_fwd_layout(one, one, one)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("fp32_offset", "16-byte boundary"),  # 4 bytes into a 16-byte word
+    ("bf16_offset", "16-byte boundary"),  # 8 bytes into a 16-byte word
+    ("row_stride", "along dim 2"),  # rows 17 floats apart
+    ("head_stride", "along dim 1"),  # heads 2 bf16 values apart
+    ("head_dim", "head widths"),  # Dh 48 is not instantiated
+    ("long_keys", "Lk <= 256"),  # scores of 257 keys do not fit the registers
+])
+def test_kernel_layout_checks_raise(case, match):
+    """Views the forward kernel's 16-byte loads cannot take raise a
+    ValueError that names the problem, before anything is launched."""
+    q = k = _layer_view()
+    if case == "fp32_offset":
+        q = _layer_view(offset=1)
+    elif case == "bf16_offset":
+        q = k = _layer_view(torch.bfloat16, offset=4)
+    elif case == "row_stride":
+        k = torch.zeros(1000).as_strided((2, 3, 5, 16), (400, 100, 17, 1))
+    elif case == "head_stride":
+        q = k = torch.zeros(960, dtype=torch.bfloat16).as_strided((2, 3, 5, 16), (480, 2, 48, 1))
+    elif case == "head_dim":
+        q = k = _layer_view(dh=48)
+    else:
+        k = _layer_view(l=tops.FWD_MAX_LK + 1)
+    with pytest.raises(ValueError, match=match):
+        tops.check_fwd_layout(q, k, k)
 
 
 def test_strided_views_and_checks():

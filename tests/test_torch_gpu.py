@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from vln_hamt_torch.ops import attention as tops
+from vln_hamt_torch.run.profile_attention import kernel_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -31,16 +32,27 @@ TOL = {(torch.float32, 0.0): 1e-5, (torch.bfloat16, 0.0): 1e-5,
        (torch.float32, 0.1): 2e-5, (torch.bfloat16, 0.1): 2e-5}
 
 
+# (Lq, Lk, Dh, masked rows): the main path's shapes and RxR's text, then
+# what the query-blocked tiling could get wrong -- one key, a ragged last
+# query block, batch elements whose keys all read -10000 (inputs on a
+# grid where those scores are exact), the smallest and largest head width
+_FWD_CASES = [pytest.param(lq, lk, 64, False, id=f"{lq}-{lk}") for lq, lk in
+              [(60, 60), (36, 36), (60, 64), (64, 60), (250, 250)]] + [
+    pytest.param(1, 1, 64, False, id="1-1"),
+    pytest.param(33, 65, 64, False, id="33-65"),
+    pytest.param(65, 65, 64, True, id="65-65-masked_rows"),
+    pytest.param(65, 65, 16, False, id="65-65-dh16"),
+    pytest.param(65, 65, 128, False, id="65-65-dh128"),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("lq,lk", [(60, 60), (36, 36), (60, 64), (64, 60), (250, 250)])
-def test_kernel_matches_plain(cuda, dtype, rate, lq, lk):
+@pytest.mark.parametrize("lq,lk,dh,masked", _FWD_CASES)
+def test_kernel_matches_plain(cuda, dtype, rate, lq, lk, dh, masked):
     g = torch.Generator(device=cuda).manual_seed(lq * 1000 + lk)
-    b, h, dh = 4, 12, 64
-    q = torch.randn(b, lq, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
-    k = torch.randn(b, lk, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
-    v = torch.randn(b, lk, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
-    m = torch.where(torch.rand(b, lk, device=cuda, generator=g) < 0.8, 0.0, -10000.0)
+    b, h = 4, 12
+    q, k, v, m, _ = kernel_inputs(b, h, lq, lk, dh, dtype, g, cuda, masked_rows=masked)
     seed = 2**31 + 11
     n0 = tops.launch_counts["attention_fwd"]
     got = tops.fused_attention(q, k, v, m, dropout_rate=rate, dropout_seed=seed)
@@ -48,8 +60,27 @@ def test_kernel_matches_plain(cuda, dtype, rate, lq, lk):
     assert tops.launch_counts["attention_fwd"] == n0 + 1
     want = tops.attention_reference(q, k, v, m, seed, rate)
     assert got.shape == want.shape == (b, h, lq, dh)
+    assert torch.isfinite(got).all()
     err = (got - want).abs().max().item()
     assert err <= TOL[(dtype, rate)], err
+
+
+def test_misaligned_views_raise(cuda):
+    """Views the kernel's 16-byte loads cannot take raise before any
+    launch: a q 4 bytes past a 16-byte boundary, a head width that is
+    not instantiated."""
+    b, h, l, dh = 2, 12, 60, 64
+    flat = torch.randn(1 + b * l * h * dh, device=cuda)
+    q = flat[1:].view(b, l, h, dh).transpose(1, 2)
+    k = torch.randn(b, l, h, dh, device=cuda).transpose(1, 2)
+    m = torch.zeros(b, l, device=cuda)
+    wide = torch.randn(b, h, l, 48, device=cuda)
+    n0 = tops.launch_counts["attention_fwd"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tops.fused_attention(q, k, k, m)
+    with pytest.raises(ValueError, match="head widths"):
+        tops.fused_attention(wide, wide, wide, m)
+    assert tops.launch_counts["attention_fwd"] == n0
 
 
 def _rel_err(got, want):

@@ -1,6 +1,7 @@
 // Helpers shared by the attention forward (attention.cu) and backward
 // (attention_bwd.cu) kernels: the counter-hash dropout of the TPU kernel,
-// bf16 <-> fp32 conversion and warp reductions.
+// bf16 <-> fp32 conversion, warp reductions, and the 16-byte tile staging
+// of register-tiled kernels (cp.async for fp32, widened uint4 for bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +60,76 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Max and sum over each group of N consecutive lanes (N a power of two
+// up to 32); the whole warp must take part.
+template <int N>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int o = N / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <int N>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = N / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// ------------------------------------------------------- tile staging
+// 16-byte asynchronous copy global -> shared, bypassing L1 (.cg). Both
+// addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies rows [0, n) of a (rows, DH) tile -- row stride `ld` elements,
+// unit stride along DH, every row 16-byte aligned -- into shared memory
+// as fp32 with a row pitch of `pitch` floats (a multiple of 4), and
+// zero-fills rows [n, n_pad). All NT threads of the block take part. fp32
+// rows go by cp.async (the caller commits and waits); bf16 rows by uint4
+// loads widened in registers (exact: bf16 is the top half of an fp32).
+template <typename T, int DH, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, int pitch, const T* src,
+                                           long long ld, int n, int n_pad) {
+  constexpr unsigned kElems = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr unsigned kChunks = DH / kElems;    // chunks per row, a power of two
+  static_assert(DH % 8 == 0 && (kChunks & (kChunks - 1)) == 0, "DH: 8, 16, 32, ...");
+  for (unsigned i = threadIdx.x; i < (unsigned)n * kChunks; i += NT) {
+    const unsigned r = i / kChunks, c = i % kChunks;
+    const T* s = src + r * ld + c * kElems;
+    float* d = dst + r * pitch + c * kElems;
+    if constexpr (sizeof(T) == 4) {
+      cp_async16(d, s);
+    } else {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(s));
+      reinterpret_cast<float4*>(d)[0] =
+          make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xFFFF0000u),
+                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xFFFF0000u));
+      reinterpret_cast<float4*>(d)[1] =
+          make_float4(__uint_as_float(w.z << 16), __uint_as_float(w.z & 0xFFFF0000u),
+                      __uint_as_float(w.w << 16), __uint_as_float(w.w & 0xFFFF0000u));
+    }
+  }
+  constexpr unsigned kQuads = DH / 4;
+  for (unsigned i = threadIdx.x; i < (unsigned)(n_pad - n) * kQuads; i += NT) {
+    const unsigned r = n + i / kQuads, c = i % kQuads;
+    *reinterpret_cast<float4*>(dst + r * pitch + c * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 }  // namespace hamt

@@ -213,6 +213,32 @@ def _check_inputs(q, k, v, m):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head widths the forward kernel is instantiated for, and its longest
+#: key row (its scores stay in registers: 8 lanes x 32 columns)
+FWD_HEAD_DIMS = (16, 32, 64, 128)
+FWD_MAX_LK = 256
+
+
+def check_fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless the forward kernel can take q, k, v as they lie: a
+    head width it is built for, Lk <= :data:`FWD_MAX_LK`, and what its
+    16-byte loads need, every base address and every batch, head and row
+    stride a multiple of 16 bytes (strides of size-1 dimensions are never
+    used). Reads only shapes, strides and addresses, so it runs on CPU
+    tensors too."""
+    dh, lk = q.shape[3], k.shape[2]
+    if dh not in FWD_HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes head widths {FWD_HEAD_DIMS}, got Dh={dh}")
+    if lk > FWD_MAX_LK:
+        raise ValueError(f"the attention kernel takes Lk <= {FWD_MAX_LK}, got Lk={lk}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} starts {t.data_ptr() % 16} bytes past a 16-byte boundary")
+        for dim in range(3):
+            nbytes = t.stride(dim) * t.element_size()
+            if t.shape[dim] > 1 and nbytes % 16:
+                raise ValueError(f"{name}'s stride along dim {dim} is {nbytes} bytes, "
+                                 f"not a multiple of 16 (strides {t.stride()})")
 
 
 def _check_cuda(tensors, dtype):
@@ -239,6 +265,7 @@ def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
     out = torch.empty((b, lq, h, dh), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or lk == 0:
         return out.zero_().permute(0, 2, 1, 3)
+    check_fwd_layout(q, k, v)
     lib = _library("attention_fwd")
     smem = lib.hamt_attention_smem_bytes(lk, dh)
     if smem > MAX_SMEM_BYTES:

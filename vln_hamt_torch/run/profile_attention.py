@@ -1,0 +1,199 @@
+"""The attention forward kernel against its plain version and the library call, by shape.
+
+    python -m vln_hamt_torch.run.profile_attention
+
+For each (Lq, Lk) shape of the R2R main path (the ``r2r`` preset over
+the synthetic world of ``run/profile_eval.py``: 12 heads, Dh 64), at the
+serving batch of 32 and the training batch of 8, fp32, dropout off: the
+forward kernel's device ms per launch, its plain
+version's (``attention_reference``), ``scaled_dot_product_attention``'s,
+the card's bound for the same work, and the kernel's largest error
+against the plain version. Prints the card's name and power limit, the
+kernel's build report, one JSON line per shape, and one per batch with
+the means weighted by the launches of each shape on the path (279 per
+greedy batch or IL update). Takes well under a minute on the card.
+
+Also the home of the timing, bound and input helpers that
+``chip_smoke.py`` uses.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import subprocess
+import time
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from ..agents.agent import resolve_device
+from ..ops import attention as attn
+from .profile_eval import slice_config
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+Shape = Tuple[int, int]
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn: Callable[[], object], iters: int = 50, warmup: int = 3,
+                 hold_cycles: int = 100_000_000) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls queued behind a
+    sleeping stream (``hold_cycles`` GPU cycles, tens of ms) and timed
+    between two events, so the host's time to issue them (Python,
+    autograd, ctypes) does not count, only the device's back-to-back
+    work. The sleep must outlast the queueing, which is checked: a call
+    of many kernels fills the device's launch queue (about a thousand
+    launches) and blocks the host, so the run is halved until it fits."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(hold_cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        if iters < 10:
+            raise RuntimeError(f"the host took {host_ms} ms to queue {iters} calls")
+        return cuda_time_ms(fn, iters // 2, 0, hold_cycles)
+    return ev[1].elapsed_time(ev[2]) / iters
+
+
+def attention_bound_ms(b: int, h: int, lq: int, lk: int, dh: int, elt_bytes: int):
+    """Least time for one forward launch, as (bytes ms, operations ms):
+    q, k, v read once, the (B, Lk) fp32 mask read once, the fp32 output
+    written once, over HBM; and 4*B*H*Lq*Lk*Dh fp32 FLOPs over the CUDA
+    cores' peak."""
+    nbytes = b * h * (lq + 2 * lk) * dh * elt_bytes + b * lk * 4 + b * h * lq * dh * 4
+    flops = 4 * b * h * lq * lk * dh
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def attention_bwd_bound_ms(b: int, h: int, lq: int, lk: int, dh: int, elt_bytes: int):
+    """Least time for one backward launch, as (bytes ms, operations ms):
+    q, k, v (input type), g (fp32) and the (B, Lk) fp32 mask read once,
+    dq, dk, dv (input type) and dm (fp32) written once; 10*B*H*Lq*Lk*Dh
+    fp32 FLOPs (the recomputed scores, g v^T, dv, dq and dk)."""
+    qkv = b * h * (lq + 2 * lk) * dh * elt_bytes
+    nbytes = 2 * qkv + b * h * lq * dh * 4 + 2 * b * lk * 4
+    flops = 10 * b * h * lq * lk * dh
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
+    """Attention launches of the main path by (Lq, Lk): the forward's per
+    greedy batch or IL update (the text stack once, then per step the
+    panorama encoder and, in each cross-modal layer, cross-attention
+    both ways and the two self-attentions), and the backward's per IL
+    update (``fix_lang_embedding`` and ``fix_hist_embedding`` keep the
+    text and panorama stacks out of the graph, so only the cross-modal
+    layers' attentions run backward)."""
+    mcfg, t_max = cfg.model, cfg.env.max_action_len
+    n_ob = cfg.env.max_candidates + 1 + 36
+    l_txt, l_pano, l_visn = cfg.env.max_instr_len, 36, t_max + 1 + n_ob
+    fwd = collections.Counter()
+    fwd[(l_txt, l_txt)] += mcfg.num_l_layers + t_max * mcfg.num_x_layers
+    fwd[(l_pano, l_pano)] += t_max * mcfg.num_h_pano_layers
+    fwd[(l_txt, l_visn)] += t_max * mcfg.num_x_layers
+    fwd[(l_visn, l_txt)] += t_max * mcfg.num_x_layers
+    fwd[(l_visn, l_visn)] += t_max * mcfg.num_x_layers
+    bwd = collections.Counter({s: t_max * mcfg.num_x_layers for s in
+                               ((l_txt, l_txt), (l_txt, l_visn), (l_visn, l_txt),
+                                (l_visn, l_visn))})
+    return fwd, bwd
+
+
+def kernel_inputs(b: int, h: int, lq: int, lk: int, dh: int, dtype, gen, dev,
+                  masked_rows: bool = False):
+    """q, k, v as the layer hands them over ((B, H, L, Dh) views of
+    (B, L, H, Dh)), a 0 / -10000 mask, and an output cotangent laid out
+    as the layer's gradient arrives.
+
+    With ``masked_rows`` every third batch element has all its keys at
+    -10000, and q and k lie on a grid of 1/4: their scores, and the
+    rounding of score + mask next to -10000 (whose fp32 step is about
+    1e-3), are then exact in any summation order, so the kernel and its
+    plain twin see the same scores."""
+    def view(l, grid):
+        x = torch.randn(b, l, h, dh, device=dev, generator=gen)
+        return (torch.round(x * 4) / 4 if grid else x).to(dtype).transpose(1, 2)
+
+    q, k, v = view(lq, masked_rows), view(lk, masked_rows), view(lk, False)
+    m = torch.where(torch.rand(b, lk, device=dev, generator=gen) < 0.8, 0.0, -10000.0)
+    if masked_rows:
+        m[::3] = -10000.0
+    g = torch.randn(b, lq, h, dh, device=dev, generator=gen).transpose(1, 2)
+    return q, k, v, m, g
+
+
+def time_forward(q, k, v, m) -> Dict[str, float]:
+    """Device ms per call of the forward kernel, its plain version and
+    ``scaled_dot_product_attention`` on the same inputs (dropout off),
+    and the bound of the same work split into bytes and operations."""
+    b, h, lq, dh = q.shape
+    bytes_ms, flops_ms = attention_bound_ms(b, h, lq, k.shape[2], dh, q.element_size())
+    mask4 = m[:, None, None, :].to(q.dtype)
+    return {
+        "ms": cuda_time_ms(lambda: attn.fused_attention(q, k, v, m)),
+        "plain_ms": cuda_time_ms(lambda: attn.attention_reference(q, k, v, m)),
+        "library_ms": cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask4)),
+        "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+    }
+
+
+def weighted(rows: List[dict], mix: Dict[Shape, int], key: Callable[[dict], float]) -> float:
+    """Mean of ``key`` over fp32 rows with times (dropout off), weighted
+    by the launches of each shape in ``mix``."""
+    by_shape = {(r["lq"], r["lk"]): r for r in rows if r["dtype"] == "float32" and "ms" in r}
+    return sum(n * key(by_shape[s]) for s, n in mix.items()) / sum(mix.values())
+
+
+def main():
+    dev = resolve_device()  # the card; raises without one
+    print(nvidia_smi(), flush=True)
+    built = attn.build_library("attention_fwd")
+    print(json.dumps({"build_seconds": built["seconds"], "ptxas": [
+        ln.strip() for ln in built["ptxas"].splitlines()
+        if "Used" in ln or "spill" in ln or "Compiling entry" in ln]}),
+        flush=True)
+
+    cfg, _ = slice_config(32)
+    mix, _ = launch_mix(cfg)
+    h, dh = cfg.model.num_attention_heads, cfg.model.head_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b in (32, 8):
+        rows = []
+        for (lq, lk), n in mix.items():
+            q, k, v, m, _ = kernel_inputs(b, h, lq, lk, dh, torch.float32, gen, dev)
+            err = (attn.fused_attention(q, k, v, m)
+                   - attn.attention_reference(q, k, v, m)).abs().max().item()
+            row = {"batch": b, "lq": lq, "lk": lk, "dtype": "float32", "launches": n,
+                   "max_abs_err": err, **time_forward(q, k, v, m)}
+            row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]),
+                       over_library=row["ms"] / row["library_ms"])
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        means = {key: weighted(rows, mix, lambda r: r[key]) for key in
+                 ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "flops_ms")}
+        print(json.dumps({"batch": b, "dtype": "float32", "weighted_over": sum(mix.values()),
+                          **means}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
