@@ -8,7 +8,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and power limit.
 2. build    -- nvcc builds of every kernel of the main paths from this
                checkout's sources, one nvcc per source, all started
-               together, with the -Xptxas -v reports.
+               together, with each instantiation's registers and spill
+               bytes from the -Xptxas -v reports.
 3. kernels  -- each kernel against its plain torch twin on the card at
                the main paths' shapes (batch 32, full width), fp32 and
                bf16, dropout off and on: the attention forward, and the
@@ -16,10 +17,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                kernel, plain and library-call times and the card's bound
                for the same work; both kernels checked and timed at the
                training batch of 8 too, each at its training path's
-               shapes; the forward's edge cases (Lq = Lk = 1, a ragged
-               33 x 65 query block, 65 x 65 with batch elements whose
-               keys all read -10000, Dh 16 and 128) at batches 32 and 8.
-               Timing and bounds come from
+               shapes; edge cases of the query-blocked tiling at batches
+               32 and 8 (Lq = Lk = 1, a ragged 33 x 65 query block,
+               65 x 65 with batch elements whose keys all read -10000,
+               Dh 16 and 128), for the backward also 100 x 100, 250 x 65,
+               65 x 250 and 250 x 250 (R4R / CVDN and RxR text lengths)
+               and 300 x 65 (more query blocks than a cluster holds).
+               Timing, bounds and build reports come from
                vln_hamt_torch/run/profile_attention.py.
 4. slice    -- the serving path: full-width R2R greedy evaluation
                (HAMTAgent.eval_split_device, `r2r` preset, fp32, seeded
@@ -56,14 +60,13 @@ import json
 import math
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from vln_hamt_torch.agents.agent import HAMTAgent
 from vln_hamt_torch.ops import attention as attn
 from vln_hamt_torch.run.profile_attention import (
-    attention_bwd_bound_ms, cuda_time_ms, kernel_inputs, launch_mix, nvidia_smi, time_forward,
+    build_all, kernel_inputs, launch_mix, nvidia_smi, rel_err, time_backward, time_forward,
     weighted)
 from vln_hamt_torch.run.profile_eval import slice_config, slice_env
 
@@ -75,12 +78,19 @@ TOL = {  # forward kernel vs plain twin, max abs error
     (torch.float32, 0.1): 2e-5,  # kept values scaled by 1 / (1 - rate)
     (torch.bfloat16, 0.1): 2e-5,
 }
-# shapes the query-blocked forward tiling can get wrong, checked at both
+# shapes the query-blocked tilings can get wrong, checked at both
 # batches: (Lq, Lk, Dh, every third batch element's keys all at -10000)
 EDGE_CASES = ((1, 1, DH, False), (33, 65, DH, False), (65, 65, DH, True),
               (65, 65, 16, False), (65, 65, 128, False))
+# and for the backward the lengths past its old limit of 114 tokens (R4R
+# and CVDN text, RxR text and its cross-attention with the visual
+# tokens), and 300 query rows: more query blocks than a thread-block
+# cluster holds, summed through global scratch
+BWD_EDGE_CASES = EDGE_CASES + ((100, 100, DH, False), (250, 65, DH, False),
+                               (65, 250, DH, False), (250, 250, DH, False),
+                               (300, 65, DH, False))
 # backward kernel vs plain twin, max abs error over the tensor's max abs
-# value. fp32: sums of at most 65 (dq, dk, dv) or 12 x 65 (dm) products
+# value. fp32: sums of at most 250 (dq, dk, dv) or 12 x 250 (dm) products
 # in another order than cuBLAS's. bf16 dq, dk, dv: both sides round an
 # fp32 value to bf16, and a last-bit fp32 difference may flip that
 # rounding by one bf16 step, 2^-8 of the value. dm is fp32 always.
@@ -100,25 +110,9 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def rel_err(got, want) -> float:
-    got, want = got.float(), want.float()
-    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
-
-
 def reset_counts() -> None:
     for name in attn.launch_counts:
         attn.launch_counts[name] = 0
-
-
-def sdpa_backward(q, k, v, m, g, dtype):
-    """The backward alone of scaled_dot_product_attention with a mask
-    that takes a gradient: autograd.grad on a retained graph (the
-    library yardstick; the port never calls it)."""
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    mask4 = m[:, None, None, :].to(dtype).detach().requires_grad_()
-    out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask4)
-    return lambda: torch.autograd.grad(out, (*leaves, mask4), g.to(out.dtype),
-                                       retain_graph=True)
 
 
 def check_bwd(q, k, v, m, g, seed, rate, where):
@@ -186,14 +180,7 @@ def phase_kernels(dev, fwd_mix, bwd_mix):
                 brow = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
                         "rel_err": errs, "rtol": BWD_RTOL[dtype], "dm_rtol": BWD_DM_RTOL}
                 if rate == 0.0:
-                    bytes_ms, flops_ms = attention_bwd_bound_ms(B, H, lq, lk, DH,
-                                                                q.element_size())
-                    brow.update(
-                        ms=cuda_time_ms(lambda: attn.attention_bwd(q, k, v, m, g)),
-                        plain_ms=cuda_time_ms(
-                            lambda: attn.attention_bwd_reference(q, k, v, m, g)),
-                        library_ms=cuda_time_ms(sdpa_backward(q, k, v, m, g, dtype)),
-                        bytes_ms=bytes_ms, flops_ms=flops_ms, main_path=(lq, lk) in bwd_mix)
+                    brow.update(time_backward(q, k, v, m, g), main_path=(lq, lk) in bwd_mix)
                 bwd_rows.append(brow)
     emit("kernels", kernel="attention_fwd", batch=B, heads=H, head_dim=DH, results=fwd_rows)
     emit("kernels", kernel="attention_bwd", batch=B, heads=H, head_dim=DH, results=bwd_rows)
@@ -216,20 +203,25 @@ def phase_kernels(dev, fwd_mix, bwd_mix):
          weighted={key: weighted(fwd8, fwd_mix, lambda r: r[key])
                    for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "flops_ms")})
 
-    # the edge cases of the query-blocked tiling, at both batches
-    edge = []
+    # the edge cases of the query-blocked tilings, at both batches
+    edge, bwd_edge = [], []
     for batch in (B, TRAIN_B):
-        for (lq, lk, dh, masked) in EDGE_CASES:
+        for (lq, lk, dh, masked) in BWD_EDGE_CASES:
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, m, _ = kernel_inputs(batch, H, lq, lk, dh, dtype, gen, dev, masked)
+                q, k, v, m, g = kernel_inputs(batch, H, lq, lk, dh, dtype, gen, dev, masked)
                 for rate in (0.0, 0.1):
                     where = f"B {batch} ({lq},{lk}) Dh {dh}{' masked rows' if masked else ''}"
-                    err = check_fwd(q, k, v, m, seed, rate, where)
-                    fwd_err = max(fwd_err, err)
-                    edge.append({"batch": batch, "lq": lq, "lk": lk, "head_dim": dh,
-                                 "masked_rows": masked, "dtype": dtype_name(dtype),
-                                 "rate": rate, "max_abs_err": err})
+                    case = {"batch": batch, "lq": lq, "lk": lk, "head_dim": dh,
+                            "masked_rows": masked, "dtype": dtype_name(dtype), "rate": rate}
+                    if (lq, lk, dh, masked) in EDGE_CASES:
+                        err = check_fwd(q, k, v, m, seed, rate, where)
+                        fwd_err = max(fwd_err, err)
+                        edge.append({**case, "max_abs_err": err})
+                    errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+                    bwd_err = max(bwd_err, err)
+                    bwd_edge.append({**case, "rel_err": errs})
     emit("kernels", kernel="attention_fwd", edge_cases=edge)
+    emit("kernels", kernel="attention_bwd", edge_cases=bwd_edge)
 
     # the backward at the training batch and the main path's own shapes:
     # checked at both rates, timed with dropout off
@@ -244,14 +236,7 @@ def phase_kernels(dev, fwd_mix, bwd_mix):
                 row = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
                        "rel_err": errs}
                 if rate == 0.0:
-                    bytes_ms, flops_ms = attention_bwd_bound_ms(TRAIN_B, H, lq, lk, DH,
-                                                                q.element_size())
-                    row.update(
-                        ms=cuda_time_ms(lambda: attn.attention_bwd(q, k, v, m, g)),
-                        plain_ms=cuda_time_ms(
-                            lambda: attn.attention_bwd_reference(q, k, v, m, g)),
-                        library_ms=cuda_time_ms(sdpa_backward(q, k, v, m, g, dtype)),
-                        bytes_ms=bytes_ms, flops_ms=flops_ms)
+                    row.update(time_backward(q, k, v, m, g))
                 b8.append(row)
     emit("kernels", kernel="attention_bwd", batch=TRAIN_B, heads=H, head_dim=DH, results=b8)
     return fwd_rows, b8, fwd_err, bwd_err
@@ -302,13 +287,8 @@ def main() -> int:
 
     # ------------------------------------------------------------- build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(attn.SOURCES)) as pool:
-        builds = dict(zip(attn.SOURCES, pool.map(attn.build_library, attn.SOURCES)))
-    for name, built in builds.items():
-        ptxas = [ln.strip() for ln in built["ptxas"].splitlines()
-                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-        emit("build", kernel=name, seconds=built["seconds"], library=built["path"],
-             ptxas=ptxas)
+    for name, built in build_all().items():  # registers and spills per instantiation
+        emit("build", kernel=name, **built)
     emit("build", wall_seconds=time.perf_counter() - t0)
 
     # ------------------------------------------------- the slice's world

@@ -135,6 +135,74 @@ def test_kernel_layout_checks_raise(case, match):
         tops.check_fwd_layout(q, k, k)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", tops.FWD_HEAD_DIMS)
+def test_bwd_layout_checks_accept_layer_views(dtype, dh):
+    """The backward kernel's argument checks, on CPU tensors: the layer's
+    views of q, k, v at every instantiated head width, with the output
+    cotangent as autograd hands it over (the (B, H, Lq, Dh) view of the
+    fp32 (B, Lq, H, Dh) gradient) or contiguous, Lk = 256, and a size-1
+    batch whose stride is unused."""
+    x = _layer_view(dtype, dh=dh)
+    g = _layer_view(dh=dh)
+    tops.check_bwd_layout(x, x, x, g)
+    tops.check_bwd_layout(x, x, x, g.contiguous())
+    long_k = _layer_view(dtype, l=tops.FWD_MAX_LK, dh=dh)
+    tops.check_bwd_layout(x, long_k, long_k, g)
+    one = torch.zeros(15 * dh, dtype=dtype).as_strided((1, 3, 5, dh), (7, 5 * dh, dh, 1))
+    tops.check_bwd_layout(one, one, one, g[:1])
+
+
+@pytest.mark.parametrize("case,match", [
+    ("q_offset", "16-byte boundary"),  # q 4 bytes into a 16-byte word
+    ("g_offset", "16-byte boundary"),  # the cotangent 4 bytes in
+    ("row_stride", "along dim 2"),  # k rows 17 floats apart
+    ("head_dim", "head widths"),  # Dh 48 is not instantiated
+    ("long_keys", "Lk <= 256"),  # scores of 257 keys do not fit the registers
+])
+def test_bwd_layout_checks_raise(case, match):
+    """Inputs the backward kernel's 16-byte loads cannot take raise a
+    ValueError that names the problem, before anything is launched."""
+    q = k = _layer_view()
+    g = _layer_view()
+    if case == "q_offset":
+        q = _layer_view(offset=1)
+    elif case == "g_offset":
+        g = _layer_view(offset=1)
+    elif case == "row_stride":
+        k = torch.zeros(1000).as_strided((2, 3, 5, 16), (400, 100, 17, 1))
+    elif case == "head_dim":
+        q = k = _layer_view(dh=48)
+        g = _layer_view(dh=48)
+    else:
+        k = _layer_view(l=tops.FWD_MAX_LK + 1)
+    with pytest.raises(ValueError, match=match):
+        tops.check_bwd_layout(q, k, k, g)
+
+
+@pytest.mark.parametrize("case", ["layer_view", "contiguous", "misaligned", "bf16", "dh_stride"])
+def test_bwd_cotangent_copied_only_when_unreadable(case):
+    """The wrapper reads the layer's fp32 cotangent in place and copies
+    any other (a misaligned base, another float type, a Dh stride other
+    than 1) into a layout the kernel takes, with the same values."""
+    g = _layer_view()
+    g.copy_(torch.from_numpy(np.random.default_rng(4).standard_normal(g.shape)
+                             .astype(np.float32)))
+    if case == "contiguous":
+        g = g.contiguous()
+    elif case == "misaligned":
+        g = _layer_view(offset=1).copy_(g)
+    elif case == "bf16":
+        g = g.to(torch.bfloat16)
+    elif case == "dh_stride":
+        g = g.transpose(2, 3).contiguous().transpose(2, 3)
+    got = tops._kernel_cotangent(g)
+    tops.check_bwd_layout(got, got, got, got)
+    assert got.dtype == torch.float32 and torch.equal(got, g.float())
+    in_place = case in ("layer_view", "contiguous")
+    assert (got.data_ptr() == g.data_ptr()) == in_place
+
+
 def test_strided_views_and_checks():
     """The layer hands over (B, L, H, Dh) projections as (B, H, L, Dh)
     views; results must not depend on the layout, and bad shapes raise."""

@@ -90,7 +90,7 @@ def _rel_err(got, want):
 
 
 # Backward, relative to each tensor's largest value. fp32: sums of at
-# most 65 products (dq, dk, dv) or 12 x 65 terms (dm) in another order
+# most 250 products (dq, dk, dv) or 12 x 250 terms (dm) in another order
 # than cuBLAS's, each rounding within 6e-8 of the terms' scale. bf16
 # outputs: both sides round an fp32 value to bf16, and a last-bit
 # difference in fp32 may flip that rounding by one bf16 step, 2^-8 of
@@ -98,19 +98,24 @@ def _rel_err(got, want):
 BWD_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
 BWD_DM_RTOL = 2e-5
 
+# (Lq, Lk, Dh, masked rows): the training path's shapes, the forward's
+# edge cases, then lengths past the old one-CTA-per-head limit of 114
+# tokens -- R4R and CVDN text (100), RxR text (250) and its
+# cross-attention with the 65 visual tokens -- and 300 query rows, more
+# query blocks than a thread-block cluster holds (the global-scratch sum)
+_BWD_CASES = [pytest.param(lq, lk, 64, False, id=f"{lq}-{lk}") for lq, lk in
+              [(60, 60), (36, 36), (60, 65), (65, 60), (65, 65)]] + _FWD_CASES[5:] + [
+    pytest.param(lq, lk, 64, False, id=f"{lq}-{lk}") for lq, lk in
+    [(100, 100), (250, 65), (65, 250), (250, 250), (300, 65)]]
 
+
+@pytest.mark.parametrize("batch", [8, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("lq,lk", [(60, 60), (36, 36), (60, 65), (65, 60), (65, 65)])
-def test_backward_kernel_matches_plain(cuda, dtype, rate, lq, lk):
+@pytest.mark.parametrize("lq,lk,dh,masked", _BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, batch, dtype, rate, lq, lk, dh, masked):
     g = torch.Generator(device=cuda).manual_seed(lq * 1000 + lk + 7)
-    b, h, dh = 4, 12, 64
-    q = torch.randn(b, lq, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
-    k = torch.randn(b, lk, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
-    v = torch.randn(b, lk, h, dh, device=cuda, generator=g).to(dtype).transpose(1, 2)
-    m = torch.where(torch.rand(b, lk, device=cuda, generator=g) < 0.8, 0.0, -10000.0)
-    # the cotangent as the layer hands it over: a view of (B, Lq, H, Dh)
-    cot = torch.randn(b, lq, h, dh, device=cuda, generator=g).transpose(1, 2)
+    q, k, v, m, cot = kernel_inputs(batch, 12, lq, lk, dh, dtype, g, cuda, masked_rows=masked)
     seed = 2**31 + 11
     n0 = tops.launch_counts["attention_bwd"]
     got = tops.attention_bwd(q, k, v, m, cot, seed, rate)
@@ -119,9 +124,32 @@ def test_backward_kernel_matches_plain(cuda, dtype, rate, lq, lk):
     want = tops.attention_bwd_reference(q, k, v, m, cot, seed, rate)
     for name, x, y in zip(("dq", "dk", "dv", "dm"), got, want):
         assert x.shape == y.shape and x.dtype == y.dtype, name
+        assert torch.isfinite(x).all(), name
         err = _rel_err(x, y)
-        print(f"bwd {lq}x{lk} {dtype} rate {rate} {name}: rel err {err:.3g}")
+        print(f"bwd B {batch} {lq}x{lk} Dh {dh} {dtype} rate {rate} {name}: rel err {err:.3g}")
         assert err <= (BWD_DM_RTOL if name == "dm" else BWD_RTOL[dtype]), (name, err)
+
+
+@pytest.mark.parametrize("lk,dh,match", [
+    (257, 64, "Lk <= 256"),  # the scores of 257 keys do not fit the register tile
+    (168, 128, "shared memory"),  # at Dh 128 the staged tiles fit up to Lk 160
+])
+def test_backward_raises_before_launch(cuda, lk, dh, match):
+    b, h, lq = 2, 12, 40
+    q, cot = (torch.randn(b, h, lq, dh, device=cuda) for _ in range(2))
+    k = torch.randn(b, h, lk, dh, device=cuda)
+    m = torch.zeros(b, lk, device=cuda)
+    n0 = tops.launch_counts["attention_bwd"]
+    with pytest.raises(ValueError, match=match):
+        tops.attention_bwd(q, k, k, m, cot)
+    assert tops.launch_counts["attention_bwd"] == n0
+    # the longest key row that fits at Dh 128 still runs
+    if dh == 128:
+        k = k[:, :, :160]
+        got = tops.attention_bwd(q, k, k, m[:, :160], cot)
+        want = tops.attention_bwd_reference(q, k, k, m[:, :160], cot)
+        assert all(_rel_err(x, y) <= BWD_RTOL[torch.float32] for x, y in zip(got[:3], want))
+        assert tops.launch_counts["attention_bwd"] == n0 + 1
 
 
 def test_autograd_function_launches_both_kernels(cuda):

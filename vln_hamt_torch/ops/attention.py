@@ -190,10 +190,13 @@ def _library(name: str) -> ctypes.CDLL:
         lib.hamt_attention_smem_bytes.restype = ll
     else:
         lib.hamt_attention_bwd.argtypes = (
-            [p] * 10 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
+            [p] * 12 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
         lib.hamt_attention_bwd.restype = i
-        lib.hamt_attention_bwd_smem_bytes.argtypes = [i, i, i]
+        lib.hamt_attention_bwd_smem_bytes.argtypes = [i, i]
         lib.hamt_attention_bwd_smem_bytes.restype = ll
+        for fn in (lib.hamt_attention_bwd_query_blocks, lib.hamt_attention_bwd_needs_scratch):
+            fn.argtypes = [i]
+            fn.restype = i
     return lib
 
 
@@ -213,10 +216,35 @@ def _check_inputs(q, k, v, m):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head widths the forward kernel is instantiated for, and its longest
-#: key row (its scores stay in registers: 8 lanes x 32 columns)
+#: head widths both kernels are instantiated for, and their longest key
+#: row (the scores stay in registers: 8 lanes x 32 columns)
 FWD_HEAD_DIMS = (16, 32, 64, 128)
 FWD_MAX_LK = 256
+
+
+def _misalignment(name: str, t: torch.Tensor) -> Optional[str]:
+    """Why the kernels' 16-byte loads cannot read ``t`` as it lies, or
+    None: its base address and every batch, head and row stride must be
+    multiples of 16 bytes (strides of size-1 dimensions are never used)."""
+    if t.data_ptr() % 16:
+        return f"{name} starts {t.data_ptr() % 16} bytes past a 16-byte boundary"
+    for dim in range(3):
+        nbytes = t.stride(dim) * t.element_size()
+        if t.shape[dim] > 1 and nbytes % 16:
+            return (f"{name}'s stride along dim {dim} is {nbytes} bytes, "
+                    f"not a multiple of 16 (strides {t.stride()})")
+    return None
+
+
+def _check_layout(kernel: str, dh: int, lk: int, tensors: Dict[str, torch.Tensor]) -> None:
+    if dh not in FWD_HEAD_DIMS:
+        raise ValueError(f"the {kernel} takes head widths {FWD_HEAD_DIMS}, got Dh={dh}")
+    if lk > FWD_MAX_LK:
+        raise ValueError(f"the {kernel} takes Lk <= {FWD_MAX_LK}, got Lk={lk}")
+    for name, t in tensors.items():
+        problem = _misalignment(name, t)
+        if problem:
+            raise ValueError(problem)
 
 
 def check_fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -226,19 +254,29 @@ def check_fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     stride a multiple of 16 bytes (strides of size-1 dimensions are never
     used). Reads only shapes, strides and addresses, so it runs on CPU
     tensors too."""
-    dh, lk = q.shape[3], k.shape[2]
-    if dh not in FWD_HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head widths {FWD_HEAD_DIMS}, got Dh={dh}")
-    if lk > FWD_MAX_LK:
-        raise ValueError(f"the attention kernel takes Lk <= {FWD_MAX_LK}, got Lk={lk}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} starts {t.data_ptr() % 16} bytes past a 16-byte boundary")
-        for dim in range(3):
-            nbytes = t.stride(dim) * t.element_size()
-            if t.shape[dim] > 1 and nbytes % 16:
-                raise ValueError(f"{name}'s stride along dim {dim} is {nbytes} bytes, "
-                                 f"not a multiple of 16 (strides {t.stride()})")
+    _check_layout("attention kernel", q.shape[3], k.shape[2], {"q": q, "k": k, "v": v})
+
+
+def check_bwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     g: torch.Tensor) -> None:
+    """Raise unless the backward kernel can take q, k, v and the output
+    cotangent g as they lie: the forward's rules (:func:`check_fwd_layout`)
+    for all four. Runs on CPU tensors too. The wrapper copies a cotangent
+    that fails them (:func:`_kernel_cotangent`), so on the autograd path
+    only q, k, v can raise here, and the forward has checked them."""
+    _check_layout("attention backward kernel", q.shape[3], k.shape[2],
+                  {"q": q, "k": k, "v": v, "g": g})
+
+
+def _kernel_cotangent(g: torch.Tensor) -> torch.Tensor:
+    """The output cotangent as the backward kernel reads it: fp32, Dh
+    contiguous, 16-byte aligned. The layer's gradient arrives as the
+    (B, H, Lq, Dh) view of a (B, Lq, H, Dh) fp32 tensor and is read in
+    place; any other float type or layout costs one copy."""
+    g = g.to(torch.float32)
+    if g.stride(3) != 1 or _misalignment("g", g):
+        g = g.clone(memory_format=torch.contiguous_format)
+    return g
 
 
 def _check_cuda(tensors, dtype):
@@ -290,17 +328,15 @@ def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
 def _launch_bwd(q, k, v, m, g, seed: int, rate: float,
                 need_dm: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
     """The backward kernel; without ``need_dm`` it skips the mask's
-    cotangent (its column sums, scratch and head-sum pass) and returns
-    None for it."""
+    cotangent (its column sums, scratch and block-and-head-sum pass) and
+    returns None for it. One call issues the main kernel (a pair's query
+    blocks sum dk and dv inside their thread-block cluster), then, for
+    Lq > 256 only, the pass that sums their dk / dv partials, then the dm
+    pass when it is wanted."""
     b, h, lq, lk, dh = _check_inputs(q, k, v, m)
     if g.shape != (b, h, lq, dh):
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {(b, h, lq, dh)}")
-    # g arrives as the (B, H, Lq, Dh) view of the layer's (B, Lq, H, Dh)
-    # gradient: the kernel reads it through its strides; only a float
-    # type other than fp32, or a Dh stride other than 1, costs a copy
-    g = g.to(torch.float32)
-    if g.stride(3) != 1:
-        g = g.contiguous()
+    g = _kernel_cotangent(g)
     _check_cuda({"q": q, "k": k, "v": v, "m": m, "g": g}, q.dtype)
     m = m.to(torch.float32)
     # dq, dk, dv stored (B, L, H, Dh): the backward of the layer's
@@ -315,19 +351,26 @@ def _launch_bwd(q, k, v, m, g, seed: int, rate: float,
             if t is not None:
                 t.zero_()
         return (*views, dm)
+    check_bwd_layout(q, k, v, g)
     lib = _library("attention_bwd")
-    smem = lib.hamt_attention_bwd_smem_bytes(lq, lk, dh)
+    smem = lib.hamt_attention_bwd_smem_bytes(lk, dh)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"attention backward over Lq={lq}, Lk={lk}, Dh={dh} needs {smem} B "
+        raise ValueError(f"attention backward over Lk={lk}, Dh={dh} needs {smem} B "
                          f"of shared memory per block (limit {MAX_SMEM_BYTES})")
-    dm_heads = (torch.empty((b, h, lk), dtype=torch.float32, device=q.device)
-                if need_dm else None)
+    nqb = lib.hamt_attention_bwd_query_blocks(lq)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    # fp32 partials of dk and dv per query block where a thread-block
+    # cluster cannot hold the pair's blocks (Lq > 256)
+    dk_part, dv_part = (torch.empty((2, nqb, b * h, lk, dh), **f32)
+                        if lib.hamt_attention_bwd_needs_scratch(lq) else (None, None))
+    dm_part = torch.empty((nqb, b, h, lk), **f32) if need_dm else None
+    ptr = lambda t: None if t is None else t.data_ptr()
     strides = [s for t in (q, k, v, g, *views) for s in t.stride()[:3]] + list(m.stride())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.hamt_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dm_heads.data_ptr() if need_dm else None, dm.data_ptr() if need_dm else None,
+        ptr(dk_part), ptr(dv_part), ptr(dm_part), ptr(dm),
         _DTYPES[q.dtype], b, h, lq, lk, dh, (ctypes.c_longlong * 23)(*strides),
         1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
     if err != 0:

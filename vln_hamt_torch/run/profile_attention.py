@@ -1,19 +1,30 @@
-"""The attention forward kernel against its plain version and the library call, by shape.
+"""The attention kernels against their plain versions and the library calls, by shape.
 
     python -m vln_hamt_torch.run.profile_attention
 
 For each (Lq, Lk) shape of the R2R main path (the ``r2r`` preset over
 the synthetic world of ``run/profile_eval.py``: 12 heads, Dh 64), at the
-serving batch of 32 and the training batch of 8, fp32, dropout off: the
-forward kernel's device ms per launch, its plain
-version's (``attention_reference``), ``scaled_dot_product_attention``'s,
-the card's bound for the same work, and the kernel's largest error
-against the plain version. Prints the card's name and power limit, the
-kernel's build report, one JSON line per shape, and one per batch with
-the means weighted by the launches of each shape on the path (279 per
-greedy batch or IL update). Takes well under a minute on the card.
+serving batch of 32 and the training batch of 8, dropout off:
 
-Also the home of the timing, bound and input helpers that
+- the forward (fp32): the kernel's device ms per launch, its plain
+  version's (``attention_reference``), ``scaled_dot_product_attention``'s,
+  the card's bound for the same work, and the kernel's largest error
+  against the plain version; weighted over the 279 launches of a greedy
+  batch or IL update;
+- the backward (fp32 and bf16, the shapes of an IL update): the
+  kernel's ms per call with the mask cotangent dm (``ms``, as the
+  library yardstick computes it) and without (``ms_no_dm``, as the main
+  path calls it), its plain version's (``attention_bwd_reference``), the
+  backward of ``scaled_dot_product_attention`` (:func:`sdpa_backward`),
+  the bound, and the largest relative error; weighted over the 240
+  launches of an IL update.
+
+Prints the card's name and power limit, both kernels' build reports
+(registers and spills per instantiation), one JSON line per shape, and
+one per kernel and batch with the weighted means. Takes about a minute
+on the card, the two builds included.
+
+Also the home of the timing, bound, build-report and input helpers that
 ``chip_smoke.py`` uses.
 """
 
@@ -21,8 +32,10 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -157,24 +170,87 @@ def time_forward(q, k, v, m) -> Dict[str, float]:
     }
 
 
-def weighted(rows: List[dict], mix: Dict[Shape, int], key: Callable[[dict], float]) -> float:
-    """Mean of ``key`` over fp32 rows with times (dropout off), weighted
-    by the launches of each shape in ``mix``."""
-    by_shape = {(r["lq"], r["lk"]): r for r in rows if r["dtype"] == "float32" and "ms" in r}
+def sdpa_backward(q, k, v, m, g):
+    """The backward alone of scaled_dot_product_attention with a mask
+    that takes a gradient: a function that runs autograd.grad on a
+    retained graph (the library yardstick; the port never calls it)."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    mask4 = m[:, None, None, :].to(q.dtype).detach().requires_grad_()
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask4)
+    return lambda: torch.autograd.grad(out, (*leaves, mask4), g.to(out.dtype),
+                                       retain_graph=True)
+
+
+def time_backward(q, k, v, m, g) -> Dict[str, float]:
+    """Device ms per call of the backward kernel with and without the
+    mask cotangent, its plain version and the backward of
+    ``scaled_dot_product_attention`` on the same inputs (dropout off),
+    and the bound of the same work (dm included) split into bytes and
+    operations."""
+    b, h, lq, dh = q.shape
+    bytes_ms, flops_ms = attention_bwd_bound_ms(b, h, lq, k.shape[2], dh, q.element_size())
+    return {
+        "ms": cuda_time_ms(lambda: attn.attention_bwd(q, k, v, m, g)),
+        "ms_no_dm": cuda_time_ms(lambda: attn._launch_bwd(q, k, v, m, g, 0, 0.0, False)),
+        "plain_ms": cuda_time_ms(lambda: attn.attention_bwd_reference(q, k, v, m, g)),
+        "library_ms": cuda_time_ms(sdpa_backward(q, k, v, m, g)),
+        "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+    }
+
+
+def ptxas_report(text: str) -> Dict[str, object]:
+    """Registers and spill bytes per kernel entry of an ``-Xptxas -v``
+    report, and the largest register count and the total spill bytes
+    over all entries."""
+    entries, entry = [], None
+    for line in text.splitlines():
+        name = re.search(r"Compiling entry function '(\S+)'", line)
+        if name:
+            entry = {"entry": name.group(1)}
+            entries.append(entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and entry is not None:
+            entry["spill_stores"], entry["spill_loads"] = map(int, spill.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and entry is not None:
+            entry["registers"] = int(regs.group(1))
+    return {"max_registers": max((e.get("registers", 0) for e in entries), default=0),
+            "spill_bytes": sum(e.get("spill_stores", 0) + e.get("spill_loads", 0)
+                               for e in entries),
+            "entries": entries}
+
+
+def build_all() -> Dict[str, Dict[str, object]]:
+    """Every kernel source built at once (one nvcc each): per kernel its
+    nvcc seconds, library path and :func:`ptxas_report`."""
+    with ThreadPoolExecutor(len(attn.SOURCES)) as pool:
+        builds = dict(zip(attn.SOURCES, pool.map(attn.build_library, attn.SOURCES)))
+    return {name: {"seconds": b["seconds"], "library": b["path"], **ptxas_report(b["ptxas"])}
+            for name, b in builds.items()}
+
+
+def weighted(rows: List[dict], mix: Dict[Shape, int], key: Callable[[dict], float],
+             dtype: str = "float32") -> float:
+    """Mean of ``key`` over rows of ``dtype`` with times (dropout off),
+    weighted by the launches of each shape in ``mix``."""
+    by_shape = {(r["lq"], r["lk"]): r for r in rows if r["dtype"] == dtype and "ms" in r}
     return sum(n * key(by_shape[s]) for s, n in mix.items()) / sum(mix.values())
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
 
 
 def main():
     dev = resolve_device()  # the card; raises without one
     print(nvidia_smi(), flush=True)
-    built = attn.build_library("attention_fwd")
-    print(json.dumps({"build_seconds": built["seconds"], "ptxas": [
-        ln.strip() for ln in built["ptxas"].splitlines()
-        if "Used" in ln or "spill" in ln or "Compiling entry" in ln]}),
-        flush=True)
+    for name, built in build_all().items():
+        print(json.dumps({"kernel": name, **built}), flush=True)
 
     cfg, _ = slice_config(32)
-    mix, _ = launch_mix(cfg)
+    mix, bwd_mix = launch_mix(cfg)
     h, dh = cfg.model.num_attention_heads, cfg.model.head_dim
     gen = torch.Generator(device=dev).manual_seed(0)
     for b in (32, 8):
@@ -183,16 +259,37 @@ def main():
             q, k, v, m, _ = kernel_inputs(b, h, lq, lk, dh, torch.float32, gen, dev)
             err = (attn.fused_attention(q, k, v, m)
                    - attn.attention_reference(q, k, v, m)).abs().max().item()
-            row = {"batch": b, "lq": lq, "lk": lk, "dtype": "float32", "launches": n,
-                   "max_abs_err": err, **time_forward(q, k, v, m)}
+            row = {"kernel": "attention_fwd", "batch": b, "lq": lq, "lk": lk,
+                   "dtype": "float32", "launches": n, "max_abs_err": err,
+                   **time_forward(q, k, v, m)}
             row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]),
                        over_library=row["ms"] / row["library_ms"])
             print(json.dumps(row), flush=True)
             rows.append(row)
         means = {key: weighted(rows, mix, lambda r: r[key]) for key in
                  ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "flops_ms")}
-        print(json.dumps({"batch": b, "dtype": "float32", "weighted_over": sum(mix.values()),
-                          **means}), flush=True)
+        print(json.dumps({"kernel": "attention_fwd", "batch": b, "dtype": "float32",
+                          "weighted_over": sum(mix.values()), **means}), flush=True)
+
+        rows = []
+        for (lq, lk), n in bwd_mix.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, m, g = kernel_inputs(b, h, lq, lk, dh, dtype, gen, dev)
+                errs = [rel_err(x, y) for x, y in zip(attn.attention_bwd(q, k, v, m, g),
+                                                      attn.attention_bwd_reference(q, k, v, m, g))]
+                row = {"kernel": "attention_bwd", "batch": b, "lq": lq, "lk": lk,
+                       "dtype": str(dtype).split(".")[1], "launches": n,
+                       "max_rel_err": max(errs), **time_backward(q, k, v, m, g)}
+                row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]),
+                           over_library=row["ms"] / row["library_ms"])
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+        for dtype in ("float32", "bfloat16"):
+            means = {key: weighted(rows, bwd_mix, lambda r: r[key], dtype) for key in
+                     ("ms", "ms_no_dm", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                      "flops_ms")}
+            print(json.dumps({"kernel": "attention_bwd", "batch": b, "dtype": dtype,
+                              "weighted_over": sum(bwd_mix.values()), **means}), flush=True)
 
 
 if __name__ == "__main__":

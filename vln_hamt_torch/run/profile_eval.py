@@ -54,7 +54,7 @@ def _group(name: str) -> str:
     low = name.lower()
     if "attention_fwd_kernel" in low:
         return "attention_fwd_kernel"
-    if "attention_bwd" in low:  # the backward kernel and its dm pass
+    if "attention_bwd" in low:  # the backward kernel, its block-sum and dm passes
         return "attention_bwd_kernel"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "cublas", "matmul")):
         return "matmul"
