@@ -22,7 +22,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                65 x 65 with batch elements whose keys all read -10000,
                Dh 16 and 128), for the backward also 100 x 100, 250 x 65,
                65 x 250 and 250 x 250 (R4R / CVDN and RxR text lengths)
-               and 300 x 65 (more query blocks than a cluster holds).
+               and 300 x 65 (more query blocks than a cluster holds);
+               and both kernels checked and timed at batch 16, the
+               merged sample update's lanes, at the training shapes.
                Timing, bounds and build reports come from
                vln_hamt_torch/run/profile_attention.py.
 4. slice    -- the serving path: full-width R2R greedy evaluation
@@ -45,11 +47,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                batch; with the preset's fix_lang / fix_hist flags (240
                backward launches), and with both off (277: the text and
                panorama backward shapes too).
+8. sample   -- the sample training path: full-width R2R IL + A2C
+               (HAMTAgent.train_iteration("sample"), the same optimizer,
+               production dropout, batch 8, T = 15), merged (8 sampling
+               lanes and 8 teacher-forced lanes in one rollout); 3
+               warm-up and 20 timed updates: sample episodes/s, the
+               losses, peak memory, and 295 forward (279 at 16 lanes, the
+               bootstrap's 16 at 8) and 240 backward launches per update.
+               Then 3 fused updates (the teacher episode forward, then
+               the rollout): 574 forward and 480 backward launches each.
+9. sample_parity -- card against CPU, batch 4, dropout off, the same
+               weights and batches: the argmax rollout with rewards and
+               the bootstrap value (identical trajectories, masks and
+               bootstrap mask; rewards, logits, values and last_value
+               within tolerance), and the fused IL + A2C loss with the
+               argmax policy and every model and critic gradient.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
 serving slice and its times at batch 32, the backward's from the
-training slice and its times at batch 8. The last is {"ok": true, "device": {...}}. Without a CUDA device, or without
+training slice and its times at batch 8; each also with its launches
+per merged and per fused sample update and its times at batch 16. The
+last is {"ok": true, "device": {...}}. Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero before
 printing either.
 """
@@ -72,6 +91,7 @@ from vln_hamt_torch.run.profile_eval import slice_config, slice_env
 
 B, H, DH = 32, 12, 64
 TRAIN_B = 8  # the r2r preset's training batch
+MERGED_B = 2 * TRAIN_B  # lanes of the merged sample update's rollout
 TOL = {  # forward kernel vs plain twin, max abs error
     (torch.float32, 0.0): 1e-5,  # fp32, another summation order
     (torch.bfloat16, 0.0): 1e-5,  # bf16 inputs widened to fp32 alike on both sides
@@ -97,6 +117,9 @@ BWD_EDGE_CASES = EDGE_CASES + ((100, 100, DH, False), (250, 65, DH, False),
 BWD_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
 BWD_DM_RTOL = 2e-5
 PARITY_LOGIT_ATOL = 1e-3  # card vs CPU after 13 fp32 layers per step
+# card vs CPU rewards of one rollout: fp32 distances and nDTW, as the
+# JAX package holds its device rollout against its host rollout
+REWARD_RTOL, REWARD_ATOL = 1e-4, 1e-5
 # card vs CPU, one IL update: the loss relative, each gradient tensor
 # within 1e-3 of its own largest entry, plus 1e-6 of the model's largest
 # gradient for tensors that are zero in exact arithmetic and rounding
@@ -239,24 +262,58 @@ def phase_kernels(dev, fwd_mix, bwd_mix):
                     row.update(time_backward(q, k, v, m, g))
                 b8.append(row)
     emit("kernels", kernel="attention_bwd", batch=TRAIN_B, heads=H, head_dim=DH, results=b8)
-    return fwd_rows, b8, fwd_err, bwd_err
+
+    # both kernels at the merged sample update's 16 lanes, fp32, at the
+    # shapes it launches them with: checked at both rates, timed with
+    # dropout off
+    f16, b16 = [], []
+    for (lq, lk) in fwd_mix:
+        q, k, v, m, g = kernel_inputs(MERGED_B, H, lq, lk, DH, torch.float32, gen, dev)
+        for rate in (0.0, 0.1):
+            where = f"B {MERGED_B} ({lq},{lk})"
+            row = {"lq": lq, "lk": lk, "dtype": "float32", "rate": rate,
+                   "max_abs_err": check_fwd(q, k, v, m, seed, rate, where)}
+            fwd_err = max(fwd_err, row["max_abs_err"])
+            if rate == 0.0:
+                row.update(time_forward(q, k, v, m))
+            f16.append(row)
+            if (lq, lk) not in bwd_mix:
+                continue
+            errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+            bwd_err = max(bwd_err, err)
+            brow = {"lq": lq, "lk": lk, "dtype": "float32", "rate": rate, "rel_err": errs,
+                    "max_abs_err": err}
+            if rate == 0.0:
+                brow.update(time_backward(q, k, v, m, g))
+            b16.append(brow)
+    emit("kernels", kernel="attention_fwd", batch=MERGED_B, heads=H, head_dim=DH, results=f16)
+    emit("kernels", kernel="attention_bwd", batch=MERGED_B, heads=H, head_dim=DH, results=b16)
+    return fwd_rows, b8, (f16, b16), fwd_err, bwd_err
 
 
-def summary_row(name, source, replaces, launches, max_err, rows, mix, batch):
-    """The kernel's line of the summary: ``launches`` from the run of its
-    main path, times and bound from ``rows`` timed at that path's batch
-    and shapes, weighted by its launches per shape."""
+def kernel_times(rows, mix):
+    """Times and bound from ``rows`` (one batch), weighted over ``mix``'s
+    launches by shape."""
     bytes_mean = weighted(rows, mix, lambda r: r["bytes_ms"])
     flops_mean = weighted(rows, mix, lambda r: r["flops_ms"])
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "batch": batch, "max_abs_err": max_err,
         "ms": weighted(rows, mix, lambda r: r["ms"]),
         "plain_ms": weighted(rows, mix, lambda r: r["plain_ms"]),
         "bound_ms": weighted(rows, mix, lambda r: max(r["bytes_ms"], r["flops_ms"])),
         "bound_by": "bytes" if bytes_mean >= flops_mean else "operations",
         "library_ms": weighted(rows, mix, lambda r: r["library_ms"]),
     }
+
+
+def summary_row(name, source, replaces, launches, max_err, rows, mix, batch, sample):
+    """The kernel's line of the summary: ``launches`` from the run of its
+    main path, times and bound from ``rows`` timed at that path's batch
+    and shapes, weighted by its launches per shape; ``sample``: its
+    launches per merged and fused sample update and its times at the
+    merged update's batch."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "batch": batch, "max_abs_err": max_err,
+            **kernel_times(rows, mix), "sample": sample}
 
 
 def il_gradients(agent, ep):
@@ -268,6 +325,56 @@ def il_gradients(agent, ep):
     grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
              if p.grad is not None}
     return loss.item(), grads
+
+
+def sample_gradients(agent, il_ep, ins):
+    """Loss and named model and critic gradients of the fused sample
+    update's loss with the argmax policy (no draws), no step."""
+    agent.model.train()
+    agent.critic.train()
+    loss, _ = agent._fused_sample_loss(il_ep, ins, policy="argmax")
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
+             if p.grad is not None}
+    grads.update({"critic." + k: p.grad.detach().cpu()
+                  for k, p in agent.critic.named_parameters()})
+    return loss.item(), grads
+
+
+def check_grads(grads_g, grads_c, what):
+    """Card gradients against CPU ones, each tensor within TRAIN_GRAD_REL
+    of its own largest entry plus TRAIN_GRAD_FLOOR of the largest
+    gradient; returns the worst error over its tolerance."""
+    if grads_g.keys() != grads_c.keys():
+        raise AssertionError(f"{what}: gradients on different parameters: "
+                             f"{sorted(grads_g.keys() ^ grads_c.keys())}")
+    top = max(g.abs().max().item() for g in grads_c.values())
+    worst = 0.0
+    for name, gc in grads_c.items():
+        scale = gc.abs().max().item()
+        err = (grads_g[name] - gc).abs().max().item()
+        tol = TRAIN_GRAD_REL * scale + TRAIN_GRAD_FLOOR * top
+        if not err <= tol:
+            raise AssertionError(f"{what}: card vs CPU gradient of {name}: {err} "
+                                 f"(max {scale})")
+        worst = max(worst, err / tol)
+    return worst
+
+
+def timed_sample_updates(agent, iters):
+    """``iters`` sample updates, unsynchronized, from zeroed launch
+    counts: their losses (host tensors), wall seconds and launches."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [agent.train_iteration("sample", sync=False) for _ in range(iters)]
+    keys = ("loss", "IL_loss", "RL_loss", "entropy")
+    vals = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).cpu()
+    seconds = time.perf_counter() - t0
+    launches = dict(attn.launch_counts)
+    if not torch.isfinite(vals).all():
+        raise AssertionError(f"non-finite sample losses {vals.tolist()}")
+    return dict(zip(keys, vals.T)), seconds, launches
 
 
 def main() -> int:
@@ -304,7 +411,8 @@ def main() -> int:
     # ----------------------------------------------------------- kernels
     # timed at each main path's batch: the forward at the serving slice's
     # 32, the backward at the training slice's 8
-    fwd_rows, bwd_rows, fwd_err, bwd_err = phase_kernels(dev, mix, bwd_mix)
+    fwd_rows, bwd_rows, (f16_rows, b16_rows), fwd_err, bwd_err = phase_kernels(
+        dev, mix, bwd_mix)
 
     # ------------------------------------------------------------- slice
     env = slice_env(cfg, world, seed=0)
@@ -346,10 +454,11 @@ def main() -> int:
     for device in ("cuda", "cpu"):
         pagent = HAMTAgent(small, slice_env(small, world, seed=0), seed=0, device=device)
         pagent.enable_feature_table()
-        ins = pagent._device_rollout_args()
-        ep, extras = pagent._ensure_device_rollout_fn()(
-            ins["txt_ids"], ins["txt_mask"], pagent._feat_table, pagent._nav_tables,
-            ins["start_node"], ins["start_view"])
+        ins = pagent._device_rollout_args(include_rewards=False)
+        with torch.no_grad():  # as eval_split_device calls it
+            ep, extras = pagent._ensure_device_rollout_fn()(
+                ins["txt_ids"], ins["txt_mask"], pagent._feat_table, pagent._nav_tables,
+                ins["start_node"], ins["start_view"])
         outs[device] = ({k: v.cpu() for k, v in ep.items()},
                         {k: v.cpu() for k, v in extras.items()})
     (ep_g, ex_g), (ep_c, ex_c) = outs["cuda"], outs["cpu"]
@@ -431,18 +540,7 @@ def main() -> int:
         loss_err = abs(loss_g - loss_c) / abs(loss_c)
         if not loss_err <= TRAIN_LOSS_RTOL:
             raise AssertionError(f"card vs CPU IL loss {loss_g} vs {loss_c}")
-        if grads_g.keys() != grads_c.keys():
-            raise AssertionError(f"gradients on different parameters: "
-                                 f"{sorted(grads_g.keys() ^ grads_c.keys())}")
-        top = max(g.abs().max().item() for g in grads_c.values())
-        worst = 0.0  # largest error over its tolerance
-        for name, gc in grads_c.items():
-            scale = gc.abs().max().item()
-            err = (grads_g[name] - gc).abs().max().item()
-            tol = TRAIN_GRAD_REL * scale + TRAIN_GRAD_FLOOR * top
-            if not err <= tol:
-                raise AssertionError(f"card vs CPU gradient of {name}: {err} (max {scale})")
-            worst = max(worst, err / tol)
+        worst = check_grads(grads_g, grads_c, "IL update")
         # with the flags off the text stack and the panorama encoder run
         # backward too, except at the last step: its history token is
         # never read, so autograd skips that encoder (the JAX package's
@@ -457,13 +555,120 @@ def main() -> int:
              max_grad_err_over_tol=worst, grad_rel_tol=TRAIN_GRAD_REL,
              grad_floor=TRAIN_GRAD_FLOOR, launches=counts)
 
+    # ------------------------------------------------------------ sample
+    # IL + A2C on the same optimizer and dropout as `train`; merged first
+    # (the CLI's default), then fused
+    scfg = cfg.replace(train={"batch_size": TRAIN_B, "feedback": "sample"})
+    agent = HAMTAgent(scfg, slice_env(scfg, world, seed=0), seed=0)
+    agent.merged_sample_update = True
+    agent.enable_feature_table()
+    for _ in range(3):  # warm-up
+        agent.train_iteration("sample", sync=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 20
+    losses, seconds, merged_launches = timed_sample_updates(agent, iters)
+    # the rollout at 16 lanes (279) and the bootstrap at the 8 RL lanes
+    # (4 cross-modal layers x 4 attentions); the backward of the
+    # cross-modal layers at 16 lanes
+    boot = 4 * mcfg.num_x_layers
+    merged_per = {"attention_fwd": per_batch + boot, "attention_bwd": per_update_bwd}
+    if merged_launches != {k: n * iters for k, n in merged_per.items()}:
+        raise AssertionError(f"merged sample launches {merged_launches} over {iters} "
+                             f"updates, expected {merged_per} per update")
+    emit("sample", update="merged", preset="r2r", hidden=mcfg.hidden_size, batch=TRAIN_B,
+         lanes=MERGED_B, t_max=t_max, optim=tr.optim, lr=tr.lr, grad_clip=tr.grad_clip,
+         ml_weight=scfg.train.ml_weight, updates=iters, seconds=seconds,
+         sample_episodes_per_s=iters * TRAIN_B / seconds,
+         ms_per_update=seconds / iters * 1e3,
+         **{f"{k}_mean": v.mean().item() for k, v in losses.items()},
+         launches=merged_launches, launches_per_update=merged_per,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+    agent.merged_sample_update = False  # the fused update, the class default
+    agent.train_iteration("sample", sync=False)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fused_iters = 3
+    losses, seconds, fused_launches = timed_sample_updates(agent, fused_iters)
+    fused_per = {"attention_fwd": 2 * per_batch + boot, "attention_bwd": 2 * per_update_bwd}
+    if fused_launches != {k: n * fused_iters for k, n in fused_per.items()}:
+        raise AssertionError(f"fused sample launches {fused_launches} over {fused_iters} "
+                             f"updates, expected {fused_per} per update")
+    emit("sample", update="fused", batch=TRAIN_B, updates=fused_iters, seconds=seconds,
+         sample_episodes_per_s=fused_iters * TRAIN_B / seconds,
+         ms_per_update=seconds / fused_iters * 1e3,
+         **{f"{k}_mean": v.mean().item() for k, v in losses.items()},
+         launches=fused_launches, launches_per_update=fused_per,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del agent
+
+    # ----------------------------------------------------- sample_parity
+    # one rewarded argmax rollout, then the fused loss on the next batch
+    # (the update's host order: teacher episode, then the rollout's reset)
+    spcfg = cfg.replace(model=no_drop, train={"batch_size": 4, "feedback": "sample"})
+    res = {}
+    reset_counts()
+    for device in ("cuda", "cpu"):
+        pagent = HAMTAgent(spcfg, slice_env(spcfg, world, seed=0), seed=0, device=device)
+        pagent.enable_feature_table()
+        ins = pagent._device_rollout_args()
+        with torch.no_grad():
+            ep, ex = pagent._rollout(ins, ins["txt_ids"], ins["txt_mask"], "argmax")
+        il_ep = pagent._ep_to_device(pagent.env.teacher_episode())
+        loss, grads = sample_gradients(pagent, il_ep, pagent._device_rollout_args())
+        res[device] = ({k: v.cpu() for k, v in ep.items()},
+                       {k: v.cpu() for k, v in ex.items()}, loss, grads)
+        del pagent
+    counts = dict(attn.launch_counts)
+    (ep_g, ex_g, loss_g, grads_g), (ep_c, ex_c, loss_c, grads_c) = res["cuda"], res["cpu"]
+    for key in ("node_idx", "view_index", "actions", "step_mask", "final_node_idx"):
+        if not torch.equal(ep_g[key], ep_c[key]):
+            raise AssertionError(f"sample_parity: card and CPU trajectories differ in {key}")
+    for key in ("masks", "bootstrap_mask"):
+        if not torch.equal(ex_g[key], ex_c[key]):
+            raise AssertionError(f"sample_parity: card and CPU {key} differ")
+    if not torch.allclose(ex_g["rewards"], ex_c["rewards"], rtol=REWARD_RTOL,
+                          atol=REWARD_ATOL):
+        raise AssertionError(f"sample_parity: rewards {ex_g['rewards'].tolist()} vs "
+                             f"{ex_c['rewards'].tolist()}")
+    lg, lc = ex_g["rollout_logits"], ex_c["rollout_logits"]
+    fin = torch.isfinite(lc)
+    if not torch.equal(torch.isfinite(lg), fin):
+        raise AssertionError("sample_parity: logits are -inf at different places")
+    errs = {"rollout_logits": (lg[fin] - lc[fin]).abs().max().item()}
+    errs.update({k: (ex_g[k] - ex_c[k]).abs().max().item() for k in ("values", "last_value")})
+    if not max(errs.values()) <= PARITY_LOGIT_ATOL:
+        raise AssertionError(f"sample_parity: card vs CPU {errs}")
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"card vs CPU fused sample loss {loss_g} vs {loss_c}")
+    worst = check_grads(grads_g, grads_c, "fused sample update")
+    # the rewarded rollout and its bootstrap, then the fused update's IL
+    # episode, rollout and bootstrap, and their backward
+    want = {"attention_fwd": 3 * per_batch + 2 * boot, "attention_bwd": 2 * per_update_bwd}
+    if counts != want:
+        raise AssertionError(f"sample_parity launches {counts}, expected {want}")
+    emit("sample_parity", batch=4, t_max=t_max, trajectories_identical=True,
+         steps=int(ex_c["masks"].sum().item()),
+         reward_max_abs_err=(ex_g["rewards"] - ex_c["rewards"]).abs().max().item(),
+         max_abs_err=errs, tol=PARITY_LOGIT_ATOL, loss_cuda=loss_g, loss_cpu=loss_c,
+         loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL, tensors=len(grads_c),
+         max_grad_err_over_tol=worst, launches=counts)
+
+    sample = {
+        name: {"launches_per_update": {"merged": merged_per[name], "fused": fused_per[name]},
+               "batch": MERGED_B, **kernel_times(rows, m)}
+        for name, rows, m in (("attention_fwd", f16_rows, mix),
+                              ("attention_bwd", b16_rows, bwd_mix))}
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel
-                    slice_launches["attention_fwd"], fwd_err, fwd_rows, mix, B),
+                    slice_launches["attention_fwd"], fwd_err, fwd_rows, mix, B,
+                    sample["attention_fwd"]),
         summary_row("attention_bwd", "vln_hamt_torch/csrc/attention_bwd.cu",
                     "vln_hamt_tpu/ops/attention.py:85",  # _attn_bwd_kernel
-                    train_launches["attention_bwd"], bwd_err, bwd_rows, bwd_mix, TRAIN_B),
+                    train_launches["attention_bwd"], bwd_err, bwd_rows, bwd_mix, TRAIN_B,
+                    sample["attention_bwd"]),
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -128,11 +128,12 @@ def test_greedy_rollout_matches_jax(agents):
                        jax.random.PRNGKey(0), jax_agent._feat_table, jax_agent._nav_tables,
                        jins["start_node"], jins["start_view"], jins["offs"], {},
                        deterministic=True, policy="argmax", compute_rewards=False)
-    ins = agent._device_rollout_args()
+    ins = agent._device_rollout_args(include_rewards=False)
     before = dict(tops.launch_counts)
-    ep, extras = agent._ensure_device_rollout_fn()(
-        ins["txt_ids"], ins["txt_mask"], agent._feat_table, agent._nav_tables,
-        ins["start_node"], ins["start_view"])
+    with torch.no_grad():  # as eval_split_device calls it
+        ep, extras = agent._ensure_device_rollout_fn()(
+            ins["txt_ids"], ins["txt_mask"], agent._feat_table, agent._nav_tables,
+            ins["start_node"], ins["start_view"])
     assert tops.launch_counts == before
 
     for k in ("txt_ids", "txt_mask", "node_idx", "view_index", "cand_point", "actions",

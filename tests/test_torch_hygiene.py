@@ -54,7 +54,7 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["--task", "rxr", "--valid_only", "--synthetic"],
-    ["--synthetic"],
+    ["--synthetic", "--resume_file", "x.pt"],
     ["--valid_only"],
     ["--valid_only", "--synthetic", "--resume_file", "x.pkl"],
 ], ids=["task", "training", "real_data", "resume"])

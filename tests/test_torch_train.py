@@ -283,7 +283,8 @@ def test_save_load_round_trip(tiny_world, tmp_path):
         for key in agent.optimizer.state[p]:
             assert torch.equal(agent.optimizer.state[p][key], other.optimizer.state[q][key])
     assert other.optimizer.param_groups[0]["count"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP items A5-A6"):
+    other.fused_sample_update = False  # rollout-then-replay: the host-loop rollout's path
+    with pytest.raises(NotImplementedError, match="ROADMAP item A10"):
         other.train_iteration("sample")
     with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
         other.enable_packed_il()

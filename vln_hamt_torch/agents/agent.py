@@ -1,4 +1,4 @@
-"""HAMTAgent (torch): greedy evaluation and IL training of
+"""HAMTAgent (torch): greedy evaluation and R2R training of
 ``vln_hamt_tpu/agents/agent.py``.
 
 Parity target: ``Seq2SeqCMTAgent`` (``finetune_src/r2r/agent_cmt.py``).
@@ -6,17 +6,25 @@ The agent holds the model, the critic and their optimizers, moves the
 split's features and nav tables to the device once
 (:meth:`HAMTAgent.enable_feature_table`), evaluates a split as one
 device rollout per batch (:meth:`HAMTAgent.eval_split_device`), and
-trains with teacher forcing (:meth:`HAMTAgent.train_iteration`): the
-env rolls the ground-truth episode on the host, one teacher-forced
-episode forward on the device gives the logits, and the summed CE loss
-steps both optimizers, with grad-clip 40 on the navigator only
-(agent_cmt.py:597-601). The ``sample`` feedback is ROADMAP items A5-A6.
+trains (:meth:`HAMTAgent.train_iteration`):
+
+- ``teacher`` feedback: the env rolls the ground-truth episode on the
+  host, one teacher-forced episode forward on the device gives the
+  logits, and the summed CE loss steps both optimizers;
+- ``sample`` feedback (IL + A2C, agent_cmt.py:569-602): the IL loss of a
+  teacher episode plus A2C on a sampling device rollout with in-loop
+  nDTW rewards, differentiated through the rollout itself. Merged (the
+  CLI's default): the teacher episode rides as extra lanes of the
+  rollout, one loop over 2B lanes. Fused (the class default): the
+  teacher episode forward, then the rollout.
+
+Every update clips the navigator's gradient at 40 (agent_cmt.py:597-601).
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +38,7 @@ from ..env.r2r_env import R2RNavEnv
 from ..models.convert import critic_params_from_flax, params_from_flax
 from ..models.hamt import init_hamt
 from ..models.layers import DropoutRNG, set_dropout_rng
-from .losses import IGNORE_ID, il_loss
+from .losses import IGNORE_ID, a2c_loss, il_loss
 from .optim import OptaxOptimizer
 from .rollout import build_device_rollout, build_episode_forward
 
@@ -53,6 +61,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 class HAMTAgent:
+    #: ``sample`` feedback as one update: the IL loss plus the sampling
+    #: rollout with its autograd graph, A2C on the rollout's own logits
+    #: and values (``_fused_sample_update_fn`` of the JAX package)
+    fused_sample_update = True
+    #: go further: the teacher episode rides as extra teacher-forced
+    #: lanes of the rollout, one loop over B + B_il lanes
+    #: (``_merged_sample_update_fn``; the CLI turns it on)
+    merged_sample_update = False
+
     def __init__(self, cfg: HAMTConfig, env: Optional[R2RNavEnv] = None,
                  seed: int = 0, device=None):
         self.cfg = cfg
@@ -66,6 +83,9 @@ class HAMTAgent:
         self.dropout_rng = DropoutRNG(self.device, seed + 17)
         set_dropout_rng(self.model, self.dropout_rng)
         set_dropout_rng(self.critic, self.dropout_rng)
+        # the sampling rollout's actions: a stream of its own, so the
+        # dropout draws of the teacher path are the same with or without it
+        self.action_rng = torch.Generator(device=self.device).manual_seed(seed + 19)
         # the optimizer zoo of agent_cmt.py:62-77 with optax's rules
         tcfg = cfg.train
         self.optimizer = OptaxOptimizer(self.model.parameters(), tcfg.optim, tcfg.lr,
@@ -103,35 +123,61 @@ class HAMTAgent:
             raise AssertionError("feature and nav tables disagree on scan offsets")
         self._nav_tables = {k: torch.as_tensor(v, device=self.device)
                             for k, v in nav.items()}
+        # the reward's cost slabs: (B, nodes of the largest scan, longest
+        # reference path)
+        self._n_scan_max = max(g.num_nodes for g in env.graphs.values())
+        self._ref_max = max((len(it["path"]) for it in env.data if "path" in it),
+                            default=2)
 
     def _ensure_device_rollout_fn(self):
-        # keyed on the env's horizon so an eval env with another
-        # max_action_len gets its own rollout
-        t_max = self.env.max_action_len
-        fn = self._rollout_cache.get(t_max)
+        # keyed on the env's horizon and margin so an eval env with
+        # another max_action_len gets its own rollout
+        env = self.env
+        key = (env.max_action_len, float(env.error_margin))
+        fn = self._rollout_cache.get(key)
         if fn is None:
-            fn = build_device_rollout(self.model, self.critic, t_max,
-                                      ob_type=self.cfg.env.ob_type)
-            self._rollout_cache[t_max] = fn
+            fn = build_device_rollout(self.model, self.critic, env.max_action_len,
+                                      ob_type=self.cfg.env.ob_type,
+                                      error_margin=env.error_margin)
+            self._rollout_cache[key] = fn
         return fn
 
-    def _device_rollout_args(self, include_rewards: bool = False) -> Dict[str, torch.Tensor]:
-        """Host prep for a greedy device rollout: reset the env and ship
-        the instructions and start poses."""
-        if include_rewards:
-            raise NotImplementedError(
-                "reward slabs of the sampling rollout are ROADMAP item A5")
+    def _device_rollout_args(self, include_rewards: bool = True) -> Dict[str, Any]:
+        """Host prep for a device rollout: reset the env and ship the
+        instructions, start poses, scan offsets and, with
+        ``include_rewards``, the reward's cost slabs under
+        ``task_inputs`` (without them, greedy evaluation runs on GT-less
+        test splits)."""
         env = self.env
         obs = env.reset()
         offs = np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
         txt_ids, txt_mask = env.txt_batch()
         dev = self.device
-        return dict(
+        ins = dict(
             txt_ids=torch.as_tensor(txt_ids, dtype=torch.long).to(dev),
             txt_mask=torch.as_tensor(txt_mask).to(dev),
             start_node=torch.as_tensor(offs + obs.node).to(dev),
             start_view=torch.as_tensor(obs.view_index, dtype=torch.long).to(dev),
+            offs=torch.as_tensor(offs).to(dev),
         )
+        if include_rewards:
+            ins["task_inputs"] = {k: torch.as_tensor(v).to(dev) for k, v in
+                                  self._device_rollout_inputs(env, obs).items()}
+        return ins
+
+    def _device_rollout_inputs(self, env, obs) -> Dict[str, np.ndarray]:
+        """Per-item cost slabs of the in-loop R2R reward: ``ref_cost``
+        (B, N_scan_max, R), each node's distance to each reference node,
+        inf-padded, and ``ref_len`` (B,)."""
+        b = obs.batch_size
+        ref_cost = np.full((b, self._n_scan_max, self._ref_max), np.inf, np.float32)
+        ref_len = np.zeros((b,), np.int32)
+        for i, item in enumerate(env.batch):
+            g = env.graphs[item["scan"]]
+            ref = g.indices(item["path"])
+            ref_len[i] = len(ref)
+            ref_cost[i, : g.num_nodes, : len(ref)] = g.dist[:, ref]
+        return {"ref_cost": ref_cost, "ref_len": ref_len}
 
     # ------------------------------------------------------------- eval
     def eval_split_fast(self, env: Optional[R2RNavEnv] = None) -> List[dict]:
@@ -159,9 +205,10 @@ class HAMTAgent:
             results: Dict[str, dict] = {}
             looped = False
             while not looped:
-                ins = self._device_rollout_args()
-                ep, extras = fn(ins["txt_ids"], ins["txt_mask"], self._feat_table,
-                                self._nav_tables, ins["start_node"], ins["start_view"])
+                ins = self._device_rollout_args(include_rewards=False)
+                with torch.no_grad():
+                    ep, extras = fn(ins["txt_ids"], ins["txt_mask"], self._feat_table,
+                                    self._nav_tables, ins["start_node"], ins["start_view"])
                 for tr in self._decode_device_trajectories(env, ep, extras):
                     if tr["instr_id"] in results:
                         looped = True
@@ -231,22 +278,97 @@ class HAMTAgent:
         b = ep["actions"].shape[0]
         return il_loss(out.logits, ep["teacher"].T, IGNORE_ID) * weight / b
 
-    def _il_update(self, ep: Dict[str, torch.Tensor], weight: float) -> torch.Tensor:
-        """One IL update (``_il_update_fn``): the loss in training mode,
-        one step of each optimizer. Returns the loss (a device scalar)."""
+    def _a2c(self, logits, actions, values, rewards, masks, last_value,
+             bootstrap_mask) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """A2C (agent_cmt.py:476-518) on time-major logits and values of
+        batch-major ``actions``; the bootstrap only for episodes still
+        alive after the horizon (agent_cmt.py:481-484)."""
+        tcfg = self.cfg.train
+        loss, aux = a2c_loss(logits, actions.T, values, rewards, masks,
+                             torch.where(bootstrap_mask, last_value, 0.0),
+                             gamma=tcfg.gamma, entropy_weight=tcfg.entropy_loss_weight,
+                             normalize=tcfg.normalize_loss)
+        return loss, {**aux, "RL_loss": loss}
+
+    def _rl_loss(self, ep: Dict[str, torch.Tensor], rewards, masks, bootstrap_mask
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """A2C on a recorded episode (``ep`` with its final pose) replayed
+        through the teacher-forced episode forward (``_rl_loss`` of the
+        JAX package). The updates differentiate through the rollout
+        instead; this replay is their reference."""
+        out = self.episode_forward(ep, self._feat_table)
+        return self._a2c(out.logits, ep["actions"], out.values, rewards, masks,
+                         out.last_value, bootstrap_mask)
+
+    def _rollout_a2c(self, ep, extras) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return self._a2c(extras["rollout_logits"], ep["actions"], extras["values"],
+                         extras["rewards"], extras["masks"], extras["last_value"],
+                         extras["bootstrap_mask"])
+
+    def _rollout(self, ins: Dict[str, Any], txt_ids, txt_mask, policy: str, il=None):
+        """The rollout of ``_device_rollout_args``' batch with rewards and
+        the bootstrap value, actions drawn from ``action_rng``."""
+        return self._ensure_device_rollout_fn()(
+            txt_ids, txt_mask, self._feat_table, self._nav_tables, ins["start_node"],
+            ins["start_view"], ins["offs"], ins["task_inputs"], policy=policy,
+            compute_rewards=True, compute_bootstrap=True, il=il, generator=self.action_rng)
+
+    def _fused_sample_loss(self, il_ep: Dict[str, torch.Tensor], ins: Dict[str, Any],
+                           policy: str = "sample"
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss of the fused ``sample`` update: IL on the teacher
+        episode (``ml_weight``) plus A2C on the rollout's own logits and
+        values. ``policy="argmax"`` draws nothing (tests)."""
+        l1 = self._il_loss(il_ep, self.cfg.train.ml_weight)
+        l2, aux = self._rollout_a2c(*self._rollout(ins, ins["txt_ids"], ins["txt_mask"],
+                                                   policy))
+        return l1 + l2, {"IL_loss": l1, **aux}
+
+    def _merged_sample_loss(self, il_ep: Dict[str, torch.Tensor], ins: Dict[str, Any]
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss of the merged ``sample`` update: one sampling rollout
+        over the RL lanes plus the teacher episode as teacher-forced
+        lanes; CE on those lanes' logits over B_il (``_merged_il_loss``)
+        plus A2C on the RL lanes."""
+        il = {k: il_ep[k] for k in ("node_idx", "view_index", "actions", "step_mask")}
+        ep, extras = self._rollout(ins, torch.cat([ins["txt_ids"], il_ep["txt_ids"]]),
+                                   torch.cat([ins["txt_mask"], il_ep["txt_mask"]]),
+                                   "sample", il=il)
+        b_il = il_ep["actions"].shape[0]
+        l1 = (il_loss(extras["il_logits"], il_ep["teacher"].T, IGNORE_ID)
+              * self.cfg.train.ml_weight / b_il)
+        l2, aux = self._rollout_a2c(ep, extras)
+        return l1 + l2, {**aux, "IL_loss": l1}
+
+    def _update(self, loss_fn: Callable[[], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One update: ``loss_fn()`` in training mode, its backward, one
+        step of each optimizer. Returns the loss and its parts, detached
+        device tensors."""
         self.model.train()
         self.critic.train()
-        loss = self._il_loss(ep, weight)
+        loss, aux = loss_fn()
         self.optimizer.zero_grad(set_to_none=True)
         self.critic_optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         self.critic_optimizer.step()
-        return loss.detach()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def _il_update(self, ep: Dict[str, torch.Tensor], weight: float) -> torch.Tensor:
+        """One IL update (``_il_update_fn``). Returns the loss (a device
+        scalar)."""
+        return self._update(lambda: (self._il_loss(ep, weight), {}))[0]
 
     def train_iteration(self, feedback: Optional[str] = None,
                         sync: bool = True) -> Dict[str, Any]:
-        """One optimizer step (agent_cmt.py:569-602), ``teacher`` feedback.
+        """One optimizer step (agent_cmt.py:569-602).
+
+        ``teacher``: IL on the env's teacher episode (``teacher_weight``).
+        ``sample``: IL (``ml_weight``) plus A2C on a sampling device
+        rollout, merged or fused as the class attributes say. As in the
+        JAX package the host takes the teacher episode first, then resets
+        the env for the rollout, so one env seed gives the same items.
 
         With ``sync=False`` the returned scalars are device tensors and
         the host does not wait for the step, so the next episode's host
@@ -254,15 +376,25 @@ class HAMTAgent:
         logging boundaries only.
         """
         feedback = feedback or self.cfg.train.feedback
-        if feedback == "sample":
-            raise NotImplementedError("'sample' feedback (the sampling rollout and the "
-                                      "A2C update) is ROADMAP items A5-A6")
-        if feedback != "teacher":
+        if feedback == "teacher":
+            ep = self._ep_to_device(self.env.teacher_episode())
+            loss = self._il_update(ep, self.cfg.train.teacher_weight)
+            aux = {"IL_loss": loss}
+        elif feedback == "sample":
+            if (self._nav_tables is None or self.env.feat_offsets is None
+                    or not (self.merged_sample_update or self.fused_sample_update)):
+                raise NotImplementedError(
+                    "'sample' feedback without the device rollout (rollout-then-replay "
+                    "over the host-loop rollout) is ROADMAP item A10")
+            il_ep = self._ep_to_device(self.env.teacher_episode())
+            ins = self._device_rollout_args()
+            if self.merged_sample_update:
+                loss, aux = self._update(lambda: self._merged_sample_loss(il_ep, ins))
+            else:
+                loss, aux = self._update(lambda: self._fused_sample_loss(il_ep, ins))
+        else:
             raise ValueError(f"bad feedback {feedback!r}")
-        ep = self._ep_to_device(self.env.teacher_episode())
-        loss = self._il_update(ep, self.cfg.train.teacher_weight)
         self.step += 1
-        aux = {"IL_loss": loss}
         if not sync:
             return {"loss": loss, **aux}
         out = {"loss": float(loss)}

@@ -1,23 +1,24 @@
 """R2R fine-tuning and evaluation entry point (torch), the port of
-``vln_hamt_tpu/run/finetune.py`` for imitation learning.
+``vln_hamt_tpu/run/finetune.py``.
 
-    python -m vln_hamt_torch.run.finetune --task r2r --synthetic --feedback teacher \
-        [--iters N --log_every K]
+    python -m vln_hamt_torch.run.finetune --task r2r --synthetic \
+        [--feedback teacher] [--no_merged_sample] [--iters N --log_every K]
     python -m vln_hamt_torch.run.finetune --task r2r --valid_only --synthetic
 
 run the full-width ``r2r`` preset with seeded random weights over a
 hermetic fixture world on the GPU (``--cpu`` runs on the CPU through the
 plain attention; ``--tiny`` shrinks the model and episodes). Training
-takes ``--iters`` teacher-forced IL updates; every ``--log_every`` it
-records the interval's mean loss and IL episodes/s in ``train.txt``,
+takes ``--iters`` updates with the preset's ``sample`` feedback (IL plus
+A2C on a sampling rollout; merged, or fused with ``--no_merged_sample``)
+or with ``--feedback teacher`` (IL alone); every ``--log_every`` it
+records the interval's mean losses and episodes/s in ``train.txt``,
 evaluates the validation split greedily, and writes ``latest.pt`` and,
 on a better SR + SPL, ``best_val_unseen.pt``; it prints
 ``{"best": {...}}``. ``--valid_only`` evaluates instead, prints
 ``{"valid": {split: metrics}}`` and writes ``valid.txt`` (and
-``submit_{split}.json`` with ``--submit``). ``sample`` feedback (the
-preset's default), reference checkpoints, real data and the other task
-families are not ported yet; their flags raise and name the ROADMAP
-item.
+``submit_{split}.json`` with ``--submit``). Reference checkpoints, real
+data and the other task families are not ported yet; their flags raise
+and name the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -126,11 +127,14 @@ def selection_score(metrics: Dict[str, float]) -> float:
 
 def train(cfg: HAMTConfig, train_env: R2RNavEnv, val_envs: Dict[str, R2RNavEnv],
           output_dir: str, iters: Optional[int] = None, log_every: Optional[int] = None,
-          device=None) -> Dict[str, float]:
-    """The train/validate loop (main.py:86-222) with teacher feedback."""
+          device=None, merged_sample: bool = True) -> Dict[str, float]:
+    """The train/validate loop (main.py:86-222) with the config's
+    feedback; ``sample`` updates are merged (the JAX CLI's production
+    default) unless ``merged_sample`` is off, then fused."""
     os.makedirs(output_dir, exist_ok=True)
     record_file = os.path.join(output_dir, "train.txt")
     agent = HAMTAgent(cfg, train_env, seed=cfg.train.seed, device=device)
+    agent.merged_sample_update = merged_sample
     agent.enable_feature_table(train_env)
     for env in val_envs.values():
         env.feat_offsets = train_env.feat_offsets  # same graphs, one table
@@ -146,13 +150,17 @@ def train(cfg: HAMTConfig, train_env: R2RNavEnv, val_envs: Dict[str, R2RNavEnv],
         t0 = time.perf_counter()
         # the host assembles the next episode while the device works;
         # the losses are read once per interval
-        losses = [agent.train_iteration("teacher", sync=False)["loss"] for _ in range(interval)]
-        losses = torch.stack(losses).cpu().numpy()  # waits for the interval's work
+        outs = [agent.train_iteration(sync=False) for _ in range(interval)]
+        keys = [k for k in ("loss", "IL_loss", "RL_loss", "entropy") if k in outs[0]]
+        # one read of the interval's scalars, which waits for its work
+        vals = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).cpu().numpy()
         dt = time.perf_counter() - t0
         step += interval
-        if not np.isfinite(losses).all():
-            raise FloatingPointError(f"non-finite IL loss by iter {step}: {losses}")
-        write_record(record_file, f"iter {step}: loss={losses.mean():.4f}, "
+        if not np.isfinite(vals).all():
+            raise FloatingPointError(f"non-finite loss by iter {step}: {dict(zip(keys, vals.T))}")
+        means = ", ".join(f"{k}={v:.4f}" for k, v in zip(keys, vals.mean(axis=0)))
+        # batch_size episodes per update, as the JAX CLI counts them
+        write_record(record_file, f"iter {step}: {means}, "
                                   f"eps_per_sec={interval * cfg.train.batch_size / dt:.2f}")
         for name, env in val_envs.items():
             if "test" in name:  # no ground truth to score (main.py:258-262)
@@ -174,6 +182,10 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--feedback", default=None, choices=("teacher", "sample"),
                    help="training feedback (the preset's: sample)")
+    p.add_argument("--no_merged_sample", action="store_true",
+                   help="sample feedback as the fused update (teacher episode forward, "
+                        "then the rollout) instead of the merged one (the teacher "
+                        "episode as extra lanes of the rollout)")
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--log_every", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -200,9 +212,6 @@ def main(argv=None):
         raise NotImplementedError(f"--task {args.task}: task variants are ROADMAP item A11")
     cfg = get_preset(args.task)
     feedback = args.feedback or cfg.train.feedback
-    if not args.valid_only and feedback == "sample":
-        raise NotImplementedError("'sample' feedback (the sampling rollout and the A2C "
-                                  "update) is ROADMAP items A5-A6; pass --feedback teacher")
     if not args.synthetic:
         raise NotImplementedError("real Matterport data is ROADMAP item A12; pass --synthetic")
     if args.resume_file:
@@ -234,7 +243,7 @@ def main(argv=None):
         print(json.dumps({"valid": results}, default=float))
         return results
     best = train(cfg, train_env, val_envs, args.output_dir, args.iters, args.log_every,
-                 device=device)
+                 device=device, merged_sample=not args.no_merged_sample)
     print(json.dumps({"best": best}, default=float))
     return best
 

@@ -67,11 +67,14 @@ def kernel_table(prof) -> Tuple[List[Tuple[str, float, int]], Dict[str, dict]]:
     forward and backward kernels, matrix products, the rest). Raises when
     the trace holds no device time."""
     # device-side events only: the CPU ops that launched them carry the
-    # same time again as their "self device time"
+    # same time again as their "self device time", and so does a
+    # user-annotated range on the device's timeline (the optimizers'
+    # ``Optimizer.step#...``) over the kernels inside it
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     kernels.sort(key=lambda r: -r[1])
