@@ -24,7 +24,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                65 x 250 and 250 x 250 (R4R / CVDN and RxR text lengths)
                and 300 x 65 (more query blocks than a cluster holds);
                and both kernels checked and timed at batch 16, the
-               merged sample update's lanes, at the training shapes.
+               merged sample update's lanes, at the training shapes;
+               and both at the `rxr` (batch 8) and `r4r` (batch 4)
+               shapes of phase 10 (lines with a "preset" key).
                Timing, bounds and build reports come from
                vln_hamt_torch/run/profile_attention.py.
 4. slice    -- the serving path: full-width R2R greedy evaluation
@@ -63,30 +65,64 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                within tolerance), and the fused IL + A2C loss with the
                argmax policy and every model and critic gradient.
 
+10. family  -- the rest of the R2R family at full width over synthetic
+               worlds with each preset's feature width: `rxr` (250-token
+               XLM-R text, no_lang_ca, 512-d features, T = 20, batch 8)
+               and `r4r` (100-token text, no_lang_ca, T = 30, batch 4),
+               both with the text and history stacks trained (their
+               kernels are checked and timed in phase 3): per preset one
+               warm-up and 3 timed merged
+               sample updates (sample episodes/s, losses, peak memory,
+               and exactly the launches of launch_mix + bootstrap_mix per
+               update), one timed greedy batch (exactly launch_mix's
+               forward launches), and card against CPU at batch 2
+               (identical greedy trajectories, logits within 1e-3).
+               `r2r_last` (r2r's shapes): one greedy batch.
+11. files   -- the file-backed path at full `r2r` width: the slice's
+               world written as reference connectivity and annotation
+               files (train, an aug file, val splits) and read back by
+               the CLI's build_real_dataset (load_nav_graphs,
+               construct_instrs; features from the world's in-memory DB,
+               since the card's machine has no h5py); a reference-format
+               agent checkpoint (module.vln_bert.* and the critic) of a
+               seeded agent, taken by an agent of another seed through
+               init_from_reference: identical greedy trajectories, logits
+               within 1e-6; 2 sample updates alternating the GT and aug
+               envs, save, and load(resume_optimizer=True) into a fresh
+               agent: every parameter and moment and the step equal, the
+               greedy batch identical.
+
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
 serving slice and its times at batch 32, the backward's from the
 training slice and its times at batch 8; each also with its launches
-per merged and per fused sample update and its times at batch 16. The
-last is {"ok": true, "device": {...}}. Without a CUDA device, or without
-the rest of the repository beside it, the script exits non-zero before
-printing either.
+per merged and per fused sample update and its times at batch 16, and
+per family preset its launches in the family phase and its times at the
+preset's batch and shapes. The last is {"ok": true, "device": {...}}.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits non-zero before printing either.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import os
 import sys
+import tempfile
 import time
 
 import torch
 
 from vln_hamt_torch.agents.agent import HAMTAgent
+from vln_hamt_torch.configs import get_preset
+from vln_hamt_torch.data.fixtures import export_nav_and_annotations
 from vln_hamt_torch.ops import attention as attn
+from vln_hamt_torch.run import finetune
 from vln_hamt_torch.run.profile_attention import (
-    build_all, kernel_inputs, launch_mix, nvidia_smi, rel_err, time_backward, time_forward,
-    weighted)
+    bootstrap_mix, build_all, kernel_inputs, launch_mix, nvidia_smi, rel_err, time_backward,
+    time_forward, weighted)
 from vln_hamt_torch.run.profile_eval import slice_config, slice_env
 
 B, H, DH = 32, 12, 64
@@ -127,6 +163,11 @@ REWARD_RTOL, REWARD_ATOL = 1e-4, 1e-5
 # LayerNorm and output biases: a softmax ignores a shift of its inputs)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-3, 1e-6
+# the family presets whose shapes are new to the kernels; r2r_last has r2r's
+FAMILY = ("rxr", "r4r")
+# one agent's logits against another's with the same weights, the same
+# kernels and the same inputs: only the order of host-issued work differs
+SAME_WEIGHTS_ATOL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -305,15 +346,18 @@ def kernel_times(rows, mix):
     }
 
 
-def summary_row(name, source, replaces, launches, max_err, rows, mix, batch, sample):
+def summary_row(name, source, replaces, launches, max_err, rows, mix, batch, sample,
+                family):
     """The kernel's line of the summary: ``launches`` from the run of its
     main path, times and bound from ``rows`` timed at that path's batch
     and shapes, weighted by its launches per shape; ``sample``: its
     launches per merged and fused sample update and its times at the
-    merged update's batch."""
+    merged update's batch; ``family``: per family preset its launches in
+    the family phase's merged updates and its times at the preset's batch
+    and shapes."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "batch": batch, "max_abs_err": max_err,
-            **kernel_times(rows, mix), "sample": sample}
+            **kernel_times(rows, mix), "sample": sample, "family": family}
 
 
 def il_gradients(agent, ep):
@@ -377,6 +421,234 @@ def timed_sample_updates(agent, iters):
     return dict(zip(keys, vals.T)), seconds, launches
 
 
+def phase_family_kernels(dev, mixes):
+    """Both kernels at each family preset's shapes and batch, against
+    their plain twins (fp32 and bf16, dropout off and on), timed in fp32
+    with dropout off; per preset (forward rows, backward rows, largest
+    forward and backward errors)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    seed = 2**31 + 7
+    out = {}
+    for task, (batch, fwd_mix, bwd_mix) in mixes.items():
+        frows, brows, ferr, berr = [], [], 0.0, 0.0
+        for (lq, lk) in fwd_mix:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, m, g = kernel_inputs(batch, H, lq, lk, DH, dtype, gen, dev)
+                for rate in (0.0, 0.1):
+                    where = f"{task} B {batch} ({lq},{lk})"
+                    case = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate}
+                    timed = rate == 0.0 and dtype == torch.float32
+                    err = check_fwd(q, k, v, m, seed, rate, where)
+                    ferr = max(ferr, err)
+                    frows.append({**case, "max_abs_err": err,
+                                  **(time_forward(q, k, v, m) if timed else {})})
+                    if (lq, lk) not in bwd_mix:
+                        continue
+                    errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+                    berr = max(berr, err)
+                    brows.append({**case, "rel_err": errs, "max_abs_err": err,
+                                  **(time_backward(q, k, v, m, g) if timed else {})})
+        for name, rows, mix in (("attention_fwd", frows, fwd_mix),
+                                ("attention_bwd", brows, bwd_mix)):
+            emit("kernels", kernel=name, preset=task, batch=batch, heads=H, head_dim=DH,
+                 results=rows, weighted=kernel_times(rows, mix))
+        out[task] = (frows, brows, ferr, berr)
+    return out
+
+
+def greedy_batch(agent):
+    """The first greedy batch of the agent's env, one device rollout
+    decoded on the host: (trajectories, episode, extras), the last two
+    on the CPU."""
+    agent.model.eval()
+    agent.critic.eval()
+    agent.env.reset_epoch(shuffle=False)
+    ins = agent._device_rollout_args(include_rewards=False)
+    with torch.no_grad():  # as eval_split_device calls it
+        ep, extras = agent._ensure_device_rollout_fn()(
+            ins["txt_ids"], ins["txt_mask"], agent._feat_table, agent._nav_tables,
+            ins["start_node"], ins["start_view"])
+    trajs = agent._decode_device_trajectories(agent.env, ep, extras)
+    return trajs, {k: v.cpu() for k, v in ep.items()}, {k: v.cpu() for k, v in extras.items()}
+
+
+def compare_rollouts(a, b, atol, what) -> float:
+    """Two greedy batches: identical trajectories, logits -inf at the same
+    places and within ``atol`` elsewhere; returns the largest logit
+    difference."""
+    (trajs_a, ep_a, ex_a), (trajs_b, ep_b, ex_b) = a, b
+    for key in ("node_idx", "view_index", "actions", "step_mask", "final_node_idx"):
+        if not torch.equal(ep_a[key], ep_b[key]):
+            raise AssertionError(f"{what}: trajectories differ in {key}")
+    if trajs_a != trajs_b:
+        raise AssertionError(f"{what}: decoded trajectories differ")
+    la, lb = ex_a["rollout_logits"], ex_b["rollout_logits"]
+    fin = torch.isfinite(lb)
+    if not torch.equal(torch.isfinite(la), fin):
+        raise AssertionError(f"{what}: logits are -inf at different places")
+    err = (la[fin] - lb[fin]).abs().max().item()
+    if not err <= atol:
+        raise AssertionError(f"{what}: logits differ by {err} > {atol}")
+    return err
+
+
+def timed_greedy_batch(agent, per_batch, what):
+    """One warm-up and one timed greedy batch from zeroed launch counts;
+    raises unless the timed one launched exactly ``per_batch`` forward
+    kernels and no backward. Returns (episodes/s, trajectories)."""
+    greedy_batch(agent)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trajs, _, _ = greedy_batch(agent)
+    seconds = time.perf_counter() - t0
+    launches = dict(attn.launch_counts)
+    if launches != {"attention_fwd": per_batch, "attention_bwd": 0}:
+        raise AssertionError(f"{what} greedy batch launches {launches}, expected {per_batch} "
+                             "forward")
+    return len(trajs) / seconds, trajs
+
+
+def phase_family(task, mixes):
+    """One family preset at full width: merged sample updates (for the
+    presets in ``mixes``), a greedy batch, and card against CPU. Returns
+    the phase's fields."""
+    cfg, world = slice_config(get_preset(task).train.batch_size, seed=0, task=task)
+    b, mcfg = cfg.train.batch_size, cfg.model
+    fwd_mix, bwd_mix = launch_mix(cfg)
+    per_batch = sum(fwd_mix.values())
+    agent = HAMTAgent(cfg, slice_env(cfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    fields = {}
+    if task in mixes:
+        per = {"attention_fwd": per_batch + sum(bootstrap_mix(cfg).values()),
+               "attention_bwd": sum(bwd_mix.values())}
+        agent.merged_sample_update = True
+        agent.train_iteration("sample", sync=False)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iters = 3
+        losses, seconds, launches = timed_sample_updates(agent, iters)
+        if launches != {k: n * iters for k, n in per.items()}:
+            raise AssertionError(f"{task} merged sample launches {launches} over {iters} "
+                                 f"updates, expected {per} per update")
+        fields.update(
+            feedback=cfg.train.feedback, updates=iters, lanes=2 * b, seconds=seconds,
+            sample_episodes_per_s=iters * b / seconds, ms_per_update=seconds / iters * 1e3,
+            **{f"{k}_mean": v.mean().item() for k, v in losses.items()},
+            launches=launches, launches_per_update=per,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    eps, trajs = timed_greedy_batch(agent, per_batch, task)
+    del agent
+    fields.update(greedy_episodes_per_s=eps, greedy_launches_per_batch=per_batch)
+
+    pcfg = cfg.replace(train={"batch_size": 2})
+    runs = []
+    for device in ("cuda", "cpu"):
+        pagent = HAMTAgent(pcfg, slice_env(pcfg, world, seed=0), seed=0, device=device)
+        pagent.enable_feature_table()
+        runs.append(greedy_batch(pagent))
+        del pagent
+    err = compare_rollouts(*runs, PARITY_LOGIT_ATOL, f"{task} card vs CPU")
+    emit("family", preset=task, hidden=mcfg.hidden_size, vocab=mcfg.vocab_size,
+         layers=[mcfg.num_l_layers, mcfg.num_x_layers, mcfg.num_h_pano_layers],
+         no_lang_ca=mcfg.no_lang_ca, fix_lang_and_hist=[mcfg.fix_lang_embedding,
+                                                         mcfg.fix_hist_embedding],
+         feat_dim=cfg.env.image_feat_size, text_len=cfg.env.max_instr_len,
+         t_max=cfg.env.max_action_len, batch=b,
+         shape_mix={f"{lq}x{lk}": n for (lq, lk), n in fwd_mix.items()},
+         bwd_shape_mix={f"{lq}x{lk}": n for (lq, lk), n in bwd_mix.items()},
+         parity={"batch": 2, "trajectories_identical": True, "max_abs_logit_err": err,
+                 "tol": PARITY_LOGIT_ATOL}, **fields)
+    return fields
+
+
+def phase_files(tmp):
+    """The file-backed r2r path at full width (see the module docstring)."""
+    cfg, world = slice_config(TRAIN_B, seed=0)
+    files = export_nav_and_annotations(
+        world, tmp, {"train": 0.5, "prevalent_aug": 0.2, "val_train_seen": 0.1,
+                     "val_seen": 0.1, "val_unseen": 0.1})
+    args = argparse.Namespace(
+        anno_dir=files["anno_dir"], connectivity_dir=files["connectivity_dir"],
+        img_ft_file=None, aug=os.path.join(files["anno_dir"], "R2R_prevalent_aug_enc.json"),
+        test=False, submit=False)
+    # the card's machine has no h5py: the features come from the world's
+    # in-memory DB, the rest from the files
+    cfg, (train_env, aug_env), val_envs = finetune.build_real_dataset(
+        get_preset("r2r").replace(train={"batch_size": TRAIN_B}), args, feat_db=world.feat_db)
+    for scan, g in world.graphs.items():
+        got = train_env.graphs[scan]
+        if got.node_ids != g.node_ids or not (got.dist == g.dist).all():
+            raise AssertionError(f"files: scan {scan} read back differs from the world")
+    val = val_envs["val_unseen"]
+
+    def new_agent(seed):
+        a = HAMTAgent(cfg, train_env, seed=seed)
+        finetune._share_feature_table(a, train_env, [aug_env, *val_envs.values()])
+        return a
+
+    ref = new_agent(0)
+    ref_path = os.path.join(tmp, "reference_agent.pt")
+    torch.save({"vln_bert": {"state_dict": {"module.vln_bert." + k: v for k, v in
+                                            ref.model.state_dict().items()}},
+                "critic": {"state_dict": {"module." + k: v for k, v in
+                                          ref.critic.state_dict().items()}}}, ref_path)
+    agent = HAMTAgent(cfg, train_env, seed=1)
+    skipped = agent.init_from_reference(ref_path)
+    if skipped:
+        raise AssertionError(f"files: init_from_reference skipped {skipped}")
+    finetune._share_feature_table(agent, train_env, [aug_env, *val_envs.values()])
+    ref.env = agent.env = val
+    ref_err = compare_rollouts(greedy_batch(ref), greedy_batch(agent), SAME_WEIGHTS_ATOL,
+                               "files: reference checkpoint")
+    del ref
+
+    agent.merged_sample_update = True
+    order, losses = [], []
+    for j in range(2):  # the CLI's alternation within an interval
+        agent.env = train_env if j % 2 == 0 else aug_env
+        order.append(agent.env.name)
+        losses.append(agent.train_iteration("sample")["loss"])
+    if order != ["train", "aug"] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"files: updates on {order}, losses {losses}")
+    ckpt = os.path.join(tmp, "latest.pt")
+    agent.save(ckpt)
+    fresh = new_agent(2)
+    if fresh.load(ckpt, resume_optimizer=True) != agent.step or fresh.step != 2:
+        raise AssertionError(f"files: resumed step {fresh.step}, saved {agent.step}")
+    for mod in ("model", "critic"):
+        for (k, x), y in zip(getattr(agent, mod).state_dict().items(),
+                             getattr(fresh, mod).state_dict().values()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"files: resumed {mod} {k} differs")
+    moments = 0
+    for opt in ("optimizer", "critic_optimizer"):
+        src, dst = getattr(agent, opt).state_dict(), getattr(fresh, opt).state_dict()
+        if not src["param_groups"][0]["count"] == dst["param_groups"][0]["count"] == 2:
+            raise AssertionError(f"files: resumed {opt} count differs")
+        if src["state"].keys() != dst["state"].keys():
+            raise AssertionError(f"files: resumed {opt} state differs")
+        for i, st in src["state"].items():
+            for key, x in st.items():
+                moments += 1
+                if not torch.equal(x, dst["state"][i][key]):
+                    raise AssertionError(f"files: resumed {opt} moment {i}.{key} differs")
+    agent.env = fresh.env = val
+    resume_err = compare_rollouts(greedy_batch(agent), greedy_batch(fresh), 0.0,
+                                  "files: resumed checkpoint")
+    emit("files", preset="r2r", hidden=cfg.model.hidden_size, batch=TRAIN_B,
+         scans=len(train_env.graphs), items={"train": len(train_env.data),
+                                            "aug": len(aug_env.data),
+                                            **{k: len(e.data) for k, e in val_envs.items()}},
+         features="in-memory (no h5py on the card's machine)",
+         reference_init={"skipped": skipped, "trajectories_identical": True,
+                         "max_abs_logit_err": ref_err, "tol": SAME_WEIGHTS_ATOL},
+         updates=order, losses=losses,
+         resume={"step": fresh.step, "moments_equal": moments, "params_equal": True,
+                 "trajectories_identical": True, "max_abs_logit_err": resume_err})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -413,6 +685,14 @@ def main() -> int:
     # 32, the backward at the training slice's 8
     fwd_rows, bwd_rows, (f16_rows, b16_rows), fwd_err, bwd_err = phase_kernels(
         dev, mix, bwd_mix)
+    # and at the family presets' shapes, each at its preset's batch
+    family_mixes = {}
+    for task in FAMILY:
+        fcfg, _ = slice_config(get_preset(task).train.batch_size, seed=0, task=task)
+        family_mixes[task] = (fcfg.train.batch_size, *launch_mix(fcfg))
+    family_kernels = phase_family_kernels(dev, family_mixes)
+    fwd_err = max([fwd_err] + [r[2] for r in family_kernels.values()])
+    bwd_err = max([bwd_err] + [r[3] for r in family_kernels.values()])
 
     # ------------------------------------------------------------- slice
     env = slice_env(cfg, world, seed=0)
@@ -450,31 +730,16 @@ def main() -> int:
 
     # ------------------------------------------------------------ parity
     small = cfg.replace(train={"batch_size": 4})
-    outs = {}
+    runs = []
     for device in ("cuda", "cpu"):
         pagent = HAMTAgent(small, slice_env(small, world, seed=0), seed=0, device=device)
         pagent.enable_feature_table()
-        ins = pagent._device_rollout_args(include_rewards=False)
-        with torch.no_grad():  # as eval_split_device calls it
-            ep, extras = pagent._ensure_device_rollout_fn()(
-                ins["txt_ids"], ins["txt_mask"], pagent._feat_table, pagent._nav_tables,
-                ins["start_node"], ins["start_view"])
-        outs[device] = ({k: v.cpu() for k, v in ep.items()},
-                        {k: v.cpu() for k, v in extras.items()})
-    (ep_g, ex_g), (ep_c, ex_c) = outs["cuda"], outs["cpu"]
-    for key in ("node_idx", "view_index", "actions", "step_mask", "final_node_idx"):
-        if not torch.equal(ep_g[key], ep_c[key]):
-            raise AssertionError(f"card and CPU trajectories differ in {key}")
-    lg, lc = ex_g["rollout_logits"], ex_c["rollout_logits"]
-    fin = torch.isfinite(lc)
-    if not torch.equal(torch.isfinite(lg), fin):
-        raise AssertionError("card and CPU logits are -inf at different places")
-    logit_err = (lg[fin] - lc[fin]).abs().max().item()
-    if not logit_err <= PARITY_LOGIT_ATOL:
-        raise AssertionError(f"card vs CPU logits differ by {logit_err}")
+        runs.append(greedy_batch(pagent))
+        del pagent
+    logit_err = compare_rollouts(*runs, PARITY_LOGIT_ATOL, "parity: card vs CPU")
     emit("parity", batch=4, t_max=t_max, max_abs_logit_err=logit_err,
          tol=PARITY_LOGIT_ATOL, trajectories_identical=True)
-    del pagent, outs
+    del runs
 
     # ------------------------------------------------------------- train
     tcfg = cfg.replace(train={"batch_size": TRAIN_B, "feedback": "teacher"})
@@ -655,20 +920,34 @@ def main() -> int:
          loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL, tensors=len(grads_c),
          max_grad_err_over_tol=worst, launches=counts)
 
+    # ------------------------------------------------------------ family
+    family_runs = {task: phase_family(task, family_mixes) for task in FAMILY + ("r2r_last",)}
+
+    # ------------------------------------------------------------- files
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_files(tmp)
+
     sample = {
         name: {"launches_per_update": {"merged": merged_per[name], "fused": fused_per[name]},
                "batch": MERGED_B, **kernel_times(rows, m)}
         for name, rows, m in (("attention_fwd", f16_rows, mix),
                               ("attention_bwd", b16_rows, bwd_mix))}
+    family = {
+        name: {task: {"batch": batch, "launches": family_runs[task]["launches"][name],
+                      "launches_per_merged_update":
+                          family_runs[task]["launches_per_update"][name],
+                      **kernel_times(family_kernels[task][i], mixes[i])}
+               for task, (batch, *mixes) in family_mixes.items()}
+        for i, name in enumerate(("attention_fwd", "attention_bwd"))}
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel
                     slice_launches["attention_fwd"], fwd_err, fwd_rows, mix, B,
-                    sample["attention_fwd"]),
+                    sample["attention_fwd"], family["attention_fwd"]),
         summary_row("attention_bwd", "vln_hamt_torch/csrc/attention_bwd.cu",
                     "vln_hamt_tpu/ops/attention.py:85",  # _attn_bwd_kernel
                     train_launches["attention_bwd"], bwd_err, bwd_rows, bwd_mix, TRAIN_B,
-                    sample["attention_bwd"]),
+                    sample["attention_bwd"], family["attention_bwd"]),
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -52,15 +52,48 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     assert not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("argv", [
-    ["--task", "rxr", "--valid_only", "--synthetic"],
-    ["--synthetic", "--resume_file", "x.pt"],
-    ["--valid_only"],
-    ["--valid_only", "--synthetic", "--resume_file", "x.pkl"],
-], ids=["task", "training", "real_data", "resume"])
-def test_cli_names_the_roadmap_item_of_unported_paths(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+# every flag of the JAX CLI that the port does not run yet, with a value
+# and the ROADMAP item its error names
+UNPORTED = {
+    "bf16": ([], "A8"), "packed_il": ([], "A9"), "no_feat_table": ([], "A10"),
+    "no_cand_backtrack": ([], "A10"), "sharded_feed": ([], "A13"),
+    "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"), "orbax_ckpt": ([], "A13"),
+    "init_pretrain": (["p.pkl"], "A14"), "obj_ft_file": (["o.hdf5"], "A11"),
+    "remat": ([], "A19"), "remat_policy": (["dots"], "A19"), "rng_impl": (["rbg"], "A20"),
+}
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--task", "r2r_back", "--valid_only", "--synthetic"], "A11"),
+    (["--task", "reverie", "--synthetic"], "A11"),
+    (["--task", "cvdn", "--valid_only", "--synthetic"], "A11"),
+] + [(["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in UNPORTED.items()],
+    ids=["task", "task_reverie", "task_cvdn"] + list(UNPORTED))
+def test_cli_names_the_roadmap_item_of_unported_paths(argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
         finetune.main(argv + ["--cpu"])
+
+
+def test_cli_flags_cover_the_jax_cli():
+    """The port's parser takes every flag of the JAX CLI's."""
+    from vln_hamt_tpu.run import finetune as jax_finetune
+
+    assert vars(finetune.parse_args([])).keys() == vars(jax_finetune.parse_args([])).keys()
+    assert set(UNPORTED) == set(finetune._UNPORTED_FLAGS)
+
+
+def test_cli_real_data_needs_its_files():
+    with pytest.raises(ValueError, match="--anno_dir --connectivity_dir --img_ft_file"):
+        finetune.main(["--valid_only", "--cpu"])
+
+
+@pytest.mark.parametrize("task", ["r2r_back", "reverie", "cvdn"])
+def test_dataset_builders_refuse_other_task_families(task):
+    cfg = get_preset(task)
+    with pytest.raises(NotImplementedError, match="ROADMAP item A11$"):
+        finetune.build_synthetic_dataset(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP item A11$"):
+        finetune.build_real_dataset(cfg, None)
 
 
 def test_cli_valid_only_on_cpu(tmp_path):

@@ -31,14 +31,17 @@ def grads_of(module):
             for k, p in module.named_parameters()}
 
 
-@pytest.mark.parametrize("fix", [True, False], ids=["fixed_embeddings", "all_trained"])
-def test_a2c_gradients_match_jax_replay(tiny_world, fix):
+@pytest.mark.parametrize("fix,no_lang_ca", [(True, False), (False, False), (False, True)],
+                         ids=["fixed_embeddings", "all_trained", "no_lang_ca"])
+def test_a2c_gradients_match_jax_replay(tiny_world, fix, no_lang_ca):
     """A2C on the port's argmax rollout, differentiated through the
     rollout, against jax.grad of the JAX _rl_loss replayed on the
     JAX-recorded episode: the loss, and every model and critic gradient;
     with fix_lang_embedding / fix_hist_embedding the frozen parts get no
-    gradient inside the rollout either."""
-    jagent, agent = make_pair(tiny_world, fix=fix)
+    gradient inside the rollout either; under no_lang_ca (the rxr / r4r
+    presets) the precomputed language states, batch on axis 1, carry the
+    gradient through all steps of the rollout."""
+    jagent, agent = make_pair(tiny_world, fix=fix, no_lang_ca=no_lang_ca)
     _, _, jep, jex = jax_rollout(jagent, policy="argmax", compute_rewards=True)
     st = jagent.state
     (jloss, _), (jgp, jgc) = jax.jit(jax.value_and_grad(

@@ -71,14 +71,14 @@ def train_test_setup(monkeypatch):
     torch.set_num_threads(prev)
 
 
-def tiny_cfg(cls, world, fix=True, dropout=False, optim="adamw", lr=1e-3):
+def tiny_cfg(cls, world, fix=True, dropout=False, optim="adamw", lr=1e-3, no_lang_ca=False):
     feat_dim = world.feat_db.feat_dim
     max_deg = max(g.max_degree for g in world.graphs.values())
     model = {"hidden_size": 64, "num_attention_heads": 4, "intermediate_size": 128,
              "num_l_layers": 2, "num_x_layers": 2, "num_h_pano_layers": 1,
              "image_feat_size": feat_dim, "vocab_size": 30522, "max_action_steps": 20,
              "max_position_embeddings": 64, "fix_lang_embedding": fix,
-             "fix_hist_embedding": fix}
+             "fix_hist_embedding": fix, "no_lang_ca": no_lang_ca}
     if not dropout:
         model.update(NO_DROPOUT)
     return cls().replace(

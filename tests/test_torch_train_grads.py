@@ -54,13 +54,16 @@ def test_episode_forward_matches_jax(tiny_world):
 
 
 # -------------------------------------------------------- IL gradients
-@pytest.mark.parametrize("fix", [True, False], ids=["fixed_embeddings", "all_trained"])
-def test_il_gradients_match_jax(tiny_world, fix):
+@pytest.mark.parametrize("fix,no_lang_ca", [(True, False), (False, False), (False, True)],
+                         ids=["fixed_embeddings", "all_trained", "no_lang_ca"])
+def test_il_gradients_match_jax(tiny_world, fix, no_lang_ca):
     """The IL loss and every parameter's gradient against jax.grad of the
     JAX agent's _il_loss, all dropout rates 0; with fix_lang_embedding /
     fix_hist_embedding on, the frozen parts get no gradient on either
-    side."""
-    jagent, agent = make_pair(tiny_world, fix=fix)
+    side; under no_lang_ca (the rxr / r4r presets) the precomputed
+    language stream of the cross-modal layers takes its gradient once
+    per episode."""
+    jagent, agent = make_pair(tiny_world, fix=fix, no_lang_ca=no_lang_ca)
     jep = jagent._ep_to_device(jagent.env.teacher_episode())
     ep = agent._ep_to_device(agent.env.teacher_episode())
     st = jagent.state

@@ -19,6 +19,11 @@ trains (:meth:`HAMTAgent.train_iteration`):
   teacher episode forward, then the rollout.
 
 Every update clips the navigator's gradient at 40 (agent_cmt.py:597-601).
+Weights come from a seed, from a released reference checkpoint
+(:meth:`HAMTAgent.init_from_reference`) or from the agent's own
+checkpoint (:meth:`HAMTAgent.save` / :meth:`HAMTAgent.load`, the CLI's
+``--resume_file``). The whole R2R family (r2r, r2r_last, r4r, rxr) runs
+through this agent and the R2R reward of the device rollout.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from ..data.feature_db import build_feature_table
 from ..data.nav_graph import build_nav_tables
 from ..env.observation import EpisodeBatch
 from ..env.r2r_env import R2RNavEnv
-from ..models.convert import critic_params_from_flax, params_from_flax
+from ..models.convert import (critic_params_from_flax, load_reference_checkpoint,
+                              merge_matching_params, params_from_flax)
 from ..models.hamt import init_hamt
 from ..models.layers import DropoutRNG, set_dropout_rng
 from .losses import IGNORE_ID, a2c_loss, il_loss
@@ -61,6 +67,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 class HAMTAgent:
+    #: the device rollout's task shaping: the R2R family (r2r, r2r_last,
+    #: r4r, rxr) shares the R2R reward, as in the JAX package
+    device_rollout_task = "r2r"
     #: ``sample`` feedback as one update: the IL loss plus the sampling
     #: rollout with its autograd graph, A2C on the rollout's own logits
     #: and values (``_fused_sample_update_fn`` of the JAX package)
@@ -86,12 +95,7 @@ class HAMTAgent:
         # the sampling rollout's actions: a stream of its own, so the
         # dropout draws of the teacher path are the same with or without it
         self.action_rng = torch.Generator(device=self.device).manual_seed(seed + 19)
-        # the optimizer zoo of agent_cmt.py:62-77 with optax's rules
-        tcfg = cfg.train
-        self.optimizer = OptaxOptimizer(self.model.parameters(), tcfg.optim, tcfg.lr,
-                                        tcfg.weight_decay, grad_clip=tcfg.grad_clip)
-        self.critic_optimizer = OptaxOptimizer(self.critic.parameters(), tcfg.optim,
-                                               tcfg.lr, tcfg.weight_decay)
+        self._make_optimizers()
         self.step = 0
         self.logs: Dict[str, List[float]] = defaultdict(list)
         self.episode_forward = build_episode_forward(self.model, self.critic,
@@ -99,6 +103,15 @@ class HAMTAgent:
         self._feat_table: Optional[torch.Tensor] = None  # (N, V, D)
         self._nav_tables: Optional[Dict[str, torch.Tensor]] = None
         self._rollout_cache: Dict[int, Any] = {}
+
+    def _make_optimizers(self) -> None:
+        """Fresh optimizers (no moments, count 0): the optimizer zoo of
+        agent_cmt.py:62-77 with optax's rules."""
+        tcfg = self.cfg.train
+        self.optimizer = OptaxOptimizer(self.model.parameters(), tcfg.optim, tcfg.lr,
+                                        tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+        self.critic_optimizer = OptaxOptimizer(self.critic.parameters(), tcfg.optim,
+                                               tcfg.lr, tcfg.weight_decay)
 
     def load_flax_params(self, params: Mapping, cparams: Mapping) -> None:
         """Install the JAX package's flax params (nested dicts of numpy
@@ -138,7 +151,8 @@ class HAMTAgent:
         if fn is None:
             fn = build_device_rollout(self.model, self.critic, env.max_action_len,
                                       ob_type=self.cfg.env.ob_type,
-                                      error_margin=env.error_margin)
+                                      error_margin=env.error_margin,
+                                      task=self.device_rollout_task)
             self._rollout_cache[key] = fn
         return fn
 
@@ -170,7 +184,10 @@ class HAMTAgent:
         (B, N_scan_max, R), each node's distance to each reference node,
         inf-padded, and ``ref_len`` (B,)."""
         b = obs.batch_size
-        ref_cost = np.full((b, self._n_scan_max, self._ref_max), np.inf, np.float32)
+        # the split's longest path sizes the slab; an env that shares the
+        # table (the aug env beside the train env) may hold longer ones
+        r_max = max([self._ref_max] + [len(it["path"]) for it in env.batch])
+        ref_cost = np.full((b, self._n_scan_max, r_max), np.inf, np.float32)
         ref_len = np.zeros((b,), np.int32)
         for i, item in enumerate(env.batch):
             g = env.graphs[item["scan"]]
@@ -402,6 +419,39 @@ class HAMTAgent:
             out[k] = float(v)
             self.logs[k].append(out[k])
         return out
+
+    # --------------------------------------------- weight initialization
+    def _install_params(self, partial: Mapping[str, torch.Tensor],
+                        critic_partial: Optional[Mapping[str, torch.Tensor]] = None
+                        ) -> List[str]:
+        """Merge (possibly partial) state dicts over the current weights by
+        name and shape (the reference's strict=False ``from_pretrained``
+        load, vlnbert_init.py:64-67), cast to the parameters' types on
+        their device. Both optimizers start fresh (a new fine-tuning run);
+        the step count stays. Returns the skipped names, the critic's
+        under ``critic.``."""
+        skipped: List[str] = []
+        for module, part, prefix in ((self.model, partial, ""),
+                                     (self.critic, critic_partial, "critic.")):
+            if part is None:
+                continue
+            merged, skip = merge_matching_params(module.state_dict(), part)
+            module.load_state_dict(merged, strict=True)  # copies, casting
+            skipped += [prefix + k for k in skip]
+        self._make_optimizers()
+        return skipped
+
+    def init_from_reference(self, path: str) -> List[str]:
+        """Initialize from a released reference torch checkpoint: an agent
+        save (agent_cmt.py:607-622; critic included) or a pretrain
+        ModelSaver state dict (the ``--bert_ckpt_file`` files). Call
+        before :meth:`load`, so a resumed checkpoint wins. Returns the
+        skipped names."""
+        return self._install_params(*load_reference_checkpoint(path))
+
+    def init_from_pretrain(self, path: str) -> List[str]:
+        raise NotImplementedError("initializing from a run/pretrain.py checkpoint (a JAX "
+                                  "pickle) is ROADMAP item A14")
 
     # ------------------------------------------------------- checkpoints
     def save(self, path: str) -> None:

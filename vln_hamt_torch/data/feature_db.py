@@ -1,16 +1,17 @@
 """Panorama image feature databases.
 
 Reference: ``ImageFeaturesDB`` (``finetune_src/r2r/data_utils.py:9-23``)
-reads HDF5 keyed ``{scan}_{viewpoint}`` -> (36, feat_dim) float32. The
-port carries the deterministic synthetic DB (tests and hermetic runs)
-and the feature-table builder of ``vln_hamt_tpu/data/feature_db.py``;
-the HDF5 reader for real features is not part of the port yet (ROADMAP
-item A12).
+reads HDF5 keyed ``{scan}_{viewpoint}`` -> (36, feat_dim) float32 with an
+unbounded in-RAM memo cache. The port carries, as
+``vln_hamt_tpu/data/feature_db.py`` does, the HDF5 reader with the same
+key scheme and a bounded LRU cache, the deterministic synthetic DB
+(tests and hermetic runs) and the feature-table builder.
 """
 
 from __future__ import annotations
 
 import zlib
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -29,6 +30,40 @@ class FeatureDB:
     # Reference-compatible alias (data_utils.py:15)
     def get_image_feature(self, scan: str, viewpoint: str) -> np.ndarray:
         return self.get(scan, viewpoint)
+
+
+class HDF5FeatureDB(FeatureDB):
+    """HDF5-backed features with a bounded LRU cache.
+
+    The reference reopens the file per miss (data_utils.py:20); this
+    keeps one handle open and bounds the cache instead of growing it
+    forever; :meth:`close` closes it. ``h5py`` is imported here, not
+    with the module.
+    """
+
+    def __init__(self, path: str, feat_dim: int, cache_items: int = 20_000):
+        import h5py
+
+        self.path = path
+        self.feat_dim = feat_dim
+        self._file = h5py.File(path, "r")
+        self._cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
+        self._cache_items = cache_items
+
+    def get(self, scan: str, viewpoint: str) -> np.ndarray:
+        key = f"{scan}_{viewpoint}"
+        ft = self._cache.get(key)
+        if ft is None:
+            ft = self._file[key][...][:, : self.feat_dim].astype(np.float32)
+            self._cache[key] = ft
+            if len(self._cache) > self._cache_items:
+                self._cache.popitem(last=False)
+        else:
+            self._cache.move_to_end(key)
+        return ft
+
+    def close(self) -> None:
+        self._file.close()
 
 
 class SyntheticFeatureDB(FeatureDB):

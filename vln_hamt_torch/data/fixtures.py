@@ -6,11 +6,14 @@ random navigation graphs + instruction data + features so the full
 pipeline (env -> model -> agent -> metrics) runs anywhere. For the same
 seed this builds the same world as ``vln_hamt_tpu/data/fixtures.py``
 (tested); the task-variant fixtures are not part of the port yet.
+:func:`export_real_format` writes a world as the reference's files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -139,3 +142,102 @@ def make_synthetic_world(
         instr_data=instr_data,
         feat_db=SyntheticFeatureDB(feat_dim=feat_dim),
     )
+
+
+# ----------------------------------------------------------------------
+# Real-format export (runs of the file-backed path without Matterport data)
+
+
+def export_nav_and_annotations(
+    world: SyntheticWorld,
+    dst_dir: str,
+    splits: Optional[Dict[str, float]] = None,
+) -> Dict[str, str]:
+    """Write the world's graphs and items as the reference's JSON files:
+
+    - ``connectivity/{scan}_connectivity.json``, the reference
+      connectivity schema (``image_id`` / ``included`` / flat 4x4
+      ``pose`` with the translation at [3], [7], [11] / ``unobstructed``
+      in node order; the finetune_src/r2r/data_utils.py:86-111 reader),
+      and ``connectivity/scans.txt``;
+    - ``annotations/R2R_{split}_enc.json``, reference R2R annotation
+      records (``path_id/scan/heading/path/instructions/instr_encodings``,
+      which data_utils.py:56-83 expands per instruction).
+
+    ``splits`` maps split name -> fraction of the items, in order;
+    by default the three validation splits of the fine-tune CLI's
+    ``build_real_dataset``. Returns ``{"connectivity_dir", "anno_dir"}``.
+    """
+    if splits is None:
+        splits = {"val_train_seen": 0.2, "val_seen": 0.3, "val_unseen": 0.5}
+
+    conn_dir = os.path.join(dst_dir, "connectivity")
+    anno_dir = os.path.join(dst_dir, "annotations")
+    os.makedirs(conn_dir, exist_ok=True)
+    os.makedirs(anno_dir, exist_ok=True)
+
+    for scan, g in world.graphs.items():
+        entries = []
+        for i, vp in enumerate(g.node_ids):
+            pose = [0.0] * 16
+            pose[0] = pose[5] = pose[10] = pose[15] = 1.0
+            pose[3], pose[7], pose[11] = (float(x) for x in g.positions[i])
+            entries.append({
+                "image_id": vp,
+                "included": True,
+                "pose": pose,
+                "height": 1.5,
+                "unobstructed": [bool(g.adj[i, j]) for j in range(g.num_nodes)],
+            })
+        with open(os.path.join(conn_dir, f"{scan}_connectivity.json"), "w") as f:
+            json.dump(entries, f)
+    with open(os.path.join(conn_dir, "scans.txt"), "w") as f:
+        f.write("\n".join(sorted(world.graphs)) + "\n")
+
+    # regroup the per-instruction items into reference annotation
+    # records (one record per path, instruction lists)
+    items = list(world.instr_data)
+    n = len(items)
+    start = 0
+    for split, frac in splits.items():
+        stop = min(n, start + max(1, int(round(n * frac))))
+        anno = []
+        for it in items[start:stop]:
+            g = world.graphs[it["scan"]]
+            anno.append({
+                "distance": float(g.dist[g.node_index[it["path"][0]],
+                                         g.node_index[it["path"][-1]]]),
+                "scan": it["scan"],
+                "path_id": it["path_id"],
+                "path": it["path"],
+                "heading": it["heading"],
+                "instructions": [it["instruction"]],
+                "instr_encodings": [it["instr_encoding"]],
+            })
+        with open(os.path.join(anno_dir, f"R2R_{split}_enc.json"), "w") as f:
+            json.dump(anno, f)
+        start = stop
+    return {"connectivity_dir": conn_dir, "anno_dir": anno_dir}
+
+
+def export_real_format(
+    world: SyntheticWorld,
+    dst_dir: str,
+    splits: Optional[Dict[str, float]] = None,
+) -> Dict[str, str]:
+    """:func:`export_nav_and_annotations`, plus ``features.hdf5``: one
+    ``{scan}_{viewpoint}`` dataset of (36, feat_dim) float32 per viewpoint
+    (the ``precompute_img_features_vit.py`` schema that
+    ``HDF5FeatureDB`` reads). The files of
+    ``vln_hamt_tpu/data/fixtures.py:export_real_format`` for the same
+    world. Returns ``{"connectivity_dir", "anno_dir", "img_ft_file"}``.
+    """
+    import h5py
+
+    out = export_nav_and_annotations(world, dst_dir, splits)
+    ft_file = os.path.join(dst_dir, "features.hdf5")
+    with h5py.File(ft_file, "w") as f:
+        for scan, g in world.graphs.items():
+            for vp in g.node_ids:
+                f.create_dataset(f"{scan}_{vp}", data=world.feat_db.get(scan, vp))
+    return {**out, "img_ft_file": ft_file}

@@ -9,13 +9,20 @@ distance and next-hop matrices once per scan: every hot-path query
 becomes vectorized numpy indexing, and the neighbor tables can be
 shipped to the GPU for device-side graph transitions.
 
-This is the numpy path of ``vln_hamt_tpu/data/nav_graph.py``; the
-C++ table builder and the connectivity-JSON loaders (real Matterport
-data) are not part of the port yet (ROADMAP item A12).
+Connectivity JSON format parity: one ``{scan}_connectivity.json`` per
+scan, entries with ``included``, ``unobstructed`` adjacency rows, 4x4
+row-major ``pose`` with translation at indices 3/7/11, and ``image_id``
+(``finetune_src/r2r/data_utils.py:86-111``).
+
+This is the numpy path of ``vln_hamt_tpu/data/nav_graph.py``; its C++
+table builder (``use_native``) is not part of the port yet (ROADMAP
+item A12).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
@@ -141,6 +148,52 @@ class NavGraph:
 
 
 # ----------------------------------------------------------------------
+def _parse_connectivity(scan: str, raw: list) -> NavGraph:
+    included = [item["included"] for item in raw]
+    ids = [item["image_id"] for item in raw]
+    n = len(raw)
+    adj_full = np.zeros((n, n), dtype=bool)
+    pos_full = np.zeros((n, 3), dtype=np.float64)
+    for i, item in enumerate(raw):
+        pose = item["pose"]
+        pos_full[i] = (pose[3], pose[7], pose[11])
+        if not included[i]:
+            continue
+        for j, conn in enumerate(item["unobstructed"]):
+            if conn and included[j]:
+                adj_full[i, j] = True
+    # the reference loader's graph is undirected (data_utils.py:107): a
+    # one-sided edge is an error, not silently dropped
+    if not (adj_full == adj_full.T).all():
+        bad = np.argwhere(adj_full != adj_full.T)
+        raise ValueError(f"scan {scan}: asymmetric connectivity at {bad[:4]}")
+    # only included nodes (the reference adds edges between included
+    # nodes only, so the others are isolated there)
+    kept_idx = np.nonzero(np.array(included, dtype=bool))[0]
+    return NavGraph(scan, [ids[i] for i in kept_idx], pos_full[kept_idx],
+                    adj_full[np.ix_(kept_idx, kept_idx)])
+
+
+def _no_native(use_native: bool) -> None:
+    if use_native:
+        raise NotImplementedError("the native navsim table builder is ROADMAP item A12; "
+                                  "the port builds its tables in numpy (use_native=False)")
+
+
+def load_nav_graph(connectivity_dir: str, scan: str, use_native: bool = False) -> NavGraph:
+    _no_native(use_native)
+    with open(os.path.join(connectivity_dir, f"{scan}_connectivity.json")) as f:
+        return _parse_connectivity(scan, json.load(f))
+
+
+def load_nav_graphs(connectivity_dir: str, scans: Iterable[str],
+                    use_native: bool = False) -> Dict[str, NavGraph]:
+    """One :class:`NavGraph` per scan from the reference's connectivity
+    files (``finetune_src/r2r/data_utils.py:86-111``)."""
+    _no_native(use_native)
+    return {scan: load_nav_graph(connectivity_dir, scan) for scan in scans}
+
+
 def build_nav_tables(graphs: Dict[str, "NavGraph"], max_candidates: int):
     """Concatenate per-scan neighbor tables into global device tables.
 

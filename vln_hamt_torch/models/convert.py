@@ -1,4 +1,5 @@
-"""Weights carried across: the JAX package's flax params -> port state dicts.
+"""Weights carried across: the JAX package's flax params and the
+reference's released torch checkpoints -> port state dicts.
 
 The port's modules carry the reference NavCMT names, so this is the
 exact inverse of ``vln_hamt_tpu/models/convert.py:
@@ -12,11 +13,17 @@ flax ``kernel`` (in, out) becomes torch ``weight`` (out, in), LayerNorm
 Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the JAX side); outputs are flat dicts of float32 numpy
 arrays keyed by torch names.
+
+Released reference checkpoints need no mapping at all, only their
+prefixes stripped (:func:`load_reference_checkpoint`, the port's form of
+the JAX package's loader of the same name), and load by name and shape
+(:func:`merge_matching_params`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+import re
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -142,3 +149,107 @@ def adam_state_from_flax(count, mu: Tree, nu: Tree,
     a port run continue from the same step.
     """
     return {"count": int(np.asarray(count)), "mu": convert(mu), "nu": convert(nu)}
+
+
+# ----------------------------------------------------------------------
+# Released reference checkpoints
+
+
+def merge_matching_params(base: Mapping[str, Any], override: Mapping[str, Any]
+                          ) -> Tuple[Dict[str, Any], List[str]]:
+    """``override``'s tensors over a copy of the state dict ``base`` with
+    the reference's ``strict=False`` load semantics (HF
+    ``from_pretrained(state_dict=...)`` name matching,
+    ``vlnbert_init.py:64-67``): a tensor replaces its namesake only when
+    the shapes agree; every other name of ``override`` is skipped and
+    reported. Returns ``(merged, skipped_names)``."""
+    merged, skipped = dict(base), []
+    for k, v in override.items():
+        if k in merged and tuple(merged[k].shape) == tuple(v.shape):
+            merged[k] = v
+        else:
+            skipped.append(k)
+    return merged, skipped
+
+
+def _detect_navcmt_dims(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The NavCMT stack depths and object-head presence from a state
+    dict's key names, so a checkpoint of any configured depth is
+    recognised without hand-passed dims."""
+    def depth(pat: str) -> int:
+        rex = re.compile(pat)
+        mx = -1
+        for k in sd:
+            m = rex.match(k)
+            if m:
+                mx = max(mx, int(m.group(1)))
+        return mx + 1
+
+    return dict(
+        num_l_layers=depth(r"encoder\.layer\.(\d+)\."),
+        num_h_layers=depth(r"encoder\.h_layers\.(\d+)\."),
+        num_r_layers=depth(r"encoder\.r_layers\.(\d+)\."),
+        num_x_layers=depth(r"encoder\.x_layers\.(\d+)\."),
+        num_h_pano_layers=depth(r"hist_embeddings\.pano_encoder\.layer\.(\d+)\."),
+        has_objects="obj_embeddings.img_linear.weight" in sd,
+    )
+
+
+def _strip(k: str, prefix: str) -> str:
+    return k[len(prefix):] if k.startswith(prefix) else k
+
+
+def load_reference_checkpoint(path: str
+                              ) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+    """A released reference torch checkpoint as ``(navcmt_state_dict,
+    critic_state_dict or None)``, tensors keyed by the reference NavCMT
+    and Critic names, which the port's modules carry.
+
+    Handles both released formats:
+
+    - agent checkpoints of ``Seq2SeqCMTAgent.save`` (agent_cmt.py:607-622:
+      ``{'vln_bert': {'state_dict': ...}, 'critic': {'state_dict': ...}}``):
+      the wrapper's ``vln_bert.`` prefix and a DDP ``module.`` prefix
+      are stripped;
+    - pretrain ``ModelSaver`` state dicts (the ``--bert_ckpt_file``
+      files): ``module.`` is stripped, ``bert.*`` re-rooted onto NavCMT,
+      the top-level ``next_action.*`` kept and the other pretraining
+      heads (MLM, ITM, ...) dropped (vlnbert_init.py:20-31); no critic.
+
+    Both formats hold only tensors, dicts, lists and numbers, which
+    ``torch.load(weights_only=True)`` reads without running any of the
+    pickle's code. A file that pickles other objects (a numpy scalar in
+    an optimizer state, say) would need a full unpickle, which runs code
+    from the file: the port refuses it (ValueError), and such a file,
+    from a trusted source, is re-saved with its tensors only. Raises
+    ValueError too on a file with no NavCMT layer in it.
+    """
+    import pickle
+
+    import torch
+
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(f"{path}: holds objects other than tensors, dicts, lists and "
+                         "numbers, which torch.load(weights_only=True) refuses; re-save "
+                         f"its tensors from a trusted copy ({e})") from e
+    critic = None
+    if isinstance(blob, dict) and "vln_bert" in blob:
+        sd = {_strip(_strip(k, "module."), "vln_bert."): v
+              for k, v in blob["vln_bert"]["state_dict"].items()}
+        if "critic" in blob:
+            critic = {_strip(k, "module."): v
+                      for k, v in blob["critic"]["state_dict"].items()}
+    else:
+        sd = {}
+        for k, v in blob.items():
+            k = _strip(k, "module.")
+            if k.startswith("bert."):
+                sd[k[len("bert."):]] = v
+            elif k.startswith("next_action"):
+                sd[k] = v
+    dims = _detect_navcmt_dims(sd)
+    if dims["num_l_layers"] == 0 and dims["num_x_layers"] == 0:
+        raise ValueError(f"{path}: no NavCMT text or cross-modal layer in the checkpoint")
+    return sd, critic

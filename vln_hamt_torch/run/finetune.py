@@ -1,24 +1,34 @@
-"""R2R fine-tuning and evaluation entry point (torch), the port of
-``vln_hamt_tpu/run/finetune.py``.
+"""Fine-tuning and evaluation entry point for the R2R family (torch), the
+port of ``vln_hamt_tpu/run/finetune.py``.
 
-    python -m vln_hamt_torch.run.finetune --task r2r --synthetic \
-        [--feedback teacher] [--no_merged_sample] [--iters N --log_every K]
-    python -m vln_hamt_torch.run.finetune --task r2r --valid_only --synthetic
+    python -m vln_hamt_torch.run.finetune --task r2r|r2r_last|r4r|rxr \\
+        --anno_dir DIR --connectivity_dir DIR --img_ft_file FILE.hdf5 \\
+        [--aug AUG.json] [--init_ref_ckpt REF.pt] [--resume_file latest.pt] \\
+        [--eval_first] [--feedback teacher] [--no_merged_sample] [--iters N --log_every K]
+    python -m vln_hamt_torch.run.finetune --task rxr --synthetic [--valid_only] ...
 
-run the full-width ``r2r`` preset with seeded random weights over a
-hermetic fixture world on the GPU (``--cpu`` runs on the CPU through the
-plain attention; ``--tiny`` shrinks the model and episodes). Training
-takes ``--iters`` updates with the preset's ``sample`` feedback (IL plus
-A2C on a sampling rollout; merged, or fused with ``--no_merged_sample``)
-or with ``--feedback teacher`` (IL alone); every ``--log_every`` it
-records the interval's mean losses and episodes/s in ``train.txt``,
-evaluates the validation split greedily, and writes ``latest.pt`` and,
-on a better SR + SPL, ``best_val_unseen.pt``; it prints
-``{"best": {...}}``. ``--valid_only`` evaluates instead, prints
+runs the task's preset at full width on the GPU (``--cpu`` runs on the
+CPU through the plain attention; ``--tiny`` shrinks the model and
+episodes), over the reference's files (Matterport connectivity, the
+task's annotation files, HDF5 panorama features) or, with
+``--synthetic``, over a hermetic fixture world with the preset's feature
+width. Weights start from a seed, from a released reference checkpoint
+(``--init_ref_ckpt``: an agent save or a pretrain ``ModelSaver`` state
+dict) and/or from a port checkpoint (``--resume_file``, which wins).
+
+Training takes ``--iters`` updates with the preset's ``sample`` feedback
+(IL plus A2C on a sampling rollout; merged, or fused with
+``--no_merged_sample``) or with ``--feedback teacher`` (IL alone); with
+``--aug`` the updates of an interval alternate between the GT and the
+aug env. Every ``--log_every`` it appends the interval's loss,
+episodes/s and MFU to ``metrics.jsonl`` (and its mean losses to
+``train.txt``), evaluates the validation splits greedily, and writes
+``latest.pt`` and, on a better selection score, ``best_val_unseen.pt``;
+it prints ``{"best": {...}}``. ``--valid_only`` evaluates instead
+(``--resume_file`` and/or ``--init_ref_ckpt`` give the weights), prints
 ``{"valid": {split: metrics}}`` and writes ``valid.txt`` (and
-``submit_{split}.json`` with ``--submit``). Reference checkpoints, real
-data and the other task families are not ported yet; their flags raise
-and name the ROADMAP item.
+``submit_{split}.json`` with ``--submit``). The JAX CLI's other flags
+are accepted and raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,8 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,19 +44,49 @@ import torch
 from ..agents.agent import HAMTAgent, resolve_device
 from ..configs import HAMTConfig, get_preset
 from ..configs.config import PRESETS
+from ..data.feature_db import FeatureDB, HDF5FeatureDB
 from ..data.fixtures import make_synthetic_world
+from ..data.instructions import construct_instrs
+from ..data.nav_graph import load_nav_graphs
 from ..env import ObsSpec, R2RNavEnv
+from ..utils.flops import analytic_update_flops, chip_peak_flops
+from ..utils.logging import MetricsLogger, write_record
+
+#: the tasks of the R2R family: one env, one agent, the R2R reward
+_ENV_CLS = {task: R2RNavEnv for task in ("r2r", "r2r_last", "r4r", "rxr")}
+_AGENT_CLS = {task: HAMTAgent for task in _ENV_CLS}
 
 
-def write_record(path: str, text: str) -> None:
-    """Append-only record file (utils/logger.py:8-13)."""
-    with open(path, "a") as f:
-        f.write(text.rstrip() + "\n")
+def _check_task(task: str) -> None:
+    if task not in _ENV_CLS:
+        raise NotImplementedError(f"--task {task}: task variants are ROADMAP item A11")
+
+#: flags of the JAX CLI that the port does not run yet, with their
+#: ROADMAP item
+_UNPORTED_FLAGS = {
+    "bf16": "A8", "packed_il": "A9", "no_feat_table": "A10", "no_cand_backtrack": "A10",
+    "sharded_feed": "A13", "data_shards": "A13", "model_shards": "A13",
+    "orbax_ckpt": "A13", "init_pretrain": "A14", "obj_ft_file": "A11",
+    "remat": "A19", "remat_policy": "A19", "rng_impl": "A20",
+}
 
 
-def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = False):
-    """Fixture-backed R2R envs for hermetic runs (no Matterport data);
-    the R2R branch of the JAX package's ``build_synthetic_dataset``."""
+def selection_score(dataset: str, metrics: Dict[str, float]) -> float:
+    """Model-selection metric (main.py:204-210): SR + SPL for the R2R
+    family (REVERIE's and CVDN's come with ROADMAP item A11)."""
+    return metrics.get("spl", 0.0) + metrics.get("sr", 0.0)
+
+
+def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = False,
+                            aug: bool = False):
+    """Fixture-backed envs for hermetic runs (no Matterport data), with the
+    preset's feature width.
+
+    ``aug=True`` builds a synthetic aug env over the train items
+    (differently seeded episode stream), so the GT/aug interval
+    alternation (main.py:146-161) runs hermetically.
+    """
+    _check_task(cfg.env.dataset)
     world = make_synthetic_world(
         num_scans=2, nodes_per_scan=24, num_items=48,
         feat_dim=cfg.env.image_feat_size, seed=seed,
@@ -59,24 +98,102 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
                    ob_type=cfg.env.ob_type)
     items = world.instr_data
     n_train = int(len(items) * 0.75)
+    env_cls = _ENV_CLS[cfg.env.dataset]
 
-    def make_env(data, name):
-        return R2RNavEnv(
+    def make_env(data, name, seed_shift=0):
+        return env_cls(
             world.graphs, world.feat_db, data, spec,
             batch_size=cfg.train.batch_size,
             max_instr_len=cfg.env.max_instr_len,
             max_action_len=cfg.env.max_action_len,
-            seed=cfg.train.seed, name=name,
-            reuse_episode_buffers=(name == "train"),
+            seed=cfg.train.seed + seed_shift, name=name,
+            reuse_episode_buffers=(name in ("train", "aug")),
         )
 
     train_env = make_env(items[:n_train], "train")
+    if aug:
+        train_env = (train_env, make_env(items[:n_train], "aug", seed_shift=1))
     val_envs = {"val_unseen": make_env(items[n_train:], "val_unseen")}
     if test_split:
         # GT-less test items: path truncated to the start viewpoint,
         # mirroring the official test annotations (r2r/main.py:66-69)
         test_items = [{**it, "path": it["path"][:1]} for it in items[n_train:]]
         val_envs["test"] = make_env(test_items, "test")
+    return cfg, train_env, val_envs
+
+
+def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
+                       feat_db: Optional[FeatureDB] = None) -> Tuple:
+    """Envs over the reference's files (main.py:26-83), one process.
+
+    ``valid_only`` builds only the evaluation envs: the reference's
+    ``valid()`` never touches the train split (r2r/main.py:225-269), so a
+    checkpoint can be evaluated with only val/test annotation files
+    present. ``feat_db`` stands in for ``HDF5FeatureDB(args.img_ft_file)``
+    (a caller holding the features in memory).
+    """
+    dataset = cfg.env.dataset
+    _check_task(dataset)
+    if feat_db is None:
+        feat_db = HDF5FeatureDB(args.img_ft_file, cfg.env.image_feat_size)
+    # annotation-file variant (vlnbert_init.py:4-11: xlmr for rxr; the
+    # vocabulary size identifies the text trunk)
+    tokenizer = "xlm" if cfg.model.vocab_size > 100_000 else "bert"
+    splits = {} if valid_only else {"train": ["train"]}
+    splits.update({"val_train_seen": ["val_train_seen"], "val_seen": ["val_seen"]})
+    # R4R's val_unseen is too large to evaluate during training; the
+    # reference substitutes a sampled subset (r2r/main.py:59-63)
+    if dataset == "r4r" and not args.test:
+        splits["val_unseen_sampled"] = ["val_unseen_sampled"]
+    else:
+        splits["val_unseen"] = ["val_unseen"]
+    if args.submit:
+        # leaderboard test splits, GT-less (main.py:64-69)
+        for sp in (("test",) if dataset != "rxr"
+                   else ("test_challenge_public", "test_standard_public")):
+            splits[sp] = [sp]
+    if args.aug and not valid_only:
+        # a separate aug env; training alternates GT/aug batches
+        # (main.py:150-161)
+        splits["aug"] = [args.aug]
+
+    instr = {}
+    for name, sp in splits.items():
+        try:
+            instr[name] = construct_instrs(args.anno_dir, dataset, sp,
+                                           max_instr_len=cfg.env.max_instr_len,
+                                           tokenizer=tokenizer)
+        except FileNotFoundError:
+            if name == "train":
+                raise
+            print(f"split {name}: annotation file missing, skipped")
+    scans = sorted({x["scan"] for items in instr.values() for x in items})
+    graphs = load_nav_graphs(args.connectivity_dir, scans)
+    max_deg = max(g.max_degree for g in graphs.values())
+    cfg = cfg.replace(env={"max_candidates": max_deg})
+    spec = ObsSpec(max_candidates=max_deg,
+                   image_feat_size=cfg.env.image_feat_size,
+                   ob_type=cfg.env.ob_type)
+    env_cls = _ENV_CLS[dataset]
+
+    def make_env(data, name):
+        is_train = name in ("train", "aug")
+        return env_cls(
+            graphs, feat_db, data, spec,
+            batch_size=cfg.train.batch_size,
+            max_instr_len=cfg.env.max_instr_len,
+            max_action_len=cfg.env.max_action_len,
+            seed=cfg.train.seed, name=name,
+            reuse_episode_buffers=is_train,
+        )
+
+    train_env = None
+    if not valid_only:
+        train_env = make_env(instr["train"], "train")
+        if args.aug:
+            train_env = (train_env, make_env(instr["aug"], "aug"))
+    val_envs = {name: make_env(items, name) for name, items in instr.items()
+                if name not in ("train", "aug")}
     return cfg, train_env, val_envs
 
 
@@ -89,19 +206,130 @@ def _merge_preds(preds: List[dict]) -> List[dict]:
     return list(merged.values())
 
 
-def valid(cfg: HAMTConfig, val_envs: Dict[str, R2RNavEnv], output_dir: str,
-          submit: bool = False, device=None) -> Dict[str, Dict[str, float]]:
-    """Stand-alone greedy evaluation (main.py:225-269): greedy eval per
-    split, metrics for GT splits, ``submit_{split}.json`` dumps, and a
-    valid.txt record file."""
+def _apply_weight_init(agent: HAMTAgent, init_ref_ckpt: Optional[str],
+                       record_file: Optional[str] = None) -> None:
+    """Weights from a released reference torch checkpoint
+    (vlnbert_init.py:20-31), reporting what did not fit."""
+    if not init_ref_ckpt:
+        return
+    skipped = agent.init_from_reference(init_ref_ckpt)
+    msg = (f"initialized weights from {init_ref_ckpt}"
+           + (f" (skipped {len(skipped)} mismatched leaves: {', '.join(skipped[:8])}"
+              + ("..." if len(skipped) > 8 else "") + ")" if skipped else ""))
+    print(msg)
+    if record_file:
+        write_record(record_file, msg)
+
+
+def _share_feature_table(agent: HAMTAgent, env: R2RNavEnv, others) -> None:
+    """Move ``env``'s graphs' features to the device once; every other env
+    shares the graphs and so the table's offsets."""
+    agent.enable_feature_table(env)
+    for e in others:
+        e.feat_offsets = env.feat_offsets
+
+
+def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir: str,
+          iters: Optional[int] = None, log_every: Optional[int] = None,
+          eval_first: bool = False, resume_file: Optional[str] = None,
+          merged_sample: bool = True, init_ref_ckpt: Optional[str] = None,
+          device=None) -> Dict[str, float]:
+    """The train/validate loop (main.py:86-222) with the config's
+    feedback; ``sample`` updates are merged (the JAX CLI's production
+    default) unless ``merged_sample`` is off, then fused. ``train_env``
+    may be a (train_env, aug_env) pair: the updates of an interval then
+    alternate between the two (main.py:150-161)."""
+    os.makedirs(output_dir, exist_ok=True)
+    logger = MetricsLogger(output_dir)
+    record_file = os.path.join(output_dir, "train.txt")
+    dataset = cfg.env.dataset
+    aug_env = None
+    if isinstance(train_env, tuple):
+        train_env, aug_env = train_env
+    agent = _AGENT_CLS[dataset](cfg, train_env, seed=cfg.train.seed, device=device)
+    agent.merged_sample_update = merged_sample
+    # reference weights first, then the feature table, then a resumed
+    # checkpoint, which wins
+    _apply_weight_init(agent, init_ref_ckpt, record_file)
+    _share_feature_table(agent, train_env,
+                         ([aug_env] if aug_env is not None else []) + list(val_envs.values()))
+    if resume_file:
+        agent.load(resume_file, resume_optimizer=cfg.train.resume_optimizer)
+    with open(os.path.join(output_dir, "training_config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    if eval_first:  # sanity eval before training (main.py:112-128)
+        for name, env in val_envs.items():
+            metrics, _ = env.eval_metrics(_merge_preds(agent.eval_split_fast(env)))
+            write_record(record_file, f"eval_first {name}: {metrics}")
+
+    iters = iters or cfg.train.iters
+    log_every = log_every or cfg.train.log_every
+    best = {"score": -np.inf, "iter": 0}
+
+    # per-interval throughput and MFU (analytic matmul FLOPs over wall
+    # time over the card's bf16 peak, utils/flops.py); null on the CPU
+    n_ob = cfg.env.max_candidates + 1 + 36
+    lanes_per_iter = cfg.train.batch_size * (2 if cfg.train.feedback == "sample" else 1)
+    flops_per_iter = analytic_update_flops(cfg, lanes_per_iter, n_ob)
+    peak = (chip_peak_flops(torch.cuda.get_device_name(agent.device))
+            if agent.device.type == "cuda" else None)
+
+    step = 0
+    while step < iters:
+        interval = min(log_every, iters - step)
+        with logger.timer("train") as train_t:
+            outs = []
+            for j in range(interval):
+                if aug_env is not None:
+                    agent.env = train_env if j % 2 == 0 else aug_env
+                # the host assembles the next episode while the device works
+                outs.append(agent.train_iteration(sync=False))
+            keys = [k for k in ("loss", "IL_loss", "RL_loss", "entropy") if k in outs[0]]
+            # one read of the interval's scalars, which waits for its work
+            vals = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).cpu().numpy()
+        step += interval
+        if not np.isfinite(vals).all():
+            raise FloatingPointError(f"non-finite loss by iter {step}: {dict(zip(keys, vals.T))}")
+        dt = train_t.last
+        eps_per_sec = interval * cfg.train.batch_size / dt
+        logger.log(step, {"loss": float(vals[:, 0].mean()), "eps_per_sec": eps_per_sec,
+                          "mfu": None if peak is None else interval * flops_per_iter / dt / peak})
+        means = ", ".join(f"{k}={v:.4f}" for k, v in zip(keys, vals.mean(axis=0)))
+        write_record(record_file, f"iter {step}: {means}, eps_per_sec={eps_per_sec:.2f}")
+
+        for name, env in val_envs.items():
+            with logger.timer(f"eval_{name}"):
+                metrics, _ = env.eval_metrics(_merge_preds(agent.eval_split_fast(env)))
+            logger.log(step, metrics, prefix=f"{name}/")
+            write_record(record_file, f"iter {step} {name}: " + ", ".join(
+                f"{k}={v:.2f}" for k, v in metrics.items()))
+            if name in ("val_unseen", "val_unseen_sampled"):
+                score = selection_score(dataset, metrics)
+                if score > best["score"]:
+                    best = {"score": score, "iter": step, **metrics}
+                    agent.save(os.path.join(output_dir, "best_val_unseen.pt"))
+        agent.save(os.path.join(output_dir, "latest.pt"))
+        logger.log_timers(step)
+    return best
+
+
+def valid(cfg: HAMTConfig, ckpt: Optional[str], val_envs: Dict[str, R2RNavEnv],
+          output_dir: str, submit: bool = False, init_ref_ckpt: Optional[str] = None,
+          device=None) -> Dict[str, Dict[str, float]]:
+    """Stand-alone greedy evaluation of a checkpoint (main.py:225-269):
+    greedy eval per split, metrics for GT splits, ``submit_{split}.json``
+    dumps, and a valid.txt record file."""
     os.makedirs(output_dir, exist_ok=True)
     record_file = os.path.join(output_dir, "valid.txt")
-    agent = HAMTAgent(cfg, None, seed=cfg.train.seed, device=device)
+    agent = _AGENT_CLS[cfg.env.dataset](cfg, None, seed=cfg.train.seed, device=device)
+    _apply_weight_init(agent, init_ref_ckpt, record_file)
+    if ckpt:
+        step = agent.load(ckpt)
+        write_record(record_file, f"loaded {ckpt} at iter {step}")
     first = next(iter(val_envs.values()))
     agent.env = first
-    agent.enable_feature_table(first)  # all envs share the graphs
-    for env in val_envs.values():
-        env.feat_offsets = first.feat_offsets
+    _share_feature_table(agent, first, val_envs.values())
     results = {}
     for name, env in val_envs.items():
         agent.env = env
@@ -120,110 +348,90 @@ def valid(cfg: HAMTConfig, val_envs: Dict[str, R2RNavEnv], output_dir: str,
     return results
 
 
-def selection_score(metrics: Dict[str, float]) -> float:
-    """R2R model selection: SR + SPL (main.py:204-210)."""
-    return metrics.get("spl", 0.0) + metrics.get("sr", 0.0)
-
-
-def train(cfg: HAMTConfig, train_env: R2RNavEnv, val_envs: Dict[str, R2RNavEnv],
-          output_dir: str, iters: Optional[int] = None, log_every: Optional[int] = None,
-          device=None, merged_sample: bool = True) -> Dict[str, float]:
-    """The train/validate loop (main.py:86-222) with the config's
-    feedback; ``sample`` updates are merged (the JAX CLI's production
-    default) unless ``merged_sample`` is off, then fused."""
-    os.makedirs(output_dir, exist_ok=True)
-    record_file = os.path.join(output_dir, "train.txt")
-    agent = HAMTAgent(cfg, train_env, seed=cfg.train.seed, device=device)
-    agent.merged_sample_update = merged_sample
-    agent.enable_feature_table(train_env)
-    for env in val_envs.values():
-        env.feat_offsets = train_env.feat_offsets  # same graphs, one table
-    with open(os.path.join(output_dir, "training_config.json"), "w") as f:
-        f.write(cfg.to_json())
-
-    iters = iters or cfg.train.iters
-    log_every = log_every or cfg.train.log_every
-    best = {"score": -np.inf, "iter": 0}
-    step = 0
-    while step < iters:
-        interval = min(log_every, iters - step)
-        t0 = time.perf_counter()
-        # the host assembles the next episode while the device works;
-        # the losses are read once per interval
-        outs = [agent.train_iteration(sync=False) for _ in range(interval)]
-        keys = [k for k in ("loss", "IL_loss", "RL_loss", "entropy") if k in outs[0]]
-        # one read of the interval's scalars, which waits for its work
-        vals = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).cpu().numpy()
-        dt = time.perf_counter() - t0
-        step += interval
-        if not np.isfinite(vals).all():
-            raise FloatingPointError(f"non-finite loss by iter {step}: {dict(zip(keys, vals.T))}")
-        means = ", ".join(f"{k}={v:.4f}" for k, v in zip(keys, vals.mean(axis=0)))
-        # batch_size episodes per update, as the JAX CLI counts them
-        write_record(record_file, f"iter {step}: {means}, "
-                                  f"eps_per_sec={interval * cfg.train.batch_size / dt:.2f}")
-        for name, env in val_envs.items():
-            if "test" in name:  # no ground truth to score (main.py:258-262)
-                continue
-            metrics, _ = env.eval_metrics(_merge_preds(agent.eval_split_fast(env)))
-            write_record(record_file, f"iter {step} {name}: " + ", ".join(
-                f"{k}={v:.2f}" for k, v in metrics.items()))
-            if name == "val_unseen" and selection_score(metrics) > best["score"]:
-                best = {"score": selection_score(metrics), "iter": step, **metrics}
-                agent.save(os.path.join(output_dir, "best_val_unseen.pt"))
-        agent.save(os.path.join(output_dir, "latest.pt"))
-    return best
-
-
 def parse_args(argv=None):
+    """The JAX CLI's flags, every one of them (``vln_hamt_tpu/run/
+    finetune.py:parse_args``); those in ``_UNPORTED_FLAGS`` raise in
+    :func:`main`."""
     p = argparse.ArgumentParser(description="HAMT fine-tuning and evaluation (PyTorch/CUDA)")
-    p.add_argument("--task", default="r2r", choices=sorted(PRESETS))
+    p.add_argument("--task", default="r2r", choices=sorted(PRESETS),
+                   help="r2r | r2r_last | r4r | rxr (r2r_back, reverie and cvdn are "
+                        "ROADMAP item A11)")
     p.add_argument("--output_dir", default="runs/finetune_torch")
-    p.add_argument("--batch_size", type=int, default=None)
-    p.add_argument("--feedback", default=None, choices=("teacher", "sample"),
-                   help="training feedback (the preset's: sample)")
-    p.add_argument("--no_merged_sample", action="store_true",
-                   help="sample feedback as the fused update (teacher episode forward, "
-                        "then the rollout) instead of the merged one (the teacher "
-                        "episode as extra lanes of the rollout)")
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--log_every", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--feedback", default=None, choices=("teacher", "sample"),
+                   help="training feedback (the preset's: sample)")
     p.add_argument("--synthetic", action="store_true",
                    help="run on hermetic fixture worlds")
     p.add_argument("--tiny", action="store_true",
                    help="small model + short episodes (smoke tests/demos)")
+    p.add_argument("--anno_dir", default=None)
+    p.add_argument("--connectivity_dir", default=None)
+    p.add_argument("--img_ft_file", default=None)
+    p.add_argument("--obj_ft_file", default=None, help="REVERIE object features")
+    p.add_argument("--aug", default=None,
+                   help="augmented-instruction annotation file (prevalent_aug); "
+                        "training then alternates GT/aug batches (main.py:146-161). "
+                        "With --synthetic any value builds a fixture aug env.")
+    p.add_argument("--resume_file", default=None,
+                   help="a checkpoint of this port (latest.pt, best_val_unseen.pt): "
+                        "the weights to evaluate with --valid_only, or to resume "
+                        "training from (the optimizers too if the config says "
+                        "resume_optimizer)")
+    p.add_argument("--init_pretrain", default=None)
+    p.add_argument("--init_ref_ckpt", default=None,
+                   help="released reference torch checkpoint (agent save or pretrain "
+                        "ModelSaver state dict) to initialize weights from")
+    p.add_argument("--eval_first", action="store_true")
     p.add_argument("--valid_only", action="store_true",
-                   help="skip training; greedy evaluation of the val/test "
-                        "splits (reference valid(), main.py:225-269)")
+                   help="skip training; greedy evaluation of the val/test splits "
+                        "(reference valid(), main.py:225-269)")
     p.add_argument("--submit", action="store_true",
-                   help="dump submit_{split}.json predictions and include "
-                        "the GT-less test split")
-    p.add_argument("--resume_file", default=None)
+                   help="dump submit_{split}.json predictions and include the "
+                        "leaderboard test split")
+    p.add_argument("--test", action="store_true",
+                   help="use the full val_unseen for R4R instead of val_unseen_sampled "
+                        "(r2r/main.py:59-63)")
+    p.add_argument("--no_cand_backtrack", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain attention, no kernel)")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat_policy", default=None, choices=["full", "dots"])
+    p.add_argument("--no_feat_table", action="store_true")
+    p.add_argument("--no_merged_sample", action="store_true",
+                   help="sample feedback as the fused update (teacher episode forward, "
+                        "then the rollout) instead of the merged one (the teacher "
+                        "episode as extra lanes of the rollout)")
+    p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"])
+    p.add_argument("--orbax_ckpt", action="store_true")
+    p.add_argument("--sharded_feed", action="store_true")
+    p.add_argument("--packed_il", action="store_true")
+    p.add_argument("--data_shards", type=int, default=None)
+    p.add_argument("--model_shards", type=int, default=None)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.task != "r2r":
-        raise NotImplementedError(f"--task {args.task}: task variants are ROADMAP item A11")
-    cfg = get_preset(args.task)
-    feedback = args.feedback or cfg.train.feedback
-    if not args.synthetic:
-        raise NotImplementedError("real Matterport data is ROADMAP item A12; pass --synthetic")
-    if args.resume_file:
-        raise NotImplementedError("--resume_file: checkpoint ingestion is ROADMAP item A12")
+    _check_task(args.task)
+    for flag, item in _UNPORTED_FLAGS.items():
+        value = getattr(args, flag)
+        if value not in (None, False):
+            raise NotImplementedError(f"--{flag} is ROADMAP item {item}")
+    if not args.synthetic and not (args.anno_dir and args.connectivity_dir
+                                   and args.img_ft_file):
+        raise ValueError("real-data runs need --anno_dir --connectivity_dir --img_ft_file "
+                         "(or pass --synthetic)")
     device = resolve_device("cpu" if args.cpu else None)
 
-    tcfg = {"seed": args.seed, "feedback": feedback}
-    if args.batch_size is not None:
-        tcfg["batch_size"] = args.batch_size
-    if args.lr is not None:
-        tcfg["lr"] = args.lr
-    cfg = cfg.replace(train=tcfg)
+    cfg = get_preset(args.task)
+    overrides = {key: getattr(args, key) for key in ("batch_size", "lr", "feedback")
+                 if getattr(args, key) is not None}
+    cfg = cfg.replace(train={**overrides, "seed": args.seed})
     if args.tiny:
         cfg = cfg.replace(
             model={"hidden_size": 64, "num_attention_heads": 4,
@@ -231,19 +439,30 @@ def main(argv=None):
                    "num_x_layers": 1, "num_h_pano_layers": 1,
                    "image_feat_size": 32, "max_position_embeddings": 128,
                    "max_action_steps": 32},
-            env={"max_action_len": 8, "max_instr_len": 32,
-                 "image_feat_size": 32},
-            train={"batch_size": args.batch_size or 4},
+            env={"max_action_len": 8, "max_instr_len": 32, "image_feat_size": 32},
+            # explicit CLI flags win over the tiny defaults
+            train={"batch_size": args.batch_size or 4,
+                   "lr": args.lr if args.lr is not None else 1e-3},
         )
 
-    cfg, train_env, val_envs = build_synthetic_dataset(cfg, args.seed,
-                                                       test_split=args.submit)
+    if args.synthetic:
+        cfg, train_env, val_envs = build_synthetic_dataset(
+            cfg, args.seed, test_split=args.submit, aug=bool(args.aug) and not args.valid_only)
+    else:
+        cfg, train_env, val_envs = build_real_dataset(cfg, args, valid_only=args.valid_only)
+
     if args.valid_only:
-        results = valid(cfg, val_envs, args.output_dir, submit=args.submit, device=device)
+        results = valid(cfg, args.resume_file, val_envs, args.output_dir, submit=args.submit,
+                        init_ref_ckpt=args.init_ref_ckpt, device=device)
         print(json.dumps({"valid": results}, default=float))
         return results
-    best = train(cfg, train_env, val_envs, args.output_dir, args.iters, args.log_every,
-                 device=device, merged_sample=not args.no_merged_sample)
+
+    # leaderboard test splits are evaluated only in valid_only mode
+    train_val_envs = {k: v for k, v in val_envs.items() if "test" not in k}
+    best = train(cfg, train_env, train_val_envs, args.output_dir, iters=args.iters,
+                 log_every=args.log_every, eval_first=args.eval_first,
+                 resume_file=args.resume_file, merged_sample=not args.no_merged_sample,
+                 init_ref_ckpt=args.init_ref_ckpt, device=device)
     print(json.dumps({"best": best}, default=float))
     return best
 

@@ -110,25 +110,51 @@ def attention_bwd_bound_ms(b: int, h: int, lq: int, lk: int, dh: int, elt_bytes:
 
 def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
     """Attention launches of the main path by (Lq, Lk): the forward's per
-    greedy batch or IL update (the text stack once, then per step the
-    panorama encoder and, in each cross-modal layer, cross-attention
-    both ways and the two self-attentions), and the backward's per IL
-    update (``fix_lang_embedding`` and ``fix_hist_embedding`` keep the
-    text and panorama stacks out of the graph, so only the cross-modal
-    layers' attentions run backward)."""
+    greedy batch or IL update, and the backward's per IL update (the
+    merged sample update's too, at twice the lanes).
+
+    The forward: the text stack once (under ``no_lang_ca`` also the
+    cross-modal layers' language half, precomputed once), then per step
+    the panorama encoder of the history token and, in each cross-modal
+    layer, cross-attention both ways and the two self-attentions (under
+    ``no_lang_ca`` only the visual stream's two: visn -> text and visn
+    self). The backward: every attention of the cross-modal layers'
+    steps; the text stack's unless ``fix_lang_embedding`` (or
+    ``update_lang_bert`` off) keeps it out of the graph, and the
+    precomputed language half always; the panorama encoder's unless
+    ``fix_hist_embedding``, except at the last step, whose history token
+    no later step reads."""
     mcfg, t_max = cfg.model, cfg.env.max_action_len
     n_ob = cfg.env.max_candidates + 1 + 36
     l_txt, l_pano, l_visn = cfg.env.max_instr_len, 36, t_max + 1 + n_ob
-    fwd = collections.Counter()
-    fwd[(l_txt, l_txt)] += mcfg.num_l_layers + t_max * mcfg.num_x_layers
-    fwd[(l_pano, l_pano)] += t_max * mcfg.num_h_pano_layers
-    fwd[(l_txt, l_visn)] += t_max * mcfg.num_x_layers
-    fwd[(l_visn, l_txt)] += t_max * mcfg.num_x_layers
-    fwd[(l_visn, l_visn)] += t_max * mcfg.num_x_layers
-    bwd = collections.Counter({s: t_max * mcfg.num_x_layers for s in
-                               ((l_txt, l_txt), (l_txt, l_visn), (l_visn, l_txt),
-                                (l_visn, l_visn))})
-    return fwd, bwd
+    n_x, n_p = mcfg.num_x_layers, mcfg.num_h_pano_layers
+    text_frozen = mcfg.fix_lang_embedding or not mcfg.update_lang_bert
+    lang_once = n_x if mcfg.no_lang_ca else 0  # the precomputed language half
+    per_step = [(l_visn, l_txt), (l_visn, l_visn)]
+    if not mcfg.no_lang_ca:
+        per_step += [(l_txt, l_visn), (l_txt, l_txt)]
+    fwd, bwd = collections.Counter(), collections.Counter()
+    fwd[(l_txt, l_txt)] += mcfg.num_l_layers + lang_once
+    bwd[(l_txt, l_txt)] += (0 if text_frozen else mcfg.num_l_layers) + lang_once
+    fwd[(l_pano, l_pano)] += t_max * n_p
+    if not mcfg.fix_hist_embedding:
+        bwd[(l_pano, l_pano)] += (t_max - 1) * n_p
+    for shape in per_step:
+        fwd[shape] += t_max * n_x
+        bwd[shape] += t_max * n_x
+    return fwd, +bwd
+
+
+def bootstrap_mix(cfg) -> collections.Counter:
+    """Forward launches of the sample updates' bootstrap value by
+    (Lq, Lk): one planning step over the final observation, no
+    backward."""
+    n_ob = cfg.env.max_candidates + 1 + 36
+    l_txt, l_visn = cfg.env.max_instr_len, cfg.env.max_action_len + 1 + n_ob
+    shapes = [(l_visn, l_txt), (l_visn, l_visn)]
+    if not cfg.model.no_lang_ca:
+        shapes += [(l_txt, l_visn), (l_txt, l_txt)]
+    return collections.Counter({s: cfg.model.num_x_layers for s in shapes})
 
 
 def kernel_inputs(b: int, h: int, lq: int, lk: int, dh: int, dtype, gen, dev,

@@ -1,10 +1,11 @@
-"""Where the time of full-width R2R greedy evaluation goes on the card.
+"""Where the time of full-width greedy evaluation goes on the card.
 
-    python -m vln_hamt_torch.run.profile_eval [--batch_size 32] [--out DIR]
+    python -m vln_hamt_torch.run.profile_eval [--task r2r|r2r_last|r4r|rxr]
+        [--batch_size 32] [--out DIR]
 
-Builds the evaluation that ``chip_smoke.py`` drives (``r2r`` preset,
-fp32, seeded random weights, synthetic world of 2 scans x 36 nodes and
-96 items), warms it up, then traces one ``eval_split_device`` with
+Builds the evaluation that ``chip_smoke.py`` drives (the task's preset,
+``r2r`` by default, fp32, seeded random weights, synthetic world of 2
+scans x 36 nodes and 96 items), warms it up, then traces one ``eval_split_device`` with
 ``torch.profiler``. Prints one JSON line: wall time without and with
 the profiler, summed kernel time (one stream: the device is busy that
 long), the idle share against both wall times, and kernel time by group (the
@@ -29,12 +30,14 @@ from ..data.fixtures import SyntheticWorld, make_synthetic_world
 from ..env import ObsSpec, R2RNavEnv
 
 
-def slice_config(batch_size: int, seed: int = 0) -> Tuple[HAMTConfig, SyntheticWorld]:
-    """The measured greedy-evaluation configuration (also ``chip_smoke.py``'s):
-    the ``r2r`` preset at full width and depth over a synthetic world of
-    2 scans x 36 viewpoints and 96 R2R items, candidate slots sized to
-    the world's largest degree."""
-    cfg = get_preset("r2r")
+def slice_config(batch_size: int, seed: int = 0, task: str = "r2r"
+                 ) -> Tuple[HAMTConfig, SyntheticWorld]:
+    """The measured configuration (also ``chip_smoke.py``'s): the task's
+    preset (``r2r`` by default) at full width and depth over a synthetic
+    world of 2 scans x 36 viewpoints and 96 items with the preset's
+    feature width, candidate slots sized to the world's largest
+    degree."""
+    cfg = get_preset(task)
     world = make_synthetic_world(num_scans=2, nodes_per_scan=36, num_items=96,
                                  feat_dim=cfg.env.image_feat_size, seed=seed)
     max_deg = max(g.max_degree for g in world.graphs.values())
@@ -88,13 +91,14 @@ def kernel_table(prof) -> Tuple[List[Tuple[str, float, int]], Dict[str, dict]]:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--task", default="r2r", choices=("r2r", "r2r_last", "r4r", "rxr"))
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="runs/profile_eval")
     args = p.parse_args(argv)
     device = resolve_device()  # the card; raises without one
 
-    cfg, world = slice_config(args.batch_size, args.seed)
+    cfg, world = slice_config(args.batch_size, args.seed, args.task)
     agent = HAMTAgent(cfg, slice_env(cfg, world, args.seed), seed=args.seed, device=device)
     agent.enable_feature_table()
     agent.eval_split_device()  # warm-up
@@ -118,7 +122,7 @@ def main(argv=None):
         for name, ms, n in kernels:
             f.write(f"{ms:10.3f} {n:9d}  {name}\n")
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "batch": args.batch_size,
+        "device": torch.cuda.get_device_name(0), "task": args.task, "batch": args.batch_size,
         "episodes": len(preds), "unprofiled_wall_ms": unprofiled_ms, "wall_ms": wall_ms,
         "kernel_ms": busy_ms,
         # kernel durations barely change under the tracer, the host's

@@ -1,10 +1,11 @@
-"""Where the time of one full-width R2R training update goes on the card.
+"""Where the time of one full-width training update goes on the card.
 
-    python -m vln_hamt_torch.run.profile_train [--feedback teacher|sample]
-        [--no_merged_sample] [--batch_size 8] [--out DIR]
+    python -m vln_hamt_torch.run.profile_train [--task r2r|r2r_last|r4r|rxr]
+        [--feedback teacher|sample] [--no_merged_sample] [--batch_size B] [--out DIR]
 
-Builds the training that ``chip_smoke.py`` drives (``r2r`` preset, fp32,
-production dropout, adamw lr 1e-5, clip 40, seeded random weights, the
+Builds the training that ``chip_smoke.py`` drives (the task's preset,
+``r2r`` by default, fp32, production dropout, adamw lr 1e-5, clip 40,
+the preset's batch unless ``--batch_size``, seeded random weights, the
 synthetic world of ``run/profile_eval.py:slice_config``) with IL
 (``teacher``, the default) or IL + A2C (``sample``: the merged update,
 or the fused one with ``--no_merged_sample``), warms it up with three
@@ -16,7 +17,7 @@ without and with the profiler, summed kernel time (one stream: the
 device is busy that long), the idle share against both wall times, and
 kernel time by group (the attention forward and backward kernels,
 matrix products, the rest); writes the per-kernel table to
-``DIR/profile_train_{teacher|merged|fused}.txt``.
+``DIR/profile_train_{task}_{teacher|merged|fused}.txt``.
 """
 
 from __future__ import annotations
@@ -30,21 +31,24 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..agents.agent import HAMTAgent, resolve_device
+from ..configs import get_preset
 from .profile_eval import kernel_table, slice_config, slice_env
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--task", default="r2r", choices=("r2r", "r2r_last", "r4r", "rxr"))
     p.add_argument("--feedback", default="teacher", choices=("teacher", "sample"))
     p.add_argument("--no_merged_sample", action="store_true",
                    help="profile the fused sample update instead of the merged one")
-    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--batch_size", type=int, default=None, help="the preset's by default")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="runs/profile_train")
     args = p.parse_args(argv)
     device = resolve_device()  # the card; raises without one
 
-    cfg, world = slice_config(args.batch_size, args.seed)
+    cfg, world = slice_config(args.batch_size or get_preset(args.task).train.batch_size,
+                              args.seed, args.task)
     cfg = cfg.replace(train={"feedback": args.feedback})
     agent = HAMTAgent(cfg, slice_env(cfg, world, args.seed), seed=args.seed, device=device)
     agent.merged_sample_update = not args.no_merged_sample
@@ -54,12 +58,14 @@ def main(argv=None):
     for _ in range(3):  # warm-up
         agent.train_iteration(sync=False)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     n = 20
     t0 = time.perf_counter()
     for _ in range(n):
         agent.train_iteration(sync=False)
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -70,13 +76,13 @@ def main(argv=None):
     kernels, groups = kernel_table(prof)
     busy_ms = sum(ms for _, ms, _ in kernels)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_train_{update}.txt"), "w") as f:
+    with open(os.path.join(args.out, f"profile_train_{args.task}_{update}.txt"), "w") as f:
         f.write(f"{'device ms':>10} {'launches':>9}  kernel\n")
         for name, ms, k in kernels:
             f.write(f"{ms:10.3f} {k:9d}  {name}\n")
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "update": update,
-        "batch": args.batch_size, "t_max": cfg.env.max_action_len, "losses": out,
+        "device": torch.cuda.get_device_name(0), "task": args.task, "update": update,
+        "batch": cfg.train.batch_size, "peak_mem_gb": peak_gb, "t_max": cfg.env.max_action_len, "losses": out,
         "unprofiled_wall_ms_per_update": unprofiled_ms, "wall_ms": wall_ms,
         "kernel_ms": busy_ms,
         "idle_share_traced": 1.0 - busy_ms / wall_ms,
