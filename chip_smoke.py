@@ -25,8 +25,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and 300 x 65 (more query blocks than a cluster holds);
                and both kernels checked and timed at batch 16, the
                merged sample update's lanes, at the training shapes;
-               and both at the `rxr` (batch 8) and `r4r` (batch 4)
-               shapes of phase 10 (lines with a "preset" key).
+               and both at the `rxr` and `r4r` shapes of phase 10 (lines
+               with a "preset" key), each at its preset's batch (8 and 4:
+               the greedy batch and the bootstrap) and at twice that
+               (16 and 8: the merged update's rollout and its backward).
                Timing, bounds and build reports come from
                vln_hamt_torch/run/profile_attention.py.
 4. slice    -- the serving path: full-width R2R greedy evaluation
@@ -70,7 +72,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                XLM-R text, no_lang_ca, 512-d features, T = 20, batch 8)
                and `r4r` (100-token text, no_lang_ca, T = 30, batch 4),
                both with the text and history stacks trained (their
-               kernels are checked and timed in phase 3): per preset one
+               kernels are checked and timed in phase 3 at the batches
+               and lanes this phase runs them at): per preset one
                warm-up and 3 timed merged
                sample updates (sample episodes/s, losses, peak memory,
                and exactly the launches of launch_mix + bootstrap_mix per
@@ -97,8 +100,11 @@ kernel at the batch of its main path: the forward's launches from the
 serving slice and its times at batch 32, the backward's from the
 training slice and its times at batch 8; each also with its launches
 per merged and per fused sample update and its times at batch 16, and
-per family preset its launches in the family phase and its times at the
-preset's batch and shapes. The last is {"ok": true, "device": {...}}.
+per family preset its launches in the family phase and its times
+weighted by the merged update's launches (the rollout's and the
+backward's at twice the preset's batch, the bootstrap's at the batch),
+with the forward's times at the greedy batch beside them. The last is
+{"ok": true, "device": {...}}.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing either.
 """
@@ -332,17 +338,22 @@ def phase_kernels(dev, fwd_mix, bwd_mix):
     return fwd_rows, b8, (f16, b16), fwd_err, bwd_err
 
 
-def kernel_times(rows, mix):
-    """Times and bound from ``rows`` (one batch), weighted over ``mix``'s
-    launches by shape."""
-    bytes_mean = weighted(rows, mix, lambda r: r["bytes_ms"])
-    flops_mean = weighted(rows, mix, lambda r: r["flops_ms"])
+def kernel_times(*parts):
+    """Times and bound per launch, weighted over the launches by shape of
+    each (rows, mix) part: ``rows`` timed at one batch, ``mix`` the
+    launches by shape made at that batch."""
+    total = sum(sum(mix.values()) for _, mix in parts)
+
+    def mean(key):
+        return sum(weighted(rows, mix, key) * sum(mix.values()) for rows, mix in parts) / total
+
+    bytes_mean, flops_mean = mean(lambda r: r["bytes_ms"]), mean(lambda r: r["flops_ms"])
     return {
-        "ms": weighted(rows, mix, lambda r: r["ms"]),
-        "plain_ms": weighted(rows, mix, lambda r: r["plain_ms"]),
-        "bound_ms": weighted(rows, mix, lambda r: max(r["bytes_ms"], r["flops_ms"])),
+        "ms": mean(lambda r: r["ms"]),
+        "plain_ms": mean(lambda r: r["plain_ms"]),
+        "bound_ms": mean(lambda r: max(r["bytes_ms"], r["flops_ms"])),
         "bound_by": "bytes" if bytes_mean >= flops_mean else "operations",
-        "library_ms": weighted(rows, mix, lambda r: r["library_ms"]),
+        "library_ms": mean(lambda r: r["library_ms"]),
     }
 
 
@@ -353,11 +364,11 @@ def summary_row(name, source, replaces, launches, max_err, rows, mix, batch, sam
     and shapes, weighted by its launches per shape; ``sample``: its
     launches per merged and fused sample update and its times at the
     merged update's batch; ``family``: per family preset its launches in
-    the family phase's merged updates and its times at the preset's batch
-    and shapes."""
+    the family phase's merged updates and its times weighted by a merged
+    update's launches by shape and lanes."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "batch": batch, "max_abs_err": max_err,
-            **kernel_times(rows, mix), "sample": sample, "family": family}
+            **kernel_times((rows, mix)), "sample": sample, "family": family}
 
 
 def il_gradients(agent, ep):
@@ -422,38 +433,42 @@ def timed_sample_updates(agent, iters):
 
 
 def phase_family_kernels(dev, mixes):
-    """Both kernels at each family preset's shapes and batch, against
-    their plain twins (fp32 and bf16, dropout off and on), timed in fp32
-    with dropout off; per preset (forward rows, backward rows, largest
-    forward and backward errors)."""
+    """Both kernels at each family preset's shapes, at its batch (the
+    greedy batch and the bootstrap) and at twice it (the merged update's
+    rollout and backward), against their plain twins (fp32 and bf16,
+    dropout off and on), timed in fp32 with dropout off. Per preset a
+    dict batch -> (forward rows, backward rows), and the largest forward
+    and backward errors over all presets."""
     gen = torch.Generator(device=dev).manual_seed(1)
     seed = 2**31 + 7
-    out = {}
+    out, ferr, berr = {}, 0.0, 0.0
     for task, (batch, fwd_mix, bwd_mix) in mixes.items():
-        frows, brows, ferr, berr = [], [], 0.0, 0.0
-        for (lq, lk) in fwd_mix:
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, m, g = kernel_inputs(batch, H, lq, lk, DH, dtype, gen, dev)
-                for rate in (0.0, 0.1):
-                    where = f"{task} B {batch} ({lq},{lk})"
-                    case = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate}
-                    timed = rate == 0.0 and dtype == torch.float32
-                    err = check_fwd(q, k, v, m, seed, rate, where)
-                    ferr = max(ferr, err)
-                    frows.append({**case, "max_abs_err": err,
-                                  **(time_forward(q, k, v, m) if timed else {})})
-                    if (lq, lk) not in bwd_mix:
-                        continue
-                    errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
-                    berr = max(berr, err)
-                    brows.append({**case, "rel_err": errs, "max_abs_err": err,
-                                  **(time_backward(q, k, v, m, g) if timed else {})})
-        for name, rows, mix in (("attention_fwd", frows, fwd_mix),
-                                ("attention_bwd", brows, bwd_mix)):
-            emit("kernels", kernel=name, preset=task, batch=batch, heads=H, head_dim=DH,
-                 results=rows, weighted=kernel_times(rows, mix))
-        out[task] = (frows, brows, ferr, berr)
-    return out
+        out[task] = {}
+        for b in (batch, 2 * batch):
+            frows, brows = [], []
+            for (lq, lk) in fwd_mix:
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v, m, g = kernel_inputs(b, H, lq, lk, DH, dtype, gen, dev)
+                    for rate in (0.0, 0.1):
+                        where = f"{task} B {b} ({lq},{lk})"
+                        case = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate}
+                        timed = rate == 0.0 and dtype == torch.float32
+                        err = check_fwd(q, k, v, m, seed, rate, where)
+                        ferr = max(ferr, err)
+                        frows.append({**case, "max_abs_err": err,
+                                      **(time_forward(q, k, v, m) if timed else {})})
+                        if (lq, lk) not in bwd_mix:
+                            continue
+                        errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+                        berr = max(berr, err)
+                        brows.append({**case, "rel_err": errs, "max_abs_err": err,
+                                      **(time_backward(q, k, v, m, g) if timed else {})})
+            for name, rows, mix in (("attention_fwd", frows, fwd_mix),
+                                    ("attention_bwd", brows, bwd_mix)):
+                emit("kernels", kernel=name, preset=task, batch=b, heads=H, head_dim=DH,
+                     results=rows, weighted=kernel_times((rows, mix)))
+            out[task][b] = (frows, brows)
+    return out, ferr, berr
 
 
 def greedy_batch(agent):
@@ -685,14 +700,15 @@ def main() -> int:
     # 32, the backward at the training slice's 8
     fwd_rows, bwd_rows, (f16_rows, b16_rows), fwd_err, bwd_err = phase_kernels(
         dev, mix, bwd_mix)
-    # and at the family presets' shapes, each at its preset's batch
-    family_mixes = {}
+    # and at the family presets' shapes, each at its preset's batch and
+    # at the merged update's twice as many lanes
+    family_mixes, boot_mixes = {}, {}
     for task in FAMILY:
         fcfg, _ = slice_config(get_preset(task).train.batch_size, seed=0, task=task)
         family_mixes[task] = (fcfg.train.batch_size, *launch_mix(fcfg))
-    family_kernels = phase_family_kernels(dev, family_mixes)
-    fwd_err = max([fwd_err] + [r[2] for r in family_kernels.values()])
-    bwd_err = max([bwd_err] + [r[3] for r in family_kernels.values()])
+        boot_mixes[task] = bootstrap_mix(fcfg)
+    family_kernels, ferr, berr = phase_family_kernels(dev, family_mixes)
+    fwd_err, bwd_err = max(fwd_err, ferr), max(bwd_err, berr)
 
     # ------------------------------------------------------------- slice
     env = slice_env(cfg, world, seed=0)
@@ -929,16 +945,24 @@ def main() -> int:
 
     sample = {
         name: {"launches_per_update": {"merged": merged_per[name], "fused": fused_per[name]},
-               "batch": MERGED_B, **kernel_times(rows, m)}
+               "batch": MERGED_B, **kernel_times((rows, m))}
         for name, rows, m in (("attention_fwd", f16_rows, mix),
                               ("attention_bwd", b16_rows, bwd_mix))}
-    family = {
-        name: {task: {"batch": batch, "launches": family_runs[task]["launches"][name],
-                      "launches_per_merged_update":
-                          family_runs[task]["launches_per_update"][name],
-                      **kernel_times(family_kernels[task][i], mixes[i])}
-               for task, (batch, *mixes) in family_mixes.items()}
-        for i, name in enumerate(("attention_fwd", "attention_bwd"))}
+    # per family preset, times weighted by the merged update's launches:
+    # the rollout's forward and the backward at 2 x batch lanes, the
+    # bootstrap's forward at the batch; the forward at the greedy batch too
+    family = {"attention_fwd": {}, "attention_bwd": {}}
+    for task, (batch, fwd_mix, fam_bwd_mix) in family_mixes.items():
+        (f1, _), (f2, b2) = family_kernels[task][batch], family_kernels[task][2 * batch]
+        for name, parts in (("attention_fwd", ((f2, fwd_mix), (f1, boot_mixes[task]))),
+                            ("attention_bwd", ((b2, fam_bwd_mix),))):
+            family[name][task] = {
+                "batch": batch, "lanes": 2 * batch,
+                "launches": family_runs[task]["launches"][name],
+                "launches_per_merged_update": family_runs[task]["launches_per_update"][name],
+                **kernel_times(*parts)}
+        family["attention_fwd"][task]["greedy"] = {"batch": batch,
+                                                   **kernel_times((f1, fwd_mix))}
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel

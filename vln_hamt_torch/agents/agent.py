@@ -67,9 +67,6 @@ def resolve_device(device=None) -> torch.device:
 
 
 class HAMTAgent:
-    #: the device rollout's task shaping: the R2R family (r2r, r2r_last,
-    #: r4r, rxr) shares the R2R reward, as in the JAX package
-    device_rollout_task = "r2r"
     #: ``sample`` feedback as one update: the IL loss plus the sampling
     #: rollout with its autograd graph, A2C on the rollout's own logits
     #: and values (``_fused_sample_update_fn`` of the JAX package)
@@ -152,7 +149,9 @@ class HAMTAgent:
             fn = build_device_rollout(self.model, self.critic, env.max_action_len,
                                       ob_type=self.cfg.env.ob_type,
                                       error_margin=env.error_margin,
-                                      task=self.device_rollout_task)
+                                      # the R2R family (r2r, r2r_last, r4r,
+                                      # rxr) shares the R2R reward
+                                      task="r2r")
             self._rollout_cache[key] = fn
         return fn
 

@@ -136,9 +136,6 @@ def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
     _check_task(dataset)
     if feat_db is None:
         feat_db = HDF5FeatureDB(args.img_ft_file, cfg.env.image_feat_size)
-    # annotation-file variant (vlnbert_init.py:4-11: xlmr for rxr; the
-    # vocabulary size identifies the text trunk)
-    tokenizer = "xlm" if cfg.model.vocab_size > 100_000 else "bert"
     splits = {} if valid_only else {"train": ["train"]}
     splits.update({"val_train_seen": ["val_train_seen"], "val_seen": ["val_seen"]})
     # R4R's val_unseen is too large to evaluate during training; the
@@ -161,8 +158,7 @@ def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
     for name, sp in splits.items():
         try:
             instr[name] = construct_instrs(args.anno_dir, dataset, sp,
-                                           max_instr_len=cfg.env.max_instr_len,
-                                           tokenizer=tokenizer)
+                                           max_instr_len=cfg.env.max_instr_len)
         except FileNotFoundError:
             if name == "train":
                 raise

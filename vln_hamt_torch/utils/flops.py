@@ -30,12 +30,12 @@ def chip_peak_flops(device_name: str) -> float:
                    "vln_hamt_torch/utils/flops.py:_PEAK_BF16 from the card's datasheet")
 
 
-def analytic_update_flops(cfg, batch: int, n_ob: int, n_obj: int = 0) -> float:
+def analytic_update_flops(cfg, batch: int, n_ob: int) -> float:
     """Matmul FLOPs of one IL update (fwd + bwd = 3x fwd) at ``batch``
     lanes.
 
     Per-step token counts: visual stream = (T+1) history tokens + n_ob
-    obs tokens (+ n_obj REVERIE object tokens); language stream = L
+    obs tokens; language stream = L
     instruction tokens. Per token per transformer layer: QKVO 4D^2 MACs
     + FFN 2*D*I MACs (+ attention score/value matmuls 2*Lk*D). Cross
     layers add the Q/O and K/V splits across the two streams
@@ -43,6 +43,13 @@ def analytic_update_flops(cfg, batch: int, n_ob: int, n_obj: int = 0) -> float:
 
     The merged 'sample' update runs IL + RL as 2B lanes through the same
     per-step transformer: call with ``2 * batch``.
+
+    The count is the JAX package's: it charges the language half of every
+    cross-modal layer at every step and a full backward for every stack.
+    Under ``no_lang_ca`` that half runs once per episode, and a frozen
+    stack runs no backward, so for such presets (``rxr``, ``r4r``, and the
+    frozen text and panorama stacks of ``r2r``) it overstates the work and
+    the MFU logged from it (ROADMAP A17).
     """
     m = cfg.model
     d = m.hidden_size
@@ -50,7 +57,7 @@ def analytic_update_flops(cfg, batch: int, n_ob: int, n_obj: int = 0) -> float:
     ffn = 2.0 * d * m.intermediate_size
     L = cfg.env.max_instr_len
     T = cfg.env.max_action_len
-    n_v = (T + 1) + n_ob + n_obj
+    n_v = (T + 1) + n_ob
 
     # text encode: num_l_layers self-attn layers over L tokens
     per_tok_self = 4 * d2 + ffn
@@ -70,7 +77,7 @@ def analytic_update_flops(cfg, batch: int, n_ob: int, n_obj: int = 0) -> float:
     # per-step history token: pano transformer over 36 views + linears
     pano = m.num_h_pano_layers * 36 * (per_tok_self + 2.0 * 36 * d)
     pano += 36 * (m.image_feat_size * d + m.angle_feat_size * d)
-    head = (n_ob + n_obj) * (d2 + d)  # action/obj heads (critic ~d*512)
+    head = n_ob * (d2 + d)  # action head (critic ~d*512)
 
     fwd_macs = batch * (text + T * (xstep + pano + head))
     return 3.0 * 2.0 * fwd_macs  # x2 MAC->FLOP, x3 fwd+bwd

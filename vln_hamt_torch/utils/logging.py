@@ -18,7 +18,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 
 class Timer:
@@ -55,20 +55,6 @@ class Timer:
         return self.total / max(self.count, 1)
 
 
-class RunningMeter:
-    """EMA-smoothed scalar (pretrain_src/utils/logger.py RunningMeter)."""
-
-    def __init__(self, name: str, smooth: float = 0.99):
-        self.name = name
-        self.smooth = smooth
-        self.val: Optional[float] = None
-
-    def update(self, v: float):
-        self.val = v if self.val is None else (
-            self.val * self.smooth + v * (1 - self.smooth)
-        )
-
-
 def write_record(path: str, text: str) -> None:
     """Append-only record file (utils/logger.py:8-13)."""
     with open(path, "a") as f:
@@ -76,21 +62,14 @@ def write_record(path: str, text: str) -> None:
 
 
 class MetricsLogger:
-    """JSONL metrics sink with per-phase timers and optional TB mirror."""
+    """JSONL metrics sink with per-phase timers."""
 
     def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
         # one process, so no rank-0 gating yet (multi-GPU is ROADMAP
         # item A13)
         self.timers: Dict[str, Timer] = defaultdict(Timer)
-        self._tb = None
         self.path = os.path.join(log_dir, filename)
         os.makedirs(log_dir, exist_ok=True)
-        try:  # optional mirror
-            from tensorboardX import SummaryWriter  # type: ignore
-        except ImportError:
-            pass
-        else:
-            self._tb = SummaryWriter(log_dir)
 
     def timer(self, name: str) -> Timer:
         return self.timers[name]
@@ -98,10 +77,7 @@ class MetricsLogger:
     def log(self, step: int, scalars: Dict[str, Any], prefix: str = "") -> None:
         rec = {"step": step, "time": time.time()}
         for k, v in scalars.items():
-            key = f"{prefix}{k}"
-            rec[key] = float(v) if isinstance(v, (int, float)) else v  # None stays null
-            if self._tb is not None and isinstance(v, (int, float)):
-                self._tb.add_scalar(key, float(v), step)
+            rec[f"{prefix}{k}"] = float(v) if isinstance(v, (int, float)) else v  # None stays null
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
