@@ -28,8 +28,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and both at the `rxr` and `r4r` shapes of phase 10 (lines
                with a "preset" key), each at its preset's batch (8 and 4:
                the greedy batch and the bootstrap) and at twice that
-               (16 and 8: the merged update's rollout and its backward).
-               Timing, bounds and build reports come from
+               (16 and 8: the merged update's rollout and its backward);
+               and both at every pretraining shape of phase 12 (lines with
+               a "pretrain" key), each at its lanes: the panorama encoder's
+               36 x 36 over 400 lanes, the text's 80 x 80 (and `rxr`'s
+               250 x 250) at 16, the cross-modal shapes of the 26-token
+               history stream (MLM, MRC, ITM) and of the 63-token history
+               + observation stream (SAP, SAR, SpRel; 67 under `rxr`'s
+               candidate-first layout) at 16, and ITM's (1 + 4) x 16 = 80
+               lanes. Timing, bounds and build reports come from
                vln_hamt_torch/run/profile_attention.py.
 4. slice    -- the serving path: full-width R2R greedy evaluation
                (HAMTAgent.eval_split_device, `r2r` preset, fp32, seeded
@@ -95,6 +102,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                agent: every parameter and moment and the step equal, the
                greedy batch identical.
 
+12. pretrain -- proxy-task pretraining at full `r2r` width (every stack
+               trained, fp32, production dropout, batch 16, adamw 5e-5
+               warmup-linear, grad-norm 5, index-mode batches over the
+               resident feature table; run/profile_pretrain.py's
+               slice_trainer, the CLI's --synthetic): one update per task
+               (MLM, MRC, ITM, SAP, SAR, SpRel) as warm-up, each with
+               exactly pretrain_launch_mix's launches; 30 timed updates of
+               the 5:1:1:1:2:2 mix through the trainer's prefetching
+               train_step (examples/s, peak memory, exact launches of the
+               draw); card against CPU per task at batch 2, dropout off
+               (loss and every gradient, check_grads); one full-split
+               validate of the unseen stream; save, then
+               HAMTAgent.init_from_pretrain of a fine-tuning agent (nothing
+               skipped, the SAP head on the action head) and one greedy
+               batch with exactly launch_mix's launches; then one update
+               per task at the `rxr` preset (250 tokens, candidate-first
+               layout, XLM-R vocabulary), each with exact launches.
+
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
 serving slice and its times at batch 32, the backward's from the
@@ -103,7 +128,10 @@ per merged and per fused sample update and its times at batch 16, and
 per family preset its launches in the family phase and its times
 weighted by the merged update's launches (the rollout's and the
 backward's at twice the preset's batch, the bootstrap's at the batch),
-with the forward's times at the greedy batch beside them. The last is
+with the forward's times at the greedy batch beside them; and per
+pretraining preset its launches per update of each task, in the timed
+mix (`r2r`), and its times weighted by the mix's launches by lanes and
+shape. The last is
 {"ok": true, "device": {...}}.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing either.
@@ -125,11 +153,13 @@ from vln_hamt_torch.agents.agent import HAMTAgent
 from vln_hamt_torch.configs import get_preset
 from vln_hamt_torch.data.fixtures import export_nav_and_annotations
 from vln_hamt_torch.ops import attention as attn
+from vln_hamt_torch.pretrain.model import batch_to_device, init_pretrain
 from vln_hamt_torch.run import finetune
 from vln_hamt_torch.run.profile_attention import (
     bootstrap_mix, build_all, kernel_inputs, launch_mix, nvidia_smi, rel_err, time_backward,
     time_forward, weighted)
 from vln_hamt_torch.run.profile_eval import slice_config, slice_env
+from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
 
 B, H, DH = 32, 12, 64
 TRAIN_B = 8  # the r2r preset's training batch
@@ -174,6 +204,12 @@ FAMILY = ("rxr", "r4r")
 # one agent's logits against another's with the same weights, the same
 # kernels and the same inputs: only the order of host-issued work differs
 SAME_WEIGHTS_ATOL = 1e-6
+# pretraining: the JAX CLI's batch; its presets; timed updates of the
+# mix; the card-against-CPU batch
+PRETRAIN_B = 16
+PRETRAIN_PRESETS = ("r2r", "rxr")
+PRETRAIN_UPDATES = 30
+PRETRAIN_PARITY_B = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -358,17 +394,20 @@ def kernel_times(*parts):
 
 
 def summary_row(name, source, replaces, launches, max_err, rows, mix, batch, sample,
-                family):
+                family, pretrain):
     """The kernel's line of the summary: ``launches`` from the run of its
     main path, times and bound from ``rows`` timed at that path's batch
     and shapes, weighted by its launches per shape; ``sample``: its
     launches per merged and fused sample update and its times at the
     merged update's batch; ``family``: per family preset its launches in
     the family phase's merged updates and its times weighted by a merged
-    update's launches by shape and lanes."""
+    update's launches by shape and lanes; ``pretrain``: per pretraining
+    preset its launches per update of each task (and in the timed mix)
+    and its times weighted by the mix's launches by lanes and shape."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "batch": batch, "max_abs_err": max_err,
-            **kernel_times((rows, mix)), "sample": sample, "family": family}
+            **kernel_times((rows, mix)), "sample": sample, "family": family,
+            "pretrain": pretrain}
 
 
 def il_gradients(agent, ep):
@@ -469,6 +508,211 @@ def phase_family_kernels(dev, mixes):
                      results=rows, weighted=kernel_times((rows, mix)))
             out[task][b] = (frows, brows)
     return out, ferr, berr
+
+
+def lane_times(rows_by_shape, mix):
+    """kernel_times over a mix keyed by (lanes, Lq, Lk): one part per
+    lane count, its rows timed at those lanes."""
+    parts = []
+    for lanes in sorted({s[0] for s in mix}):
+        rows = [r for s, r in rows_by_shape.items() if s[0] == lanes]
+        parts.append((rows, {(s[1], s[2]): n for s, n in mix.items() if s[0] == lanes}))
+    return kernel_times(*parts)
+
+
+def mix_launches(mixes, shares):
+    """Expected launches per update of a task mix by (lanes, Lq, Lk),
+    forward and backward."""
+    fwd, bwd = {}, {}
+    for task, (f, b) in mixes.items():
+        for out, mix in ((fwd, f), (bwd, b)):
+            for shape, n in mix.items():
+                out[shape] = out.get(shape, 0.0) + shares[task] * n
+    return fwd, bwd
+
+
+def phase_pretrain_kernels(dev, pmixes):
+    """Both kernels at every pretraining shape and lanes of the presets in
+    ``pmixes`` ({preset: (per-task mixes, shares)}), against their plain
+    twins (fp32 and bf16, dropout off and on), timed in fp32 with dropout
+    off. Returns the timed rows by (lanes, Lq, Lk) per kernel and the
+    largest forward and backward errors."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    seed = 2**31 + 7
+    fshapes = sorted({s for mixes, _ in pmixes.values() for f, _ in mixes.values() for s in f})
+    bshapes = {s for mixes, _ in pmixes.values() for _, b in mixes.values() for s in b}
+    timed = {"attention_fwd": {}, "attention_bwd": {}}
+    ferr = berr = 0.0
+    for shape in fshapes:
+        lanes, lq, lk = shape
+        frows, brows = [], []
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, g = kernel_inputs(lanes, H, lq, lk, DH, dtype, gen, dev)
+            for rate in (0.0, 0.1):
+                where = f"pretrain lanes {lanes} ({lq},{lk})"
+                case = {"lanes": lanes, "lq": lq, "lk": lk, "dtype": dtype_name(dtype),
+                        "rate": rate}
+                timing = rate == 0.0 and dtype == torch.float32
+                err = check_fwd(q, k, v, m, seed, rate, where)
+                ferr = max(ferr, err)
+                frows.append({**case, "max_abs_err": err,
+                              **(time_forward(q, k, v, m) if timing else {})})
+                if shape not in bshapes:
+                    continue
+                errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+                berr = max(berr, err)
+                brows.append({**case, "rel_err": errs, "max_abs_err": err,
+                              **(time_backward(q, k, v, m, g) if timing else {})})
+        for name, rows in (("attention_fwd", frows), ("attention_bwd", brows)):
+            if rows:
+                row = rows[0]  # fp32, dropout off: the timed one
+                row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]))
+                timed[name][shape] = row
+                emit("kernels", kernel=name, pretrain_shape=[lanes, lq, lk], heads=H,
+                     head_dim=DH, results=rows)
+    for preset, (mixes, shares) in pmixes.items():
+        for name, mix in zip(("attention_fwd", "attention_bwd"), mix_launches(mixes, shares)):
+            emit("kernels", kernel=name, pretrain=preset, batch=PRETRAIN_B,
+                 launches_per_update={t: sum((f if name == "attention_fwd" else b).values())
+                                      for t, (f, b) in mixes.items()},
+                 weighted_over_mix=lane_times(timed[name], mix))
+    return timed, ferr, berr
+
+
+def pretrain_gradients(model, batch, task, table):
+    """Loss, metrics and named gradients of one task's forward on a host
+    batch, dropout off, no step; the gradients left cleared."""
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    loss, aux = model(batch_to_device(batch, table.device), task, table)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), {k: float(v.detach()) for k, v in aux.items()}, grads
+
+
+def counted_update(trainer, task, batch, want, what):
+    """One update of ``task`` from zeroed launch counts; raises unless it
+    launched exactly ``want`` (a (forward, backward) pair of mixes) or
+    its loss is not finite. Returns the loss."""
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, _ = trainer.update(task, batch)
+    loss = float(loss)
+    got = dict(attn.launch_counts)
+    per = {"attention_fwd": sum(want[0].values()), "attention_bwd": sum(want[1].values())}
+    if got != per or not math.isfinite(loss):
+        raise AssertionError(f"{what} {task}: launches {got}, expected {per}; loss {loss}")
+    return loss
+
+
+def phase_pretrain(pmixes, tmp):
+    """Pretraining at full r2r width, then its graft into fine-tuning, then
+    the rxr preset (see the module docstring). Returns the summary's
+    per-kernel pretraining fields (launches and the timed draw's mix)."""
+    mixes, _ = pmixes["r2r"]
+    trainer, val_batchers = slice_trainer("r2r", batch_size=PRETRAIN_B, seed=0)
+    cfg, tasks = trainer.cfg, trainer.scheduler.tasks
+    warm = {t: counted_update(trainer, t, trainer.batcher.batch(t, PRETRAIN_B), mixes[t],
+                              "pretrain r2r") for t in tasks}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [trainer.train_step() for _ in range(PRETRAIN_UPDATES)]
+    losses = torch.stack([loss for _, loss, _ in outs]).cpu()
+    seconds = time.perf_counter() - t0
+    launches = dict(attn.launch_counts)
+    trainer.close()  # the prefetch thread is done with the batcher
+    draw = [task for task, _, _ in outs]
+    want = {"attention_fwd": sum(sum(mixes[t][0].values()) for t in draw),
+            "attention_bwd": sum(sum(mixes[t][1].values()) for t in draw)}
+    if launches != want or not torch.isfinite(losses).all():
+        raise AssertionError(f"pretrain mix: launches {launches}, expected {want}; "
+                             f"losses {losses.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    draw_mix = mix_launches({t: mixes[t] for t in set(draw)},
+                            {t: draw.count(t) / len(draw) for t in set(draw)})
+
+    # card against CPU, dropout off, per task at batch 2
+    cpu_model = init_pretrain(cfg, seed=0)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    cpu_table = trainer._feat_table.cpu()
+    parity = {}
+    for task in tasks:
+        batch = trainer.batcher.batch(task, PRETRAIN_PARITY_B)
+        (loss_g, aux_g, grads_g), (loss_c, aux_c, grads_c) = (
+            pretrain_gradients(trainer.model, batch, task, trainer._feat_table),
+            pretrain_gradients(cpu_model, batch, task, cpu_table))
+        loss_err = abs(loss_g - loss_c) / abs(loss_c)
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"pretrain {task}: card vs CPU loss {loss_g} vs {loss_c}")
+        parity[task] = {"loss_cuda": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_err,
+                        "tensors": len(grads_c),
+                        "max_grad_err_over_tol": check_grads(grads_g, grads_c,
+                                                             f"pretrain {task}")}
+    del cpu_model, cpu_table
+
+    val = trainer.validate(val_batchers["unseen"])
+    if set(val) != set(tasks) or not all(
+            math.isfinite(v) for stats in val.values() for v in stats.values()):
+        raise AssertionError(f"pretrain validate: {val}")
+
+    path = os.path.join(tmp, f"model_step_{trainer.step}.pt")
+    trainer.save(path)
+    head = trainer.model.next_action.net[0].weight.detach().clone()
+    del trainer
+    torch.cuda.empty_cache()
+    fcfg, world = slice_config(TRAIN_B, seed=0)
+    agent = HAMTAgent(fcfg, slice_env(fcfg, world, seed=0), seed=1)
+    skipped = agent.init_from_pretrain(path)
+    if skipped or not torch.equal(agent.model.next_action.net[0].weight, head):
+        raise AssertionError(f"init_from_pretrain: skipped {skipped}, or the SAP head did "
+                             "not graft onto the action head")
+    agent.enable_feature_table()
+    greedy_eps, trajs = timed_greedy_batch(agent, sum(launch_mix(fcfg)[0].values()),
+                                           "pretrain graft")
+    del agent
+    emit("pretrain", preset="r2r", hidden=cfg.hidden_size,
+         layers=[cfg.num_l_layers, cfg.num_x_layers, cfg.num_h_pano_layers],
+         fix_lang_and_hist=[cfg.fix_lang_embedding, cfg.fix_hist_embedding], batch=PRETRAIN_B,
+         dropout=[cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob, cfg.feat_dropout],
+         warmup_losses=warm, updates=PRETRAIN_UPDATES, draw={t: draw.count(t) for t in tasks},
+         seconds=seconds, examples_per_s=PRETRAIN_UPDATES * PRETRAIN_B / seconds,
+         ms_per_update=seconds / PRETRAIN_UPDATES * 1e3, loss_mean=losses.mean().item(),
+         launches=launches, peak_mem_gb=peak,
+         launches_per_update={t: {"attention_fwd": sum(f.values()),
+                                  "attention_bwd": sum(b.values())}
+                              for t, (f, b) in mixes.items()},
+         parity={"batch": PRETRAIN_PARITY_B, "loss_rtol": TRAIN_LOSS_RTOL,
+                 "grad_rel_tol": TRAIN_GRAD_REL, "grad_floor": TRAIN_GRAD_FLOOR, **parity},
+         validate=val, checkpoint_tensors=len(torch.load(path, weights_only=True)) - 1,
+         graft={"skipped": skipped, "greedy_episodes": len(trajs),
+                "greedy_episodes_per_s": greedy_eps})
+
+    rmixes, _ = pmixes["rxr"]
+    trainer, _ = slice_trainer("rxr", batch_size=PRETRAIN_B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    rxr_losses = {t: counted_update(trainer, t, trainer.batcher.batch(t, PRETRAIN_B),
+                                    rmixes[t], "pretrain rxr") for t in trainer.scheduler.tasks}
+    rcfg = trainer.cfg
+    emit("pretrain", preset="rxr", vocab=rcfg.vocab_size, feat_dim=rcfg.image_feat_size,
+         no_lang_ca=rcfg.no_lang_ca, text_len=trainer.batcher.ds.max_txt_len,
+         ob_width=trainer.batcher.ds.ob_width, batch=PRETRAIN_B, losses=rxr_losses,
+         launches_per_update={t: {"attention_fwd": sum(f.values()),
+                                  "attention_bwd": sum(b.values())}
+                              for t, (f, b) in rmixes.items()},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return {name: {"batch": PRETRAIN_B, "updates": PRETRAIN_UPDATES,
+                   "launches": launches[name],
+                   "launches_per_update": {t: sum(m[i].values()) for t, m in mixes.items()},
+                   "rxr_launches_per_update": {t: sum(m[i].values())
+                                               for t, m in rmixes.items()},
+                   "mix": draw_mix[i]}
+            for i, name in enumerate(("attention_fwd", "attention_bwd"))}
 
 
 def greedy_batch(agent):
@@ -709,6 +953,10 @@ def main() -> int:
         boot_mixes[task] = bootstrap_mix(fcfg)
     family_kernels, ferr, berr = phase_family_kernels(dev, family_mixes)
     fwd_err, bwd_err = max(fwd_err, ferr), max(bwd_err, berr)
+    # and at the pretraining shapes and lanes of both presets
+    pretrain_mixes = {p: slice_mixes(p, PRETRAIN_B) for p in PRETRAIN_PRESETS}
+    pretrain_kernels, ferr, berr = phase_pretrain_kernels(dev, pretrain_mixes)
+    fwd_err, bwd_err = max(fwd_err, ferr), max(bwd_err, berr)
 
     # ------------------------------------------------------------- slice
     env = slice_env(cfg, world, seed=0)
@@ -943,6 +1191,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_files(tmp)
 
+    # ---------------------------------------------------------- pretrain
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrain_runs = phase_pretrain(pretrain_mixes, tmp)
+    pretrain = {}
+    for name, run in pretrain_runs.items():
+        rxr_mixes, rxr_shares = pretrain_mixes["rxr"]
+        rxr_mix = mix_launches(rxr_mixes, rxr_shares)[0 if name == "attention_fwd" else 1]
+        pretrain[name] = {
+            "r2r": {k: v for k, v in run.items() if k not in ("mix", "rxr_launches_per_update")}
+            | lane_times(pretrain_kernels[name], run["mix"]),
+            "rxr": {"launches_per_update": run["rxr_launches_per_update"]}
+            | lane_times(pretrain_kernels[name], rxr_mix)}
+
     sample = {
         name: {"launches_per_update": {"merged": merged_per[name], "fused": fused_per[name]},
                "batch": MERGED_B, **kernel_times((rows, m))}
@@ -967,11 +1228,11 @@ def main() -> int:
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel
                     slice_launches["attention_fwd"], fwd_err, fwd_rows, mix, B,
-                    sample["attention_fwd"], family["attention_fwd"]),
+                    sample["attention_fwd"], family["attention_fwd"], pretrain["attention_fwd"]),
         summary_row("attention_bwd", "vln_hamt_torch/csrc/attention_bwd.cu",
                     "vln_hamt_tpu/ops/attention.py:85",  # _attn_bwd_kernel
                     train_launches["attention_bwd"], bwd_err, bwd_rows, bwd_mix, TRAIN_B,
-                    sample["attention_bwd"], family["attention_bwd"]),
+                    sample["attention_bwd"], family["attention_bwd"], pretrain["attention_bwd"]),
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -161,8 +161,9 @@ def test_agent_init_from_reference_matches_jax(tiny_world, tmp_path, fmt):
 
 def test_reference_loader_guards(tmp_path):
     """A file with pickled objects other than tensors is refused (no
-    unpickling of code); so is a state dict with no NavCMT layer; and the
-    JAX pretrain pickle path raises, naming its ROADMAP item."""
+    unpickling of code); so is a state dict with no NavCMT layer, by
+    init_from_pretrain too (it reads port pretraining checkpoints through
+    the same loader)."""
     cfg = ModelConfig(**SIZES)
     model, critic = init_hamt(cfg, seed=3)
     path = str(tmp_path / "np.pt")
@@ -175,7 +176,7 @@ def test_reference_loader_guards(tmp_path):
         load_reference_checkpoint(path)
     world = make_synthetic_world(**WORLD)
     agent = HAMTAgent(tiny_cfg(HAMTConfig, world), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
+    with pytest.raises(ValueError, match="no NavCMT"):
         agent.init_from_pretrain(path)
 
 

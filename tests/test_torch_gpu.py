@@ -195,3 +195,35 @@ def test_backward_without_mask_gradient(cuda):
     want = tops.attention_bwd_reference(q.detach(), k.detach(), v.detach(), m, cot, 9, 0.1)
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert _rel_err(x, y) <= BWD_RTOL[torch.float32], name
+
+
+def test_pretraining_update_per_task_on_the_card(cuda):
+    """One tiny pretraining update of each task through both kernels:
+    exactly pretrain_launch_mix's launches, and the card's loss (dropout
+    off) against the CPU's on the same weights and batch."""
+    from vln_hamt_torch.pretrain import init_pretrain
+    from vln_hamt_torch.pretrain.model import batch_to_device
+    from vln_hamt_torch.run.profile_attention import pretrain_launch_mix
+    from vln_hamt_torch.run.profile_pretrain import slice_trainer
+
+    trainer, _ = slice_trainer("r2r", batch_size=4, device=cuda, extra=("--tiny",))
+    ds = trainer.batcher.ds
+    cpu = init_pretrain(trainer.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    cpu.eval()
+    for task in trainer.scheduler.tasks:
+        batch = trainer.batcher.batch(task, 4)
+        fwd, bwd = pretrain_launch_mix(trainer.cfg, task, 4, ds.max_txt_len, ds.max_hist_len,
+                                       ds.ob_width)
+        n0 = dict(tops.launch_counts)
+        trainer.update(task, batch)
+        torch.cuda.synchronize()
+        assert {k: tops.launch_counts[k] - n0[k] for k in n0} == {
+            "attention_fwd": sum(fwd.values()), "attention_bwd": sum(bwd.values())}, task
+        cpu.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+        trainer.model.eval()
+        with torch.no_grad():
+            got = trainer.model(batch_to_device(batch, cuda), task, trainer._feat_table)[0]
+            want = cpu(batch_to_device(batch, "cpu"), task, trainer._feat_table.cpu())[0]
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5, msg=task)
+    trainer.close()

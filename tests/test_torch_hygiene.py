@@ -10,6 +10,7 @@ import torch
 from vln_hamt_torch.agents.agent import HAMTAgent, resolve_device
 from vln_hamt_torch.configs import get_preset
 from vln_hamt_torch.run import finetune
+from vln_hamt_torch.run import pretrain
 
 ROOT = Path(__file__).resolve().parent.parent
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "vln_hamt_tpu"}
@@ -47,6 +48,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         finetune.main(["--valid_only", "--synthetic", "--tiny",
                        "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain.main(["--synthetic", "--tiny", "--output_dir", str(tmp_path)])
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -58,7 +61,7 @@ UNPORTED = {
     "bf16": ([], "A8"), "packed_il": ([], "A9"), "no_feat_table": ([], "A10"),
     "no_cand_backtrack": ([], "A10"), "sharded_feed": ([], "A13"),
     "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"), "orbax_ckpt": ([], "A13"),
-    "init_pretrain": (["p.pkl"], "A14"), "obj_ft_file": (["o.hdf5"], "A11"),
+    "obj_ft_file": (["o.hdf5"], "A11"),
     "remat": ([], "A19"), "remat_policy": (["dots"], "A19"), "rng_impl": (["rbg"], "A20"),
 }
 
@@ -80,6 +83,32 @@ def test_cli_flags_cover_the_jax_cli():
 
     assert vars(finetune.parse_args([])).keys() == vars(jax_finetune.parse_args([])).keys()
     assert set(UNPORTED) == set(finetune._UNPORTED_FLAGS)
+
+
+# every flag of the JAX pretraining CLI that the port does not run yet
+PRETRAIN_UNPORTED = {
+    "bf16": ([], "A8"), "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"),
+    "sharded_feed": ([], "A13"), "rng_impl": (["rbg"], "A20"),
+}
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in
+    PRETRAIN_UNPORTED.items()], ids=list(PRETRAIN_UNPORTED))
+def test_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
+        pretrain.main(argv + ["--cpu", "--tiny"])
+
+
+def test_pretrain_cli_flags_cover_the_jax_cli():
+    """The port's pretraining parser takes every flag of the JAX CLI's,
+    and --cpu."""
+    from vln_hamt_tpu.run import pretrain as jax_pretrain
+
+    assert vars(pretrain.parse_args([])).keys() == vars(jax_pretrain.parse_args([])).keys() | {"cpu"}
+    assert set(PRETRAIN_UNPORTED) == set(pretrain._UNPORTED_FLAGS)
+    with pytest.raises(ValueError, match="--train_traj_files --img_ft_file"):
+        pretrain.main(["--cpu"])
 
 
 def test_cli_real_data_needs_its_files():

@@ -20,7 +20,8 @@ trains (:meth:`HAMTAgent.train_iteration`):
 
 Every update clips the navigator's gradient at 40 (agent_cmt.py:597-601).
 Weights come from a seed, from a released reference checkpoint
-(:meth:`HAMTAgent.init_from_reference`) or from the agent's own
+(:meth:`HAMTAgent.init_from_reference`), from the port's pretraining
+(:meth:`HAMTAgent.init_from_pretrain`) or from the agent's own
 checkpoint (:meth:`HAMTAgent.save` / :meth:`HAMTAgent.load`, the CLI's
 ``--resume_file``). The whole R2R family (r2r, r2r_last, r4r, rxr) runs
 through this agent and the R2R reward of the device rollout.
@@ -448,9 +449,11 @@ class HAMTAgent:
         skipped names."""
         return self._install_params(*load_reference_checkpoint(path))
 
-    def init_from_pretrain(self, path: str) -> List[str]:
-        raise NotImplementedError("initializing from a run/pretrain.py checkpoint (a JAX "
-                                  "pickle) is ROADMAP item A14")
+    # a checkpoint of the port's run/pretrain.py is a reference pretrain
+    # ModelSaver file: the bert.* trunk, and the SAP head next_action,
+    # whose names are the action head's, so it grafts onto it (the JAX
+    # package's pretrain_to_finetune_params); the other heads are dropped
+    init_from_pretrain = init_from_reference
 
     # ------------------------------------------------------- checkpoints
     def save(self, path: str) -> None:

@@ -120,9 +120,48 @@ def params_from_flax(params: Tree, cfg: ModelConfig) -> Dict[str, np.ndarray]:
             _bert_layer(sd, f"hist_embeddings.pano_encoder.layer.{i}",
                         p["pano_encoder"][f"layer_{i}"])
 
-    _linear(sd, "next_action.net.0", p["act_dense1"])
-    _layernorm(sd, "next_action.net.2", p["act_ln"])
-    _linear(sd, "next_action.net.4", p["act_dense2"])
+    if "act_dense1" in p:  # a pretraining trunk has no action head
+        _mlp_head(sd, "next_action", p["act_dense1"], p["act_ln"], p["act_dense2"], 4)
+    return sd
+
+
+def _mlp_head(sd: Dict, torch_name: str, dense1: Tree, ln: Tree, dense2: Tree,
+              last: int) -> None:
+    """dense -> ReLU -> LN [-> dropout] -> dense as an ``nn.Sequential``
+    named ``net``: net.0, net.2 and net.``last`` (4 with the dropout, 3
+    without; pretrain_cmt.py:13-71)."""
+    _linear(sd, f"{torch_name}.net.0", dense1)
+    _layernorm(sd, f"{torch_name}.net.2", ln)
+    _linear(sd, f"{torch_name}.net.{last}", dense2)
+
+
+#: the pretraining heads of ``MultiStepNavCMTPreTraining`` built as
+#: dense -> ReLU -> LN [-> dropout] -> dense, with the index of their last
+#: dense (pretrain_cmt.py:73-99)
+PRETRAIN_MLP_HEADS = (("next_action", 4), ("regress_action", 4), ("sprel_head", 4),
+                      ("image_classifier", 3), ("itm_head", 3))
+
+
+def pretrain_params_from_flax(params: Tree, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """flax ``HAMTPretrain`` params -> the port's ``HAMTPretrain`` state
+    dict, the names of the reference's ``MultiStepNavCMTPreTraining``
+    (so also a reference pretrain ``ModelSaver`` file): the trunk under
+    ``bert.`` with NavCMT names, ``mlm_head.predictions.{transform.dense,
+    transform.LayerNorm, bias}`` (the decoder is tied to the word
+    embeddings and carries no weight of its own), and the MLP heads. The
+    exact inverse of ``vln_hamt_tpu/models/convert.py:
+    convert_reference_pretrain_state_dict``; heads absent from
+    ``params`` are left out."""
+    sd = {"bert." + k: v for k, v in params_from_flax(params["hamt"], cfg).items()}
+    if "mlm_head" in params:
+        mh = params["mlm_head"]
+        _linear(sd, "mlm_head.predictions.transform.dense", mh["transform_dense"])
+        _layernorm(sd, "mlm_head.predictions.transform.LayerNorm", mh["transform_ln"])
+        sd["mlm_head.predictions.bias"] = _arr(mh["bias"])
+    for name, last in PRETRAIN_MLP_HEADS:
+        if name in params:
+            h = params[name]
+            _mlp_head(sd, name, h["dense1"], h["ln"], h["dense2"], last)
     return sd
 
 
@@ -149,6 +188,60 @@ def adam_state_from_flax(count, mu: Tree, nu: Tree,
     a port run continue from the same step.
     """
     return {"count": int(np.asarray(count)), "mu": convert(mu), "nu": convert(nu)}
+
+
+# ----------------------------------------------------------------------
+# HuggingFace text encoders
+
+def _hf_text_names(num_l_layers: int) -> List[str]:
+    """The text embeddings and first ``num_l_layers`` BertLayers, the
+    part of a HuggingFace BERT (or XLM-R) that initializes the trunk;
+    HF and NavCMT use the same names for them."""
+    names = [f"embeddings.{e}.weight" for e in
+             ("word_embeddings", "position_embeddings", "token_type_embeddings")]
+    names += ["embeddings.LayerNorm.weight", "embeddings.LayerNorm.bias"]
+    for i in range(num_l_layers):
+        pre = f"encoder.layer.{i}"
+        for lin in ("attention.self.query", "attention.self.key", "attention.self.value",
+                    "attention.output.dense", "intermediate.dense", "output.dense"):
+            names += [f"{pre}.{lin}.weight", f"{pre}.{lin}.bias"]
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            names += [f"{pre}.{ln}.weight", f"{pre}.{ln}.bias"]
+    return names
+
+
+def convert_hf_bert_state_dict(sd: Mapping[str, Any], num_l_layers: int = 9
+                               ) -> Dict[str, np.ndarray]:
+    """A HuggingFace bert-base state dict -> the trunk's partial state
+    dict (NavCMT names, float32 numpy): the text embeddings and the first
+    ``num_l_layers`` layers, the reference's BERT init
+    (``pretrain_src/main_r2r.py:131-144``), to merge over the trunk. The
+    port's form of ``vln_hamt_tpu/models/convert.py:
+    convert_hf_bert_state_dict``; a name it needs and ``sd`` lacks raises
+    KeyError, as there."""
+    sd = {k.replace("bert.", ""): v for k, v in sd.items()}
+    return {k: _arr(sd[k]) for k in _hf_text_names(num_l_layers)}
+
+
+def convert_hf_xlmr_state_dict(sd: Mapping[str, Any], num_l_layers: int = 9,
+                               max_position_embeddings: Optional[int] = None
+                               ) -> Dict[str, np.ndarray]:
+    """A HuggingFace xlm-roberta-base state dict -> the trunk's partial
+    state dict (RxR text), as :func:`convert_hf_bert_state_dict` plus the
+    reference's XLM init (``main_r2r.py:131-143``): the single token-type
+    row duplicated to 2 (the second is the image tokens' type), and
+    XLM-R's position table (514 rows, a +2 padding offset) left out
+    unless its row count is ``max_position_embeddings``: the reference's
+    name-matched load skips it on the shape mismatch."""
+    sd = {k.replace("roberta.", ""): v for k, v in sd.items()}
+    out = convert_hf_bert_state_dict(sd, num_l_layers)
+    tte = out["embeddings.token_type_embeddings.weight"]
+    if tte.shape[0] == 1:
+        out["embeddings.token_type_embeddings.weight"] = np.concatenate([tte, tte], axis=0)
+    pos = out["embeddings.position_embeddings.weight"]
+    if max_position_embeddings is not None and pos.shape[0] != max_position_embeddings:
+        del out["embeddings.position_embeddings.weight"]
+    return out
 
 
 # ----------------------------------------------------------------------

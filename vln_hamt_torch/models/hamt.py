@@ -16,13 +16,20 @@ methods:
                                  (mode='visual'); history arrives as a fixed
                                  (B, T_max+1, D) cache with a length mask.
 
+Pretraining (``pretrain/model.py``) reads the whole history at once
+through :meth:`HAMT.encode_history_seq`, :meth:`HAMT.apply_hist_pos`,
+:meth:`HAMT.run_h_layers` and :meth:`HAMT.fuse`, which share their
+parameters with the per-step methods; its trunk is built without the
+action head (``action_head=False``), whose pretraining twin is a head
+of its own.
+
 The model runs fp32. ``.train()`` turns on the dropouts of the JAX
 package (hidden, attention-probability, feature, action-head and critic
 dropout; see ``models/layers.py`` for where the random draws come
 from), ``.eval()`` turns them off. The ``fix_*`` flags stop gradients as
 the JAX package's ``stop_gradient`` calls do, by running the frozen part
 under ``torch.no_grad()`` (same gradients, no saved activations).
-``plan_ref``, ``encode_history_seq`` and ``fuse`` wait for later slices.
+``plan_ref`` waits for a later slice (ROADMAP item A11).
 """
 
 from __future__ import annotations
@@ -127,21 +134,25 @@ class HistoryEmbeddings(nn.Module):
             self.pano_encoder = TransformerStack(cfg, cfg.num_h_pano_layers)
 
 
-class NextActionPrediction(nn.Module):
-    """Action head (vilmodel_cmt.py:597-607): net.0 dense, net.1 ReLU,
-    net.2 LN, net.3 dropout, net.4 dense."""
+class MLP2Head(nn.Module):
+    """dense -> ReLU -> LN -> [dropout ->] dense, as ``net``: the action
+    head (NextActionPrediction, vilmodel_cmt.py:597-607) and the
+    pretraining heads (pretrain_cmt.py:13-71); net.0, net.2 and net.4, or
+    net.3 without the dropout."""
 
-    def __init__(self, d: int, dropout: float):
+    def __init__(self, d_in: int, d: int, out: int, dropout: Optional[float]):
         super().__init__()
-        self.net = nn.Sequential(nn.Linear(d, d), nn.ReLU(), _ln(d), Dropout(dropout),
-                                 nn.Linear(d, 1))
+        layers = [nn.Linear(d_in, d), nn.ReLU(), _ln(d)]
+        if dropout is not None:
+            layers.append(Dropout(dropout))
+        self.net = nn.Sequential(*layers, nn.Linear(d, out))
 
     def forward(self, x):
         return self.net(x)
 
 
 class HAMT(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, action_head: bool = True):
         super().__init__()
         if cfg.dtype != "float32":
             raise NotImplementedError(
@@ -152,7 +163,8 @@ class HAMT(nn.Module):
         self.encoder = Encoder(cfg)
         self.img_embeddings = ImageEmbeddings(cfg)
         self.hist_embeddings = HistoryEmbeddings(cfg)
-        self.next_action = NextActionPrediction(cfg.hidden_size, cfg.pred_head_dropout_prob)
+        d = cfg.hidden_size
+        self.next_action = MLP2Head(d, d, 1, cfg.pred_head_dropout_prob) if action_head else None
         self.hidden_dropout = Dropout(cfg.hidden_dropout_prob)
         self.feat_drop = Dropout(cfg.feat_dropout)  # visual features (model_HAMT.py:18)
 
@@ -215,6 +227,68 @@ class HAMT(nn.Module):
                 emb = emb + pano.mean(dim=1)
             return self.hidden_dropout(he.layer_norm(emb))
 
+    def encode_history_seq(
+        self,
+        hist_img: torch.Tensor,  # (B, T, D_img)
+        hist_ang: torch.Tensor,  # (B, T, A)
+        pano_img: Optional[torch.Tensor] = None,  # (B, T, V, D_img)
+        pano_ang: Optional[torch.Tensor] = None,  # (B, T, V, A)
+        pos_ids: Optional[torch.Tensor] = None,  # (B, T); None: no position
+    ) -> torch.Tensor:
+        """The whole history at once, for pretraining (pretrain
+        vilmodel.py HistoryEmbeddings.forward, :540-575). The panorama
+        encoder runs over the (B*T, V, D) stack of every step, padded
+        steps included (they carry zero features, not a mask).
+
+        With ``pos_ids=None`` returns the position-free base embedding
+        (ITM's shuffled-order negatives reuse it); :meth:`apply_hist_pos`
+        adds the positions."""
+        he = self.hist_embeddings
+        b, t = hist_img.shape[:2]
+        type_ids = torch.zeros((b, t), dtype=torch.long, device=hist_img.device)
+        emb = (he.img_layer_norm(he.img_linear(self.feat_drop(hist_img)))
+               + he.ang_layer_norm(he.ang_linear(hist_ang))
+               + he.type_embedding(type_ids))
+        if self.config.hist_enc_pano and pano_img is not None:
+            pano = (he.pano_img_layer_norm(he.pano_img_linear(self.feat_drop(pano_img)))
+                    + he.pano_ang_layer_norm(he.pano_ang_linear(pano_ang)))
+            v = pano.shape[2]
+            pano = he.pano_encoder(pano.reshape(b * t, v, -1), None)
+            emb = emb + pano.view(b, t, v, -1).mean(dim=2)
+        if pos_ids is None:
+            return emb
+        return self.apply_hist_pos(emb, pos_ids)
+
+    def apply_hist_pos(self, base_emb: torch.Tensor, pos_ids: torch.Tensor) -> torch.Tensor:
+        """Position, LayerNorm and dropout over a position-free history
+        embedding (pretrain vilmodel.py:568-571; ITM's shuffles :702-704)."""
+        he = self.hist_embeddings
+        return self.hidden_dropout(he.layer_norm(base_emb + he.position_embeddings(pos_ids)))
+
+    def run_h_layers(self, hist_tokens: torch.Tensor, hist_mask: torch.Tensor) -> torch.Tensor:
+        """The history-only stack, if the model has one."""
+        if self.encoder.h_layers is None:
+            return hist_tokens
+        return run_layers(self.encoder.h_layers, hist_tokens, extend_mask(hist_mask))
+
+    def fuse(self, txt_embeds: torch.Tensor, txt_mask: torch.Tensor, visn: torch.Tensor,
+             visn_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cross-modal stack over any embedded visual stream (pretrain
+        path: LxmertEncoder.forward, vilmodel.py:486-494). ``txt_embeds``
+        is (B, L, D), or under ``no_lang_ca`` the (X+1, B, L, D) stack of
+        :meth:`encode_text`, whose layer ``i`` reads state ``i``; masks
+        are (B, L) and (B, M) booleans. Returns (text, visual) outputs."""
+        return self._x_layers(txt_embeds, extend_mask(txt_mask), visn, extend_mask(visn_mask))
+
+    def _x_layers(self, txt_embeds, ext_txt, visn, ext_visn):
+        no_lang_ca = self.config.no_lang_ca
+        lang = txt_embeds[0] if no_lang_ca else txt_embeds
+        for li, layer in enumerate(self.encoder.x_layers):
+            if no_lang_ca:
+                lang = txt_embeds[li]
+            lang, visn = layer(lang, ext_txt, visn, ext_visn)
+        return lang, visn
+
     # ------------------------------------------------------------------
     def embed_obs(self, ob_img, ob_ang, ob_nav) -> torch.Tensor:
         """ImageEmbeddings (vilmodel_cmt.py:498-521): obs token type = 1."""
@@ -261,11 +335,7 @@ class HAMT(nn.Module):
         visn = torch.cat([hist, ob], dim=1)
         visn_mask = torch.cat([ext_hist, ext_ob], dim=-1)
 
-        lang = txt_embeds[0] if cfg.no_lang_ca else txt_embeds
-        for li, layer in enumerate(enc.x_layers):
-            if cfg.no_lang_ca:
-                lang = txt_embeds[li]
-            lang, visn = layer(lang, ext_txt, visn, visn_mask)
+        lang, visn = self._x_layers(txt_embeds, ext_txt, visn, visn_mask)
 
         hist_out = visn[:, :h]
         ob_out = visn[:, h:]

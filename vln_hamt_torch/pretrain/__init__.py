@@ -1,0 +1,21 @@
+"""Proxy-task pretraining (torch), the port of ``vln_hamt_tpu/pretrain``:
+the trajectory data and task batchers (numpy copies), the pretraining
+model, the optimizer zoo and the trainer. Image pretraining
+(``image_model``, ``image_data``) is ROADMAP items A15 and A16."""
+
+from .model import HAMTPretrain, expand_index_batch, init_pretrain
+from .tasks import TASK_NAMES, PretrainBatcher
+from .trainer import PretrainTrainer, TaskScheduler
+from .trajectory_data import TrajectoryDataset, make_synthetic_trajectories
+
+__all__ = [
+    "HAMTPretrain",
+    "expand_index_batch",
+    "init_pretrain",
+    "TrajectoryDataset",
+    "make_synthetic_trajectories",
+    "PretrainBatcher",
+    "TASK_NAMES",
+    "PretrainTrainer",
+    "TaskScheduler",
+]

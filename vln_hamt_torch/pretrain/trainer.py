@@ -1,0 +1,225 @@
+"""Multi-task pretraining loop (torch), the port of
+``vln_hamt_tpu/pretrain/trainer.py``.
+
+Parity target: ``pretrain_src/main_r2r.py:231-316`` (training with
+mix-ratio task sampling, gradient accumulation, warmup-linear LR,
+periodic per-task validation) and ``pretrain_src/data/loader.py``
+(MetaLoader). As in the JAX package the task schedule is a pure function
+of (seed, step) and gradient accumulation is ``optax.MultiSteps``'s
+(``agents/optim.py``).
+
+Each update builds its batch on the host (numpy only, in a one-worker
+thread that prepares batch k+1 while the device trains on batch k),
+ships it (index mode: table rows and small arrays), gathers the features
+on the device from the resident table, runs the task's forward and
+backward through the attention kernels and steps the optimizer. No CUDA
+call is made from the worker thread.
+"""
+
+from __future__ import annotations
+
+import zlib
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..agents.agent import resolve_device
+from ..configs import ModelConfig
+from ..models.convert import pretrain_params_from_flax
+from ..models.layers import DropoutRNG, set_dropout_rng
+from .model import HAMTPretrain, batch_to_device, init_pretrain
+from .optim import build_pretrain_optimizer, warmup_linear_schedule
+from .tasks import TASK_NAMES, PretrainBatcher
+
+
+# the reference's pretraining defaults, as the JAX trainer's
+GRAD_NORM = 5.0  # global-norm clip
+WEIGHT_DECAY = 0.01
+VAL_SEED = 1234  # validation's masking and negative-sampling streams
+
+
+class TaskScheduler:
+    """Deterministic mix-ratio task sampling (loader.py:18-59): the task
+    of step k is a pure function of (seed, k), the JAX package's draw."""
+
+    def __init__(self, tasks: Sequence[str], mix_ratio: Sequence[float], seed: int = 0):
+        if len(tasks) != len(mix_ratio):
+            raise ValueError(f"{len(tasks)} tasks but {len(mix_ratio)} mix ratios")
+        self.tasks = list(tasks)
+        p = np.asarray(mix_ratio, np.float64)
+        self.p = p / p.sum()
+        self.seed = seed
+
+    def sample(self, step: int) -> str:
+        rng = np.random.default_rng((self.seed << 20) + step)
+        return self.tasks[int(rng.choice(len(self.tasks), p=self.p))]
+
+
+class PretrainTrainer:
+    """Pretraining of a :class:`HAMTPretrain` on ``device`` (the card
+    unless told otherwise). ``optim`` names the zoo's optimizer
+    (``pretrain/optim.py``); ``feat_table`` (N, 36, D + P), when given,
+    lives on the device and the batchers' datasets must be in index mode
+    (``TrajectoryDataset.set_feat_offsets``)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        batcher: PretrainBatcher,
+        tasks: Sequence[str] = TASK_NAMES,
+        mix_ratio: Sequence[float] = (5, 1, 1, 1, 2, 2),  # pretrain_r2r.json
+        batch_size: int = 16,
+        lr: float = 5e-5,
+        warmup_steps: int = 10_000,
+        total_steps: int = 200_000,
+        grad_accum: int = 1,
+        seed: int = 0,
+        optim: str = "adamw",
+        feat_table: Optional[np.ndarray] = None,
+        device=None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.batcher = batcher
+        self.batch_size = batch_size
+        self.scheduler = TaskScheduler(tasks, mix_ratio, seed)
+        self._feat_table = (None if feat_table is None
+                            else torch.as_tensor(feat_table, device=self.device))
+        self.model: HAMTPretrain = init_pretrain(cfg, seed).to(self.device)
+        # dropout masks on the device, the attention kernels' seeds on the host
+        self.dropout_rng = DropoutRNG(self.device, seed + 99)
+        set_dropout_rng(self.model, self.dropout_rng)
+        self._opt_args = dict(name=optim, lr=warmup_linear_schedule(lr, warmup_steps,
+                                                                     total_steps),
+                              weight_decay=WEIGHT_DECAY, grad_norm=GRAD_NORM,
+                              grad_accum=grad_accum)
+        self.optimizer = build_pretrain_optimizer(model=self.model, **self._opt_args)
+        self.step = 0
+        # one-worker prefetch: batch k+1 is built on a host thread while
+        # the device trains on batch k (the reference's PrefetchLoader,
+        # pretrain_src/data/loader.py:90-124); numpy only there
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._next_batch = None
+
+    # ------------------------------------------------------------------
+    def set_params(self, state_dict: Mapping[str, Any]) -> None:
+        """Install weights (a full state dict of the model, tensors or
+        numpy arrays) before training, as the JAX trainer's
+        ``set_params``: the optimizer starts fresh (lookahead's slow
+        weights are copies of these), the step count stays."""
+        self.model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()},
+                                   strict=True)
+        self.optimizer = build_pretrain_optimizer(model=self.model, **self._opt_args)
+
+    def load_flax_params(self, params: Mapping) -> None:
+        """Install the JAX package's flax ``HAMTPretrain`` params (nested
+        dicts of numpy arrays)."""
+        self.set_params(pretrain_params_from_flax(params, self.cfg))
+
+    def save(self, path: str) -> None:
+        """The model's state dict (a reference pretrain ``ModelSaver``
+        file: ``bert.*``, ``mlm_head.*``, the heads) plus ``step``; under
+        lookahead the fast weights. Loads with ``weights_only=True``."""
+        torch.save({**self.model.state_dict(), "step": self.step}, path)
+
+    def resume(self, path: str) -> int:
+        """Weights and step from a :meth:`save` file (the reference's
+        --checkpoint, main_r2r.py:145-148); a fresh optimizer."""
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        step = int(blob.pop("step"))
+        self.set_params(blob)
+        self.step = step
+        return step
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+    # ------------------------------------------------------------------
+    def _build_batch(self, step: int) -> Tuple[str, Dict[str, np.ndarray]]:
+        task = self.scheduler.sample(step)
+        if task == "itm" and self.batch_size < 2:
+            # in-batch ITM negatives need >= 2 items; the reference skips
+            # these batches (main_r2r_image.py:239-246), this resamples
+            task = next(t for t in self.scheduler.tasks if t != "itm")
+        return task, self.batcher.batch(task, self.batch_size)
+
+    def next_batch(self) -> Tuple[str, Dict[str, np.ndarray]]:
+        """The host batch of the current step (prefetched), and the next
+        step's put in preparation."""
+        if self._next_batch is None:
+            self._next_batch = self._pool.submit(self._build_batch, self.step)
+        task, batch = self._next_batch.result()
+        self._next_batch = self._pool.submit(self._build_batch, self.step + 1)
+        return task, batch
+
+    def update(self, task: str, batch: Dict[str, np.ndarray]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One optimizer step (or micro-batch under ``grad_accum``) on a
+        host batch of ``task``, in training mode. Returns the loss and the
+        metrics, detached device tensors; the host does not wait."""
+        self.model.train()
+        loss, aux = self.model(batch_to_device(batch, self.device), task, self._feat_table)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def train_step(self) -> Tuple[str, torch.Tensor, Dict[str, torch.Tensor]]:
+        """One scheduled update: its task, loss and metrics. The loss and
+        metrics are device tensors and the host runs ahead; convert them
+        at logging points only."""
+        task, batch = self.next_batch()
+        return (task, *self.update(task, batch))
+
+    @torch.no_grad()
+    def evaluate(self, task: str, batch: Dict[str, np.ndarray]
+                 ) -> Tuple[float, Dict[str, float]]:
+        """The task's loss and metrics on a host batch, dropout off."""
+        self.model.eval()
+        loss, aux = self.model(batch_to_device(batch, self.device), task, self._feat_table)
+        return float(loss), {k: float(v) for k, v in aux.items()}
+
+    def validate(self, val_batcher: PretrainBatcher) -> Dict[str, Dict[str, float]]:
+        """Per-task validation (main_r2r.py:319-511 validators).
+
+        Every task walks its whole split in a fixed order, the last
+        partial batch wrap-padded with its duplicated rows weighted 0
+        (``ex_valid``), so each example counts once; batch metrics are
+        averaged weighted by their example counts, and the masking and
+        negative-sampling stream is re-seeded per task (from
+        ``VAL_SEED``), so the numbers do not depend on earlier draws.
+        """
+        out = {}
+        for task in self.scheduler.tasks:
+            if task == "itm" and self.batch_size < 2:
+                continue
+            saved_rng = val_batcher.rng
+            # crc32, not hash(): str hashing is salted per process
+            val_batcher.rng = np.random.default_rng(
+                (VAL_SEED << 8) + zlib.crc32(task.encode()) % 251)
+            try:
+                n_ex = val_batcher.n_examples(task)
+                sums: Dict[str, float] = defaultdict(float)
+                wsum = 0.0
+                for bi in range(max(1, -(-n_ex // self.batch_size))):
+                    refs = val_batcher.ordered_refs(task, bi * self.batch_size, self.batch_size)
+                    batch = val_batcher.batch(task, self.batch_size, refs=refs)
+                    n_valid = min(self.batch_size, n_ex - bi * self.batch_size)
+                    batch["ex_valid"] = np.arange(self.batch_size) < n_valid
+                    loss, aux = self.evaluate(task, batch)
+                    w = aux.get("n", float(self.batch_size)) or 1.0
+                    sums["loss"] += loss * w
+                    for k, v in aux.items():
+                        sums[k] += v * w
+                    wsum += w
+                vals = {k: v / wsum for k, v in sums.items()}
+                if "n" in vals:
+                    vals["n"] = wsum  # total examples, not a mean of n
+                out[task] = vals
+            finally:
+                val_batcher.rng = saved_rng
+        return out

@@ -3,7 +3,8 @@ port of ``vln_hamt_tpu/run/finetune.py``.
 
     python -m vln_hamt_torch.run.finetune --task r2r|r2r_last|r4r|rxr \\
         --anno_dir DIR --connectivity_dir DIR --img_ft_file FILE.hdf5 \\
-        [--aug AUG.json] [--init_ref_ckpt REF.pt] [--resume_file latest.pt] \\
+        [--aug AUG.json] [--init_pretrain P.pt | --init_ref_ckpt REF.pt] \\
+        [--resume_file latest.pt] \\
         [--eval_first] [--feedback teacher] [--no_merged_sample] [--iters N --log_every K]
     python -m vln_hamt_torch.run.finetune --task rxr --synthetic [--valid_only] ...
 
@@ -12,9 +13,11 @@ CPU through the plain attention; ``--tiny`` shrinks the model and
 episodes), over the reference's files (Matterport connectivity, the
 task's annotation files, HDF5 panorama features) or, with
 ``--synthetic``, over a hermetic fixture world with the preset's feature
-width. Weights start from a seed, from a released reference checkpoint
-(``--init_ref_ckpt``: an agent save or a pretrain ``ModelSaver`` state
-dict) and/or from a port checkpoint (``--resume_file``, which wins).
+width. Weights start from a seed, from a port pretraining checkpoint
+(``--init_pretrain``, ``run/pretrain.py``'s ``model_step_N.pt``) or a
+released reference checkpoint (``--init_ref_ckpt``: an agent save or a
+pretrain ``ModelSaver`` state dict), and/or from a port checkpoint
+(``--resume_file``, which wins).
 
 Training takes ``--iters`` updates with the preset's ``sample`` feedback
 (IL plus A2C on a sampling rollout; merged, or fused with
@@ -66,7 +69,7 @@ def _check_task(task: str) -> None:
 _UNPORTED_FLAGS = {
     "bf16": "A8", "packed_il": "A9", "no_feat_table": "A10", "no_cand_backtrack": "A10",
     "sharded_feed": "A13", "data_shards": "A13", "model_shards": "A13",
-    "orbax_ckpt": "A13", "init_pretrain": "A14", "obj_ft_file": "A11",
+    "orbax_ckpt": "A13", "obj_ft_file": "A11",
     "remat": "A19", "remat_policy": "A19", "rng_impl": "A20",
 }
 
@@ -205,7 +208,8 @@ def _merge_preds(preds: List[dict]) -> List[dict]:
 def _apply_weight_init(agent: HAMTAgent, init_ref_ckpt: Optional[str],
                        record_file: Optional[str] = None) -> None:
     """Weights from a released reference torch checkpoint
-    (vlnbert_init.py:20-31), reporting what did not fit."""
+    (vlnbert_init.py:20-31) or a port pretraining checkpoint, which has
+    the same format, reporting what did not fit."""
     if not init_ref_ckpt:
         return
     skipped = agent.init_from_reference(init_ref_ckpt)
@@ -244,8 +248,8 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
         train_env, aug_env = train_env
     agent = _AGENT_CLS[dataset](cfg, train_env, seed=cfg.train.seed, device=device)
     agent.merged_sample_update = merged_sample
-    # reference weights first, then the feature table, then a resumed
-    # checkpoint, which wins
+    # reference or pretrained weights first, then the feature table, then
+    # a resumed checkpoint, which wins
     _apply_weight_init(agent, init_ref_ckpt, record_file)
     _share_feature_table(agent, train_env,
                          ([aug_env] if aug_env is not None else []) + list(val_envs.values()))
@@ -376,10 +380,13 @@ def parse_args(argv=None):
                         "the weights to evaluate with --valid_only, or to resume "
                         "training from (the optimizers too if the config says "
                         "resume_optimizer)")
-    p.add_argument("--init_pretrain", default=None)
-    p.add_argument("--init_ref_ckpt", default=None,
-                   help="released reference torch checkpoint (agent save or pretrain "
-                        "ModelSaver state dict) to initialize weights from")
+    init = p.add_mutually_exclusive_group()
+    init.add_argument("--init_pretrain", default=None,
+                      help="a checkpoint of this port's run/pretrain.py (model_step_N.pt): "
+                           "the trunk, with the SAP head grafted onto the action head")
+    init.add_argument("--init_ref_ckpt", default=None,
+                      help="released reference torch checkpoint (agent save or pretrain "
+                           "ModelSaver state dict) to initialize weights from")
     p.add_argument("--eval_first", action="store_true")
     p.add_argument("--valid_only", action="store_true",
                    help="skip training; greedy evaluation of the val/test splits "
@@ -423,6 +430,8 @@ def main(argv=None):
         raise ValueError("real-data runs need --anno_dir --connectivity_dir --img_ft_file "
                          "(or pass --synthetic)")
     device = resolve_device("cpu" if args.cpu else None)
+    # a port pretraining checkpoint is a reference pretrain ModelSaver file
+    init_ckpt = args.init_ref_ckpt or args.init_pretrain
 
     cfg = get_preset(args.task)
     overrides = {key: getattr(args, key) for key in ("batch_size", "lr", "feedback")
@@ -449,7 +458,7 @@ def main(argv=None):
 
     if args.valid_only:
         results = valid(cfg, args.resume_file, val_envs, args.output_dir, submit=args.submit,
-                        init_ref_ckpt=args.init_ref_ckpt, device=device)
+                        init_ref_ckpt=init_ckpt, device=device)
         print(json.dumps({"valid": results}, default=float))
         return results
 
@@ -458,7 +467,7 @@ def main(argv=None):
     best = train(cfg, train_env, train_val_envs, args.output_dir, iters=args.iters,
                  log_every=args.log_every, eval_first=args.eval_first,
                  resume_file=args.resume_file, merged_sample=not args.no_merged_sample,
-                 init_ref_ckpt=args.init_ref_ckpt, device=device)
+                 init_ref_ckpt=init_ckpt, device=device)
     print(json.dumps({"best": best}, default=float))
     return best
 

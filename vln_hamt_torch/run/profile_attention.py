@@ -145,6 +145,77 @@ def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
     return fwd, +bwd
 
 
+#: pretraining tasks whose loss reads the text output, and the visual
+#: output (pretrain/model.py)
+PRETRAIN_TXT_TASKS = ("mlm", "sar", "sap", "itm")
+PRETRAIN_VISN_TASKS = ("mrc", "sap", "sprel", "itm")
+
+
+def pretrain_launch_mix(mcfg, task: str, batch: int, txt_len: int, hist_len: int,
+                        ob_width: int = 37, itm_candidates: int = 5
+                        ) -> Tuple[collections.Counter, collections.Counter]:
+    """Attention launches of one pretraining update of ``task`` by
+    (lanes, Lq, Lk), forward and backward (``pretrain/model.py``);
+    ``ob_width`` is the dataset's observation width (37, or more under
+    the candidate-first layout), which SpRel does not take (it always
+    reads the 37-token pano layout).
+
+    The forward: the text stack at ``batch`` lanes (under ``no_lang_ca``
+    with the cross-modal layers' language half); the panorama encoder
+    over every history step, ``batch * hist_len`` lanes of 36 x 36; the
+    history-only stack, once per history order (ITM: the positive and its
+    shuffles); and the cross-modal stack over [CLS + history (+ the
+    observation for SAP, SAR and SpRel)] against the text, at ``batch``
+    lanes, or ``itm_candidates * batch`` for ITM's (1 + K) x B pairs.
+    The backward: what reaches the task's loss. A task that reads only
+    the text output (MLM, SAR) leaves the last cross-modal layer's visual
+    half out, one that reads only the visual output (MRC, SpRel) its
+    language half; under ``no_lang_ca`` the visual stream reaches the
+    loss only through the visual output, so MLM and SAR train neither it
+    nor the history, while the language half runs backward in full (its
+    last layer's output, which no layer reads, takes a zero gradient
+    through the stacked states, as in fine-tuning). ``fix_lang_embedding``
+    keeps the text stack out, as in fine-tuning; ``fix_hist_embedding``
+    does not freeze the history stacks here (the JAX package's
+    ``encode_history_seq`` has no stop_gradient)."""
+    l_txt, t = txt_len, hist_len
+    ob = {"sprel": 37, "sap": ob_width, "sar": ob_width}.get(task, 0)
+    m = t + 1 + ob
+    xb = batch * itm_candidates if task == "itm" else batch
+    n_l, n_x, n_h = mcfg.num_l_layers, mcfg.num_x_layers, mcfg.num_h_layers
+    n_p = mcfg.num_h_pano_layers if mcfg.hist_enc_pano else 0
+    uses_txt, uses_visn = task in PRETRAIN_TXT_TASKS, task in PRETRAIN_VISN_TASKS
+    text_frozen = mcfg.fix_lang_embedding or not mcfg.update_lang_bert
+    # history orders through the history-only stack: ITM's positive and
+    # its shuffles (the in-batch negatives, 2 from a batch of 2 or more,
+    # reuse the positive's)
+    orders = itm_candidates - (2 if batch > 1 else 0) if task == "itm" else 1
+    fwd, bwd = collections.Counter(), collections.Counter()
+    fwd[(batch, l_txt, l_txt)] += n_l + (n_x if mcfg.no_lang_ca else 0)
+    fwd[(batch * t, 36, 36)] += n_p
+    fwd[(batch, t + 1, t + 1)] += n_h * orders
+    if mcfg.no_lang_ca:
+        cross = {(xb, m, l_txt): "visn", (xb, m, m): "visn"}
+        hist_grad = uses_visn
+        bwd[(batch, l_txt, l_txt)] += (0 if text_frozen else n_l) + n_x
+        for shape in cross:
+            fwd[shape] += n_x
+            bwd[shape] += n_x if uses_visn else 0
+    else:
+        cross = {(xb, l_txt, m): "txt", (xb, l_txt, l_txt): "txt",
+                 (xb, m, l_txt): "visn", (xb, m, m): "visn"}
+        hist_grad = True
+        bwd[(batch, l_txt, l_txt)] += 0 if text_frozen else n_l
+        for shape, stream in cross.items():
+            fwd[shape] += n_x
+            used_last = uses_txt if stream == "txt" else uses_visn
+            bwd[shape] += n_x - 1 + (1 if used_last else 0)
+    if hist_grad:
+        bwd[(batch * t, 36, 36)] += n_p
+        bwd[(batch, t + 1, t + 1)] += n_h * orders
+    return +fwd, +bwd
+
+
 def bootstrap_mix(cfg) -> collections.Counter:
     """Forward launches of the sample updates' bootstrap value by
     (Lq, Lk): one planning step over the final observation, no
