@@ -29,6 +29,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                with a "preset" key), each at its preset's batch (8 and 4:
                the greedy batch and the bootstrap) and at twice that
                (16 and 8: the merged update's rollout and its backward);
+               and both at the packed IL update's text shape (a line with
+               a "packed_text" key): the text stack's 60 x 60 at the
+               pack's 30 text rows (r2r's batch 8 and T 15), the backward
+               as under fix_lang_embedding off; both kernels timed in fp32
+               and bf16 at the serving, training, merged-update, packed
+               and pretraining lanes (the summary's bf16 times);
                and both at every pretraining shape of phase 12 (lines with
                a "pretrain" key), each at its lanes: the panorama encoder's
                36 x 36 over 400 lanes, the text's 80 x 80 (and `rxr`'s
@@ -118,7 +124,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                skipped, the SAP head on the action head) and one greedy
                batch with exactly launch_mix's launches; then one update
                per task at the `rxr` preset (250 tokens, candidate-first
-               layout, XLM-R vocabulary), each with exact launches.
+               layout, XLM-R vocabulary), each with exact launches. Then
+               the `r2r` preset in bf16 (--bf16): one update per task with
+               exact launches, 30 timed updates of the mix (examples/s,
+               peak memory, exact launches), and card against CPU per task
+               at batch 2 (both bf16, dropout off): the losses of 3
+               batches and each gradient of the first within bf16_close
+               (BF16_FACTOR times the CPU's bf16-to-fp32 distance plus
+               BF16_ATOL, scaled down to the answer's largest entry below
+               1) of the fp32 answer, the card's fp32 model on the same
+               weights; a bias whose fp32 gradient is zero to rounding
+               (bf16_grads_close) against one bf16 step of its weight's;
+               each gradient's largest fp32 entry printed beside its bound.
+13. bf16    -- bfloat16 compute at full `r2r` width (ModelConfig.dtype,
+               the CLI's --bf16; parameters, optimizers and losses fp32):
+               greedy evaluation at batch 32 (exactly 279 forward launches
+               per batch), 3 warm-up and 20 timed IL updates at batch 8
+               (279 / 240), 3 warm-up and 20 timed merged sample updates
+               (295 / 240), episodes/s and peak memory of each beside the
+               fp32 phases' of this run; 15 updates on one repeated batch
+               (dropout off): the loss must fall; card against CPU, both
+               bf16, batch 4, dropout off: greedy trajectories identical
+               up to steps where the two devices' logits tie within the
+               tolerance (each episode's logits compared through its first
+               parting step), and the teacher-forced logits, the IL
+               losses of 3 batches and every gradient of the first within
+               bf16_close of the card's fp32 answer, as in the pretrain
+               phase (tests/test_torch_bf16.py's yardstick).
+14. packed_il -- packed IL (--packed_il) at full `r2r` width, 8 slots, T
+               15, 30 text rows, fp32 and bf16: 3 warm-up and 20 timed
+               packed updates, episodes per update and episodes/s beside
+               the unpacked IL update's of this run, and exactly
+               packed_il_mix's launches (279 forward, the text stack's 9
+               at 30 lanes, and 240 backward); on the card a packed
+               update's loss and gradients against the unpacked update's
+               over the same episodes (fp32, dropout off); card against
+               CPU for the packed loss and every gradient at 4 slots.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -131,8 +172,11 @@ backward's at twice the preset's batch, the bootstrap's at the batch),
 with the forward's times at the greedy batch beside them; and per
 pretraining preset its launches per update of each task, in the timed
 mix (`r2r`), and its times weighted by the mix's launches by lanes and
-shape. The last is
-{"ok": true, "device": {...}}.
+shape; per kernel its bf16 times (``bf16``: per path, weighted by the
+path's launches, the bound counting bf16 q, k, v bytes and the tensor
+cores' bf16 rate) and launches of
+the bf16 phases, and its packed-IL launches and times (``packed_il``).
+The last is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing either.
 """
@@ -140,6 +184,7 @@ the script exits non-zero before printing either.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -150,14 +195,16 @@ import time
 import torch
 
 from vln_hamt_torch.agents.agent import HAMTAgent
+from vln_hamt_torch.agents.losses import IGNORE_ID, il_loss
+from vln_hamt_torch.agents.packing import unpack_episodes
 from vln_hamt_torch.configs import get_preset
 from vln_hamt_torch.data.fixtures import export_nav_and_annotations
 from vln_hamt_torch.ops import attention as attn
 from vln_hamt_torch.pretrain.model import batch_to_device, init_pretrain
 from vln_hamt_torch.run import finetune
 from vln_hamt_torch.run.profile_attention import (
-    bootstrap_mix, build_all, kernel_inputs, launch_mix, nvidia_smi, rel_err, time_backward,
-    time_forward, weighted)
+    bootstrap_mix, build_all, kernel_inputs, launch_mix, nvidia_smi, packed_il_mix, rel_err,
+    time_backward, time_forward, weighted)
 from vln_hamt_torch.run.profile_eval import slice_config, slice_env
 from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
 
@@ -210,6 +257,21 @@ PRETRAIN_B = 16
 PRETRAIN_PRESETS = ("r2r", "rxr")
 PRETRAIN_UPDATES = 30
 PRETRAIN_PARITY_B = 2
+# the packed IL update's text rows at r2r's batch 8 and T 15
+# (agents/packing.py: max(8 + 1, 8 * 15 // 4))
+PACKED_TEXT_CAP = 30
+# bf16 card against CPU: the yardstick of tests/test_torch_bf16.py, the
+# card's bf16 within BF16_FACTOR times the CPU's bf16-to-fp32 distance
+# plus BF16_ATOL (scaled down to the answer's largest entry below 1) of
+# the fp32 answer (bf16_close); losses compared over BF16_LOSS_BATCHES
+# batches; a bias whose fp32 gradient is at most ZERO_GRAD_RTOL of its
+# weight's is zero to rounding (bf16_grads_close)
+BF16_FACTOR, BF16_ATOL = 3.0, 1e-3
+BF16_LOSS_BATCHES = 3
+ZERO_GRAD_RTOL = 1e-4
+NO_DROPOUT = {"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
+              "feat_dropout": 0.0, "pred_head_dropout_prob": 0.0, "critic_dropout": 0.0}
+BF16 = {"dtype": "bfloat16"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -264,7 +326,7 @@ def dtype_name(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def phase_kernels(dev, fwd_mix, bwd_mix):
+def phase_kernels(dev, fwd_mix, bwd_mix, l_txt):
     gen = torch.Generator(device=dev).manual_seed(0)
     fwd_rows, bwd_rows, fwd_err, bwd_err = [], [], 0.0, 0.0
     seed = 2**31 + 7  # above int32: exercises the 32-bit wrap
@@ -346,42 +408,67 @@ def phase_kernels(dev, fwd_mix, bwd_mix):
                 b8.append(row)
     emit("kernels", kernel="attention_bwd", batch=TRAIN_B, heads=H, head_dim=DH, results=b8)
 
-    # both kernels at the merged sample update's 16 lanes, fp32, at the
-    # shapes it launches them with: checked at both rates, timed with
-    # dropout off
+    # both kernels at the merged sample update's 16 lanes, fp32 and bf16,
+    # at the shapes it launches them with: checked at both rates, timed
+    # with dropout off
     f16, b16 = [], []
     for (lq, lk) in fwd_mix:
-        q, k, v, m, g = kernel_inputs(MERGED_B, H, lq, lk, DH, torch.float32, gen, dev)
-        for rate in (0.0, 0.1):
-            where = f"B {MERGED_B} ({lq},{lk})"
-            row = {"lq": lq, "lk": lk, "dtype": "float32", "rate": rate,
-                   "max_abs_err": check_fwd(q, k, v, m, seed, rate, where)}
-            fwd_err = max(fwd_err, row["max_abs_err"])
-            if rate == 0.0:
-                row.update(time_forward(q, k, v, m))
-            f16.append(row)
-            if (lq, lk) not in bwd_mix:
-                continue
-            errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
-            bwd_err = max(bwd_err, err)
-            brow = {"lq": lq, "lk": lk, "dtype": "float32", "rate": rate, "rel_err": errs,
-                    "max_abs_err": err}
-            if rate == 0.0:
-                brow.update(time_backward(q, k, v, m, g))
-            b16.append(brow)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, g = kernel_inputs(MERGED_B, H, lq, lk, DH, dtype, gen, dev)
+            for rate in (0.0, 0.1):
+                where = f"B {MERGED_B} ({lq},{lk})"
+                row = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
+                       "max_abs_err": check_fwd(q, k, v, m, seed, rate, where)}
+                fwd_err = max(fwd_err, row["max_abs_err"])
+                if rate == 0.0:
+                    row.update(time_forward(q, k, v, m))
+                f16.append(row)
+                if (lq, lk) not in bwd_mix:
+                    continue
+                errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+                bwd_err = max(bwd_err, err)
+                brow = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
+                        "rel_err": errs, "max_abs_err": err}
+                if rate == 0.0:
+                    brow.update(time_backward(q, k, v, m, g))
+                b16.append(brow)
     emit("kernels", kernel="attention_fwd", batch=MERGED_B, heads=H, head_dim=DH, results=f16)
     emit("kernels", kernel="attention_bwd", batch=MERGED_B, heads=H, head_dim=DH, results=b16)
-    return fwd_rows, b8, (f16, b16), fwd_err, bwd_err
+
+    # the packed IL update's text stack: 60 x 60 at the pack's 30 text
+    # rows, forward and (as with fix_lang_embedding off) backward, fp32
+    # and bf16, checked at both rates and timed with dropout off
+    fpk, bpk = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, m, g = kernel_inputs(PACKED_TEXT_CAP, H, l_txt, l_txt, DH, dtype, gen, dev)
+        for rate in (0.0, 0.1):
+            where = f"packed text {PACKED_TEXT_CAP} lanes ({l_txt},{l_txt})"
+            case = {"lanes": PACKED_TEXT_CAP, "lq": l_txt, "lk": l_txt,
+                    "dtype": dtype_name(dtype), "rate": rate}
+            err = check_fwd(q, k, v, m, seed, rate, where)
+            fwd_err = max(fwd_err, err)
+            fpk.append({**case, "max_abs_err": err,
+                        **(time_forward(q, k, v, m) if rate == 0.0 else {})})
+            errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+            bwd_err = max(bwd_err, err)
+            bpk.append({**case, "rel_err": errs, "max_abs_err": err,
+                        **(time_backward(q, k, v, m, g) if rate == 0.0 else {})})
+    emit("kernels", kernel="attention_fwd", packed_text=[PACKED_TEXT_CAP, l_txt, l_txt],
+         heads=H, head_dim=DH, results=fpk)
+    emit("kernels", kernel="attention_bwd", packed_text=[PACKED_TEXT_CAP, l_txt, l_txt],
+         heads=H, head_dim=DH, results=bpk)
+    return (fwd_rows, bwd_rows, fwd8, b8, (f16, b16), (fpk, bpk), fwd_err, bwd_err)
 
 
-def kernel_times(*parts):
+def kernel_times(*parts, dtype: str = "float32"):
     """Times and bound per launch, weighted over the launches by shape of
     each (rows, mix) part: ``rows`` timed at one batch, ``mix`` the
-    launches by shape made at that batch."""
+    launches by shape made at that batch; the rows of ``dtype``."""
     total = sum(sum(mix.values()) for _, mix in parts)
 
     def mean(key):
-        return sum(weighted(rows, mix, key) * sum(mix.values()) for rows, mix in parts) / total
+        return sum(weighted(rows, mix, key, dtype) * sum(mix.values())
+                   for rows, mix in parts) / total
 
     bytes_mean, flops_mean = mean(lambda r: r["bytes_ms"]), mean(lambda r: r["flops_ms"])
     return {
@@ -394,7 +481,7 @@ def kernel_times(*parts):
 
 
 def summary_row(name, source, replaces, launches, max_err, rows, mix, batch, sample,
-                family, pretrain):
+                family, pretrain, **paths):
     """The kernel's line of the summary: ``launches`` from the run of its
     main path, times and bound from ``rows`` timed at that path's batch
     and shapes, weighted by its launches per shape; ``sample``: its
@@ -403,22 +490,12 @@ def summary_row(name, source, replaces, launches, max_err, rows, mix, batch, sam
     the family phase's merged updates and its times weighted by a merged
     update's launches by shape and lanes; ``pretrain``: per pretraining
     preset its launches per update of each task (and in the timed mix)
-    and its times weighted by the mix's launches by lanes and shape."""
+    and its times weighted by the mix's launches by lanes and shape;
+    ``paths``: further paths' fields (``bf16``, ``packed_il``)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "batch": batch, "max_abs_err": max_err,
             **kernel_times((rows, mix)), "sample": sample, "family": family,
-            "pretrain": pretrain}
-
-
-def il_gradients(agent, ep):
-    """Loss and named gradients of one IL update's loss, no step."""
-    agent.model.train()
-    agent.critic.train()
-    loss = agent._il_loss(ep, agent.cfg.train.teacher_weight)
-    loss.backward()
-    grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
-             if p.grad is not None}
-    return loss.item(), grads
+            "pretrain": pretrain, **paths}
 
 
 def sample_gradients(agent, il_ep, ins):
@@ -510,14 +587,20 @@ def phase_family_kernels(dev, mixes):
     return out, ferr, berr
 
 
-def lane_times(rows_by_shape, mix):
+def lane_times(rows_by_shape, mix, dtype: str = "float32"):
     """kernel_times over a mix keyed by (lanes, Lq, Lk): one part per
-    lane count, its rows timed at those lanes."""
+    lane count, its rows (of ``dtype``) timed at those lanes."""
     parts = []
     for lanes in sorted({s[0] for s in mix}):
         rows = [r for s, r in rows_by_shape.items() if s[0] == lanes]
         parts.append((rows, {(s[1], s[2]): n for s, n in mix.items() if s[0] == lanes}))
-    return kernel_times(*parts)
+    return kernel_times(*parts, dtype=dtype)
+
+
+def rows_by_lanes(lanes, rows, dtype):
+    """Timed rows (dropout off) of one ``dtype`` keyed by (lanes, Lq, Lk)."""
+    return {(lanes, r["lq"], r["lk"]): r for r in rows
+            if r["dtype"] == dtype and "ms" in r}
 
 
 def mix_launches(mixes, shares):
@@ -534,14 +617,15 @@ def mix_launches(mixes, shares):
 def phase_pretrain_kernels(dev, pmixes):
     """Both kernels at every pretraining shape and lanes of the presets in
     ``pmixes`` ({preset: (per-task mixes, shares)}), against their plain
-    twins (fp32 and bf16, dropout off and on), timed in fp32 with dropout
-    off. Returns the timed rows by (lanes, Lq, Lk) per kernel and the
-    largest forward and backward errors."""
+    twins (fp32 and bf16, dropout off and on), timed in fp32 and bf16 with
+    dropout off. Returns the timed rows by dtype and (lanes, Lq, Lk) per
+    kernel and the largest forward and backward errors."""
     gen = torch.Generator(device=dev).manual_seed(2)
     seed = 2**31 + 7
     fshapes = sorted({s for mixes, _ in pmixes.values() for f, _ in mixes.values() for s in f})
     bshapes = {s for mixes, _ in pmixes.values() for _, b in mixes.values() for s in b}
-    timed = {"attention_fwd": {}, "attention_bwd": {}}
+    timed = {name: {"float32": {}, "bfloat16": {}} for name in ("attention_fwd",
+                                                               "attention_bwd")}
     ferr = berr = 0.0
     for shape in fshapes:
         lanes, lq, lk = shape
@@ -552,7 +636,7 @@ def phase_pretrain_kernels(dev, pmixes):
                 where = f"pretrain lanes {lanes} ({lq},{lk})"
                 case = {"lanes": lanes, "lq": lq, "lk": lk, "dtype": dtype_name(dtype),
                         "rate": rate}
-                timing = rate == 0.0 and dtype == torch.float32
+                timing = rate == 0.0
                 err = check_fwd(q, k, v, m, seed, rate, where)
                 ferr = max(ferr, err)
                 frows.append({**case, "max_abs_err": err,
@@ -565,9 +649,10 @@ def phase_pretrain_kernels(dev, pmixes):
                               **(time_backward(q, k, v, m, g) if timing else {})})
         for name, rows in (("attention_fwd", frows), ("attention_bwd", brows)):
             if rows:
-                row = rows[0]  # fp32, dropout off: the timed one
-                row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]))
-                timed[name][shape] = row
+                for row in rows:
+                    if "ms" in row:  # dropout off: the timed ones
+                        row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]))
+                        timed[name][row["dtype"]][shape] = row
                 emit("kernels", kernel=name, pretrain_shape=[lanes, lq, lk], heads=H,
                      head_dim=DH, results=rows)
     for preset, (mixes, shares) in pmixes.items():
@@ -575,7 +660,8 @@ def phase_pretrain_kernels(dev, pmixes):
             emit("kernels", kernel=name, pretrain=preset, batch=PRETRAIN_B,
                  launches_per_update={t: sum((f if name == "attention_fwd" else b).values())
                                       for t, (f, b) in mixes.items()},
-                 weighted_over_mix=lane_times(timed[name], mix))
+                 weighted_over_mix=lane_times(timed[name]["float32"], mix),
+                 weighted_over_mix_bf16=lane_times(timed[name]["bfloat16"], mix, "bfloat16"))
     return timed, ferr, berr
 
 
@@ -589,6 +675,13 @@ def pretrain_gradients(model, batch, task, table):
     grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters() if p.grad is not None}
     model.zero_grad(set_to_none=True)
     return loss.item(), {k: float(v.detach()) for k, v in aux.items()}, grads
+
+
+@torch.no_grad()
+def pretrain_loss(model, batch, task, table) -> float:
+    """One task's loss on a host batch, dropout off, forward only."""
+    model.eval()
+    return model(batch_to_device(batch, table.device), task, table)[0].item()
 
 
 def counted_update(trainer, task, batch, want, what):
@@ -661,6 +754,7 @@ def phase_pretrain(pmixes, tmp):
     path = os.path.join(tmp, f"model_step_{trainer.step}.pt")
     trainer.save(path)
     head = trainer.model.next_action.net[0].weight.detach().clone()
+    table32 = trainer._feat_table  # the bf16 part's fp32 answer reads it
     del trainer
     torch.cuda.empty_cache()
     fcfg, world = slice_config(TRAIN_B, seed=0)
@@ -706,13 +800,153 @@ def phase_pretrain(pmixes, tmp):
     trainer.close()
     del trainer
     torch.cuda.empty_cache()
+    bf16_launches, bf16_mix = phase_pretrain_bf16(mixes, table32)
     return {name: {"batch": PRETRAIN_B, "updates": PRETRAIN_UPDATES,
                    "launches": launches[name],
                    "launches_per_update": {t: sum(m[i].values()) for t, m in mixes.items()},
                    "rxr_launches_per_update": {t: sum(m[i].values())
                                                for t, m in rmixes.items()},
-                   "mix": draw_mix[i]}
+                   "mix": draw_mix[i], "bf16_launches": bf16_launches[name],
+                   "bf16_mix": bf16_mix[i]}
             for i, name in enumerate(("attention_fwd", "attention_bwd"))}
+
+
+def bf16_close(card, cpu, fp32, what, floor: float = 0.0, mag=None) -> dict:
+    """The card's bf16 result against the CPU's (tensors or floats, of one
+    shape): max |card - fp32| <= BF16_FACTOR max(max |cpu - fp32|,
+    ``floor``) + BF16_ATOL min(1, ``mag``) over the finite entries of the
+    fp32 answer, the non-finite ones at the same places; ``mag`` is the
+    answer's scale, its largest entry by default, so the absolute term
+    stays below a quarter bf16 step of it. Returns the answer's largest
+    entry, the card's and the CPU's distances, the bound and the card's
+    distance over it."""
+    a, b, f = (torch.as_tensor(x).float().cpu() for x in (card, cpu, fp32))
+    if not a.shape == b.shape == f.shape:
+        raise AssertionError(f"{what}: shapes {a.shape} {b.shape} {f.shape}")
+    fin = torch.isfinite(f)
+    if not (torch.equal(torch.isfinite(a), fin) and torch.equal(torch.isfinite(b), fin)):
+        raise AssertionError(f"{what}: non-finite at different places")
+    if not fin.any():
+        return {"max_abs": 0.0, "dist": 0.0, "cpu_dist": 0.0, "bound": 0.0, "over_bound": 0.0}
+    max_abs = f[fin].abs().max().item()
+    dist, cpu_dist = ((x[fin] - f[fin]).abs().max().item() for x in (a, b))
+    bound = (BF16_FACTOR * max(cpu_dist, floor)
+             + BF16_ATOL * min(1.0, max_abs if mag is None else mag))
+    if not dist <= bound:
+        raise AssertionError(f"{what}: card bf16 {dist} from fp32 (largest entry {max_abs}, "
+                             f"CPU bf16 {cpu_dist}), bound {bound}")
+    return {"max_abs": max_abs, "dist": dist, "cpu_dist": cpu_dist, "bound": bound,
+            "over_bound": dist / bound if dist else 0.0}
+
+
+def bias_ratios(grads) -> dict:
+    """Per bias with a weight beside it and a non-zero weight gradient:
+    the largest entry of its gradient over its weight gradient's."""
+    out = {}
+    for k, g in grads.items():
+        weight = k.rsplit(".", 1)[0] + ".weight"
+        if k.endswith(".bias") and weight in grads:
+            w = grads[weight].abs().max().item()
+            if w > 0:
+                out[k] = g.abs().max().item() / w
+    return out
+
+
+def bf16_grads_close(card, cpu, fp32, what) -> dict:
+    """bf16_close per gradient tensor. A bias whose fp32 gradient is zero
+    to rounding (its largest entry at most ZERO_GRAD_RTOL of its weight
+    gradient's) shifts every input of a softmax alike (an attention
+    key's, a ranking head's output or the LayerNorm before it): its
+    exact gradient is 0, and in bf16 it holds only the rounding of terms
+    whose products with the inputs make its weight's gradient. So its
+    CPU distance is floored at one bf16 step (2^-8) of its weight
+    gradient's largest entry, which is also its scale. Returns the worst
+    ratio; those biases with their ratio, and the smallest ratio of the
+    other biases; per tensor [largest fp32 entry, card distance, bound]
+    (3 significant digits)."""
+    if not card.keys() == cpu.keys() == fp32.keys():
+        raise AssertionError(f"{what}: gradients on different parameters")
+    ratios = bias_ratios(fp32)
+    zero = {k: r for k, r in ratios.items() if r <= ZERO_GRAD_RTOL}
+    others = [(r, k) for k, r in ratios.items() if k not in zero]
+    worst, per = 0.0, {}
+    for k in card:
+        if k in zero:
+            w = fp32[k.rsplit(".", 1)[0] + ".weight"].abs().max().item()
+            r = bf16_close(card[k], cpu[k], fp32[k], f"{what} {k}", w * 2.0 ** -8, w)
+        else:
+            r = bf16_close(card[k], cpu[k], fp32[k], f"{what} {k}")
+        worst = max(worst, r["over_bound"])
+        per[k] = [float(f"{r[x]:.3g}") for x in ("max_abs", "dist", "bound")]
+    return {"max_grad_over_bound": worst,
+            "zero_to_rounding": {k: float(f"{r:.3g}") for k, r in sorted(zero.items())},
+            "other_biases_min_ratio": [float(f"{min(others)[0]:.3g}"), min(others)[1]]
+            if others else None, "grads": per}
+
+
+def phase_pretrain_bf16(mixes, table32):
+    """The r2r preset's pretraining in bf16 (see the module docstring).
+    Returns its launches in the timed mix and the draw's mix."""
+    trainer, _ = slice_trainer("r2r", batch_size=PRETRAIN_B, seed=0, extra=("--bf16",))
+    cfg, tasks = trainer.cfg, trainer.scheduler.tasks
+    if cfg.dtype != "bfloat16" or trainer._feat_table.dtype != torch.bfloat16:
+        raise AssertionError("--bf16 pretraining: not bf16")
+    warm = {t: counted_update(trainer, t, trainer.batcher.batch(t, PRETRAIN_B), mixes[t],
+                              "pretrain r2r bf16") for t in tasks}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # as the fp32 part: after the warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [trainer.train_step() for _ in range(PRETRAIN_UPDATES)]
+    losses = torch.stack([loss for _, loss, _ in outs]).cpu()
+    seconds = time.perf_counter() - t0
+    launches = dict(attn.launch_counts)
+    trainer.close()
+    draw = [task for task, _, _ in outs]
+    want = {"attention_fwd": sum(sum(mixes[t][0].values()) for t in draw),
+            "attention_bwd": sum(sum(mixes[t][1].values()) for t in draw)}
+    if launches != want or not torch.isfinite(losses).all():
+        raise AssertionError(f"pretrain bf16 mix: launches {launches}, expected {want}; "
+                             f"losses {losses.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    draw_mix = mix_launches({t: mixes[t] for t in set(draw)},
+                            {t: draw.count(t) / len(draw) for t in set(draw)})
+
+    # card against CPU per task at batch 2, both bf16, dropout off; the
+    # card's fp32 model on the same weights (and the fp32 table) answers
+    t1 = time.perf_counter()
+    sd = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    cpu_model, f32_model = init_pretrain(cfg, seed=0), init_pretrain(
+        dataclasses.replace(cfg, dtype="float32"), seed=0)
+    cpu_model.load_state_dict(sd)
+    f32_model.load_state_dict(sd)
+    f32_model.cuda()
+    cpu_table = trainer._feat_table.cpu()
+    parity = {}
+    sides = ((trainer.model, trainer._feat_table), (cpu_model, cpu_table), (f32_model, table32))
+    for task in tasks:
+        batches = [trainer.batcher.batch(task, PRETRAIN_PARITY_B)
+                   for _ in range(BF16_LOSS_BATCHES)]
+        (lg, _, gg), (lc, _, gc), (lf, _, gf) = (
+            pretrain_gradients(model, batches[0], task, table) for model, table in sides)
+        # the losses of the further batches, forward only
+        (lg, lc, lf) = ([loss] + [pretrain_loss(model, b, task, table) for b in batches[1:]]
+                        for loss, (model, table) in zip((lg, lc, lf), sides))
+        parity[task] = {"losses_cuda": lg, "losses_cpu": lc, "losses_fp32": lf,
+                        "loss": bf16_close(lg, lc, lf, f"pretrain bf16 {task} losses"),
+                        "tensors": len(gc), **bf16_grads_close(gg, gc, gf,
+                                                               f"pretrain bf16 {task}")}
+    del cpu_model, f32_model, cpu_table
+    emit("pretrain", preset="r2r", dtype="bfloat16", batch=PRETRAIN_B, warmup_losses=warm,
+         updates=PRETRAIN_UPDATES, draw={t: draw.count(t) for t in tasks}, seconds=seconds,
+         examples_per_s=PRETRAIN_UPDATES * PRETRAIN_B / seconds,
+         ms_per_update=seconds / PRETRAIN_UPDATES * 1e3, loss_mean=losses.mean().item(),
+         launches=launches, peak_mem_gb=peak,
+         parity={"batch": PRETRAIN_PARITY_B, "factor": BF16_FACTOR, "atol": BF16_ATOL,
+                 "seconds": time.perf_counter() - t1, **parity})
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, draw_mix
 
 
 def greedy_batch(agent):
@@ -908,6 +1142,290 @@ def phase_files(tmp):
                  "trajectories_identical": True, "max_abs_logit_err": resume_err})
 
 
+def il_logits_and_grads(agent, ep):
+    """The teacher-forced episode's logits, its IL loss (the agent's
+    ``_il_loss``) and every model gradient, in training mode, no step."""
+    agent.model.train()
+    agent.critic.train()
+    out = agent.episode_forward(ep, agent._feat_table)
+    loss = (il_loss(out.logits, ep["teacher"].T, IGNORE_ID) * agent.cfg.train.teacher_weight
+            / ep["actions"].shape[0])
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
+             if p.grad is not None}
+    return out.logits.detach().cpu(), loss.item(), grads
+
+
+@torch.no_grad()
+def il_loss_only(agent, ep) -> float:
+    """The teacher-forced episode's IL loss, as il_logits_and_grads takes
+    it, forward only."""
+    agent.model.train()
+    out = agent.episode_forward(ep, agent._feat_table)
+    return (il_loss(out.logits, ep["teacher"].T, IGNORE_ID) * agent.cfg.train.teacher_weight
+            / ep["actions"].shape[0]).item()
+
+
+def compare_greedy_bf16(a, b, tol, what):
+    """Two bf16 greedy batches, the card's (a) and the CPU's (b): each
+    episode takes the same actions until the two part, which they may
+    only where their logits tie within ``tol``; the logits within ``tol``
+    at every step through each episode's first parting step (the same
+    history and observation on both sides up to there). Returns the
+    largest logit difference and the episodes that parted."""
+    (trajs_a, ep_a, ex_a), (trajs_b, ep_b, ex_b) = a, b
+    act_a, act_b = ep_a["actions"], ep_b["actions"]
+    la, lb = ex_a["rollout_logits"], ex_b["rollout_logits"]  # (T, B, N)
+    err, parted = 0.0, 0
+    for i in range(act_a.shape[0]):
+        diff = (act_a[i] != act_b[i]).nonzero()
+        last = int(diff[0]) if len(diff) else act_a.shape[1] - 1
+        parted += int(len(diff) > 0)
+        if not len(diff) and trajs_a[i] != trajs_b[i]:
+            raise AssertionError(f"{what}: episode {i} decodes differently")
+        x, y = la[:last + 1, i], lb[:last + 1, i]
+        fin = torch.isfinite(y)
+        if not torch.equal(torch.isfinite(x), fin):
+            raise AssertionError(f"{what}: logits are -inf at different places")
+        err = max(err, (x[fin] - y[fin]).abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"{what}: logits differ by {err} > {tol}")
+    return err, parted
+
+
+def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
+    """bf16 compute at full r2r width (see the module docstring); ``fp32``:
+    the fp32 phases' numbers of this run. Returns the launches of each
+    bf16 path."""
+    t_phase = time.perf_counter()
+    runs, launches = {}, {}
+
+    gcfg = cfg.replace(model=BF16)
+    agent = HAMTAgent(gcfg, slice_env(gcfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    if agent._feat_table.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 feature table is {agent._feat_table.dtype}")
+    agent.eval_split_device()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    preds = agent.eval_split_device()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches["serving"] = dict(attn.launch_counts)
+    batches = len(world.instr_data) // B + 1
+    if launches["serving"] != {"attention_fwd": per_batch * batches, "attention_bwd": 0}:
+        raise AssertionError(f"bf16 greedy launches {launches['serving']}, expected "
+                             f"{per_batch} x {batches} forward")
+    metrics, _ = agent.env.eval_metrics(preds)
+    if len(preds) != len(world.instr_data) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"bf16 greedy: {len(preds)} predictions, metrics {metrics}")
+    runs["serving"] = {"batch": B, "episodes_per_s": len(preds) / seconds,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches_per_batch": per_batch, "sr": metrics["sr"]}
+    del agent
+
+    tcfg = cfg.replace(model=BF16, train={"batch_size": TRAIN_B, "feedback": "teacher"})
+    agent = HAMTAgent(tcfg, slice_env(tcfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    for _ in range(3):  # warm-up
+        agent.train_iteration("teacher", sync=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 20
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = torch.stack([agent.train_iteration("teacher", sync=False)["loss"]
+                          for _ in range(iters)]).cpu()
+    seconds = time.perf_counter() - t0
+    launches["il"] = dict(attn.launch_counts)
+    want = {"attention_fwd": per_batch * iters, "attention_bwd": per_update_bwd * iters}
+    if launches["il"] != want or not torch.isfinite(losses).all():
+        raise AssertionError(f"bf16 IL launches {launches['il']} != {want}, or losses "
+                             f"{losses.tolist()}")
+    runs["il"] = {"batch": TRAIN_B, "updates": iters, "episodes_per_s": iters * TRAIN_B / seconds,
+                  "ms_per_update": seconds / iters * 1e3, "loss_mean": losses.mean().item(),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    del agent
+
+    scfg = cfg.replace(model=BF16, train={"batch_size": TRAIN_B, "feedback": "sample"})
+    agent = HAMTAgent(scfg, slice_env(scfg, world, seed=0), seed=0)
+    agent.merged_sample_update = True
+    agent.enable_feature_table()
+    for _ in range(3):  # warm-up
+        agent.train_iteration("sample", sync=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, launches["sample"] = timed_sample_updates(agent, iters)
+    if launches["sample"] != {k: n * iters for k, n in merged_per.items()}:
+        raise AssertionError(f"bf16 merged sample launches {launches['sample']} over {iters} "
+                             f"updates, expected {merged_per} per update")
+    runs["sample"] = {"batch": TRAIN_B, "lanes": MERGED_B, "updates": iters,
+                      "episodes_per_s": iters * TRAIN_B / seconds,
+                      "ms_per_update": seconds / iters * 1e3,
+                      **{f"{k}_mean": v.mean().item() for k, v in losses.items()},
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    del agent
+
+    # one repeated batch, dropout off, lr 1e-4: the loss must fall
+    ocfg = tcfg.replace(model=NO_DROPOUT, train={"lr": 1e-4})
+    agent = HAMTAgent(ocfg, slice_env(ocfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    ep = agent._ep_to_device(agent.env.teacher_episode())
+    fit = torch.stack([agent._il_update(ep, 1.0) for _ in range(15)]).cpu()
+    if not torch.isfinite(fit).all() or not fit[-1] < fit[0]:
+        raise AssertionError(f"bf16: 15 updates on one batch did not lower the loss: "
+                             f"{fit.tolist()}")
+    del agent
+    emit("bf16", preset="r2r", hidden=cfg.model.hidden_size, **runs,
+         fp32=fp32, bf16_over_fp32_episodes_per_s={
+             k: runs[k]["episodes_per_s"] / fp32[k]["episodes_per_s"] for k in runs},
+         launches=launches, overfit_losses=fit.tolist(),
+         seconds=time.perf_counter() - t_phase)
+    bf16_runs = runs
+
+    # card against CPU, both bf16, batch 4, dropout off; the card's fp32
+    # model on the same weights and episode is the fp32 answer
+    t_parity = time.perf_counter()
+    pcfg = cfg.replace(model={**NO_DROPOUT, **BF16}, train={"batch_size": 4,
+                                                           "feedback": "teacher"})
+    res = {}
+    for name, device, c in (("cuda", "cuda", pcfg), ("cpu", "cpu", pcfg),
+                            ("fp32", "cuda", pcfg.replace(model={"dtype": "float32"}))):
+        pagent = HAMTAgent(c, slice_env(c, world, seed=0), seed=0, device=device)
+        pagent.enable_feature_table()
+        greedy = greedy_batch(pagent) if name != "fp32" else None
+        pagent.env.reset_epoch(shuffle=False)  # the first batch, on every agent
+        ep = pagent._ep_to_device(pagent.env.teacher_episode())
+        logits, loss, grads = il_logits_and_grads(pagent, ep)
+        # the IL losses of the further batches, forward only
+        losses = [loss] + [il_loss_only(pagent, pagent._ep_to_device(
+            pagent.env.teacher_episode())) for _ in range(BF16_LOSS_BATCHES - 1)]
+        res[name] = (greedy, logits, losses, grads)
+        del pagent
+    (g_greedy, g_logits, g_loss, g_grads), (c_greedy, c_logits, c_loss, c_grads), (
+        _, f_logits, f_loss, f_grads) = res["cuda"], res["cpu"], res["fp32"]
+    logits = bf16_close(g_logits, c_logits, f_logits, "bf16 teacher-forced logits")
+    tol = logits["bound"]
+    greedy_err, parted = compare_greedy_bf16(g_greedy, c_greedy, tol, "bf16 card vs CPU")
+    emit("bf16_parity", batch=4, factor=BF16_FACTOR, atol=BF16_ATOL,
+         teacher_forced_logits=logits, greedy_max_abs_logit_err=greedy_err,
+         greedy_episodes_parted=parted, losses_cuda=g_loss, losses_cpu=c_loss,
+         losses_fp32=f_loss, loss=bf16_close(g_loss, c_loss, f_loss, "bf16 IL losses"),
+         tensors=len(c_grads), **bf16_grads_close(g_grads, c_grads, f_grads, "bf16 IL"),
+         seconds=time.perf_counter() - t_parity)
+    return launches, bf16_runs
+
+
+def loss_and_grads(agent, loss_fn):
+    """loss_fn()'s value and every model gradient, in training mode, no
+    step; the gradients left cleared."""
+    agent.model.train()
+    agent.critic.train()
+    agent.model.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
+             if p.grad is not None}
+    agent.model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def phase_packed(cfg, world, pmix, unpacked):
+    """Packed IL at full r2r width (see the module docstring); ``unpacked``:
+    the unpacked IL update's episodes/s of this run by dtype. Returns the
+    packed updates' launches by dtype."""
+    t_phase = time.perf_counter()
+    per = {"attention_fwd": sum(pmix[0].values()), "attention_bwd": sum(pmix[1].values())}
+    runs, launches = {}, {}
+    iters = 20
+    for dtype in ("float32", "bfloat16"):
+        pcfg = cfg.replace(model={"dtype": dtype},
+                           train={"batch_size": TRAIN_B, "feedback": "teacher"})
+        agent = HAMTAgent(pcfg, slice_env(pcfg, world, seed=0), seed=0)
+        agent.enable_feature_table()
+        agent.enable_packed_il()
+        if agent._packer.text_cap != PACKED_TEXT_CAP:
+            raise AssertionError(f"packed text rows {agent._packer.text_cap}")
+        for _ in range(3):  # warm-up
+            agent.train_iteration("teacher", sync=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = [agent.train_iteration("teacher", sync=False) for _ in range(iters)]
+        losses = torch.stack([o["loss"] for o in outs]).cpu()
+        seconds = time.perf_counter() - t0
+        launches[dtype] = dict(attn.launch_counts)
+        if launches[dtype] != {k: n * iters for k, n in per.items()} or not torch.isfinite(
+                losses).all():
+            raise AssertionError(f"packed IL {dtype}: launches {launches[dtype]}, expected "
+                                 f"{per} per update; losses {losses.tolist()}")
+        episodes = sum(o["episodes"] for o in outs)
+        runs[dtype] = {"updates": iters, "episodes": episodes,
+                       "episodes_per_update": episodes / iters,
+                       "episodes_per_s": episodes / seconds,
+                       "unpacked_episodes_per_s": unpacked[dtype],
+                       "over_unpacked": episodes / seconds / unpacked[dtype],
+                       "ms_per_update": seconds / iters * 1e3,
+                       "loss_mean": losses.mean().item(),
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        del agent
+    emit("packed_il", preset="r2r", slots=TRAIN_B, t_max=cfg.env.max_action_len,
+         text_rows=PACKED_TEXT_CAP, **runs, launches=launches, launches_per_update=per,
+         shape_mix={f"{lanes}:{lq}x{lk}": n for (lanes, lq, lk), n in pmix[0].items()},
+         bwd_shape_mix={f"{lanes}:{lq}x{lk}": n for (lanes, lq, lk), n in pmix[1].items()},
+         seconds=time.perf_counter() - t_phase)
+
+    # on the card: a packed update against the unpacked update over the
+    # same episodes, fp32, dropout off
+    t_grads = time.perf_counter()
+    gcfg = cfg.replace(model=NO_DROPOUT, train={"batch_size": TRAIN_B, "feedback": "teacher"})
+    agent = HAMTAgent(gcfg, slice_env(gcfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    agent.enable_packed_il()
+    pack = agent._packer.next_pack()
+    n_eps = float(pack["n_episodes"])
+    ep = agent._pack_to_device(unpack_episodes(pack, cfg.env.max_action_len,
+                                               agent.env.spec.stop_slot))
+    lp, gp = loss_and_grads(agent, lambda: agent._packed_il_loss(agent._pack_to_device(pack),
+                                                                 n_eps, 1.0))
+    lu, gu = loss_and_grads(agent, lambda: agent._il_loss(ep, 1.0))
+    del agent
+    if not abs(lp - lu) <= TRAIN_LOSS_RTOL * abs(lu):
+        raise AssertionError(f"packed loss {lp} against unpacked {lu}")
+    equiv = check_grads(gp, gu, "packed against unpacked")
+
+    # card against CPU at 4 slots, fp32, dropout off
+    ccfg = gcfg.replace(train={"batch_size": 4})
+    res = {}
+    for device in ("cuda", "cpu"):
+        pagent = HAMTAgent(ccfg, slice_env(ccfg, world, seed=0), seed=0, device=device)
+        pagent.enable_feature_table()
+        pagent.enable_packed_il()
+        pk = pagent._packer.next_pack()
+        res[device] = (int(pk["n_episodes"]), *loss_and_grads(
+            pagent, lambda: pagent._packed_il_loss(pagent._pack_to_device(pk),
+                                                   float(pk["n_episodes"]),
+                                                   pagent.cfg.train.teacher_weight)))
+        del pagent
+    (n_g, loss_g, grads_g), (n_c, loss_c, grads_c) = res["cuda"], res["cpu"]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    if n_g != n_c or not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"packed card vs CPU: {n_g} / {n_c} episodes, loss {loss_g} vs "
+                             f"{loss_c}")
+    emit("packed_il_parity", episodes=int(n_eps), loss_packed=lp, loss_unpacked=lu,
+         packed_vs_unpacked_max_grad_err_over_tol=equiv, slots_cpu=4, episodes_cpu=n_c,
+         loss_cuda=loss_g, loss_cpu=loss_c, loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+         tensors=len(grads_c), max_grad_err_over_tol=check_grads(grads_g, grads_c,
+                                                                  "packed card vs CPU"),
+         grad_rel_tol=TRAIN_GRAD_REL, grad_floor=TRAIN_GRAD_FLOOR,
+         seconds=time.perf_counter() - t_grads)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -942,8 +1460,8 @@ def main() -> int:
     # ----------------------------------------------------------- kernels
     # timed at each main path's batch: the forward at the serving slice's
     # 32, the backward at the training slice's 8
-    fwd_rows, bwd_rows, (f16_rows, b16_rows), fwd_err, bwd_err = phase_kernels(
-        dev, mix, bwd_mix)
+    (fwd_rows, _, fwd8_rows, bwd_rows, (f16_rows, b16_rows), (fpk_rows, bpk_rows), fwd_err,
+     bwd_err) = phase_kernels(dev, mix, bwd_mix, cfg.env.max_instr_len)
     # and at the family presets' shapes, each at its preset's batch and
     # at the merged update's twice as many lanes
     family_mixes, boot_mixes = {}, {}
@@ -964,12 +1482,16 @@ def main() -> int:
     agent.enable_feature_table()
     agent.eval_split_device()  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     preds = agent.eval_split_device()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     slice_launches = dict(attn.launch_counts)
+    # the fp32 numbers the bf16 phase stands beside
+    fp32 = {"serving": {"episodes_per_s": len(preds) / seconds,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}}
     batches = len(world.instr_data) // B + 1  # iterate until an instr_id repeats
     if slice_launches != {"attention_fwd": per_batch * batches, "attention_bwd": 0}:
         raise AssertionError(f"attention launches {slice_launches} != 279 x {batches} batches "
@@ -987,6 +1509,7 @@ def main() -> int:
          episodes=len(preds), rollouts=batches * B, seconds=seconds,
          episodes_per_s=len(preds) / seconds, rollouts_per_s=batches * B / seconds,
          sr=metrics["sr"], spl=metrics["spl"], ndtw=metrics["nDTW"],
+         peak_mem_gb=fp32["serving"]["peak_mem_gb"],
          launches=slice_launches, launches_per_batch=per_batch, shape_mix=
          {f"{lq}x{lk}": n for (lq, lk), n in mix.items()},
          attention_ms_per_batch=weighted(fwd_rows, mix, lambda r: r["ms"]) * per_batch)
@@ -1015,6 +1538,7 @@ def main() -> int:
     for _ in range(3):  # warm-up: allocator, cuBLAS workspaces
         agent.train_iteration("teacher", sync=False)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     iters = 20
     reset_counts()
     t0 = time.perf_counter()
@@ -1028,6 +1552,8 @@ def main() -> int:
                              f"(279 forward, 240 backward per update)")
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite IL losses {losses.tolist()}")
+    fp32["il"] = {"episodes_per_s": iters * TRAIN_B / seconds,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit("train", preset="r2r", hidden=mcfg.hidden_size, batch=TRAIN_B, t_max=t_max,
          optim=tr.optim, lr=tr.lr, grad_clip=tr.grad_clip,
          dropout=[mcfg.hidden_dropout_prob, mcfg.attention_probs_dropout_prob,
@@ -1041,9 +1567,7 @@ def main() -> int:
     del agent
 
     # one repeated batch, dropout off, lr 1e-4: the loss must fall
-    no_drop = {"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
-               "feat_dropout": 0.0, "pred_head_dropout_prob": 0.0, "critic_dropout": 0.0}
-    ocfg = tcfg.replace(model=no_drop, train={"lr": 1e-4})
+    ocfg = tcfg.replace(model=NO_DROPOUT, train={"lr": 1e-4})
     agent = HAMTAgent(ocfg, slice_env(ocfg, world, seed=0), seed=0)
     agent.enable_feature_table()
     ep = agent._ep_to_device(agent.env.teacher_episode())
@@ -1054,7 +1578,7 @@ def main() -> int:
     del agent
 
     # ------------------------------------------------------ train_parity
-    pcfg = cfg.replace(model=no_drop, train={"batch_size": 4, "feedback": "teacher"})
+    pcfg = cfg.replace(model=NO_DROPOUT, train={"batch_size": 4, "feedback": "teacher"})
     for fix in (True, False):
         fcfg = pcfg.replace(model={"fix_lang_embedding": fix, "fix_hist_embedding": fix})
         res = {}
@@ -1062,7 +1586,8 @@ def main() -> int:
         for device in ("cuda", "cpu"):
             pagent = HAMTAgent(fcfg, slice_env(fcfg, world, seed=0), seed=0, device=device)
             pagent.enable_feature_table()
-            res[device] = il_gradients(pagent, pagent._ep_to_device(pagent.env.teacher_episode()))
+            res[device] = il_logits_and_grads(
+                pagent, pagent._ep_to_device(pagent.env.teacher_episode()))[1:]
             del pagent
         counts = dict(attn.launch_counts)
         (loss_g, grads_g), (loss_c, grads_c) = res["cuda"], res["cpu"]
@@ -1105,6 +1630,8 @@ def main() -> int:
     if merged_launches != {k: n * iters for k, n in merged_per.items()}:
         raise AssertionError(f"merged sample launches {merged_launches} over {iters} "
                              f"updates, expected {merged_per} per update")
+    fp32["sample"] = {"episodes_per_s": iters * TRAIN_B / seconds,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit("sample", update="merged", preset="r2r", hidden=mcfg.hidden_size, batch=TRAIN_B,
          lanes=MERGED_B, t_max=t_max, optim=tr.optim, lr=tr.lr, grad_clip=tr.grad_clip,
          ml_weight=scfg.train.ml_weight, updates=iters, seconds=seconds,
@@ -1134,7 +1661,7 @@ def main() -> int:
     # ----------------------------------------------------- sample_parity
     # one rewarded argmax rollout, then the fused loss on the next batch
     # (the update's host order: teacher episode, then the rollout's reset)
-    spcfg = cfg.replace(model=no_drop, train={"batch_size": 4, "feedback": "sample"})
+    spcfg = cfg.replace(model=NO_DROPOUT, train={"batch_size": 4, "feedback": "sample"})
     res = {}
     reset_counts()
     for device in ("cuda", "cpu"):
@@ -1184,6 +1711,19 @@ def main() -> int:
          loss_rel_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL, tensors=len(grads_c),
          max_grad_err_over_tol=worst, launches=counts)
 
+    # -------------------------------------------------------------- bf16
+    bf16_launches, bf16_runs = phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per,
+                                          fp32)
+
+    # --------------------------------------------------------- packed_il
+    packed_mix = packed_il_mix(tcfg, PACKED_TEXT_CAP)
+    if (sum(packed_mix[0].values()), sum(packed_mix[1].values())) != (per_batch,
+                                                                     per_update_bwd):
+        raise AssertionError(f"packed launch mix {packed_mix}: expected 279 and 240")
+    packed_launches = phase_packed(cfg, world, packed_mix, {
+        "float32": fp32["il"]["episodes_per_s"],
+        "bfloat16": bf16_runs["il"]["episodes_per_s"]})
+
     # ------------------------------------------------------------ family
     family_runs = {task: phase_family(task, family_mixes) for task in FAMILY + ("r2r_last",)}
 
@@ -1199,10 +1739,11 @@ def main() -> int:
         rxr_mixes, rxr_shares = pretrain_mixes["rxr"]
         rxr_mix = mix_launches(rxr_mixes, rxr_shares)[0 if name == "attention_fwd" else 1]
         pretrain[name] = {
-            "r2r": {k: v for k, v in run.items() if k not in ("mix", "rxr_launches_per_update")}
-            | lane_times(pretrain_kernels[name], run["mix"]),
+            "r2r": {k: v for k, v in run.items() if k in ("batch", "updates", "launches",
+                                                          "launches_per_update")}
+            | lane_times(pretrain_kernels[name]["float32"], run["mix"]),
             "rxr": {"launches_per_update": run["rxr_launches_per_update"]}
-            | lane_times(pretrain_kernels[name], rxr_mix)}
+            | lane_times(pretrain_kernels[name]["float32"], rxr_mix)}
 
     sample = {
         name: {"launches_per_update": {"merged": merged_per[name], "fused": fused_per[name]},
@@ -1224,15 +1765,48 @@ def main() -> int:
                 **kernel_times(*parts)}
         family["attention_fwd"][task]["greedy"] = {"batch": batch,
                                                    **kernel_times((f1, fwd_mix))}
+    # bf16: per path the bf16 phases' launches and the times weighted by
+    # the path's launches (bf16 rows; the bound counts bf16 q, k, v bytes
+    # and the tensor cores' bf16 rate);
+    # packed IL: its launches by dtype and its times over its lanes
+    packed_rows = {
+        "attention_fwd": {dt: rows_by_lanes(TRAIN_B, fwd8_rows, dt)
+                          | rows_by_lanes(PACKED_TEXT_CAP, fpk_rows, dt)
+                          for dt in ("float32", "bfloat16")},
+        "attention_bwd": {dt: rows_by_lanes(TRAIN_B, bwd_rows, dt)
+                          | rows_by_lanes(PACKED_TEXT_CAP, bpk_rows, dt)
+                          for dt in ("float32", "bfloat16")}}
+    bf = "bfloat16"
+    extra = {}
+    for i, (name, r8, r16, m) in enumerate((("attention_fwd", fwd8_rows, f16_rows, mix),
+                                            ("attention_bwd", bwd_rows, b16_rows, bwd_mix))):
+        paths = {"il": {"batch": TRAIN_B, **kernel_times((r8, m), dtype=bf)},
+                 "sample": {"batch": MERGED_B, **kernel_times((r16, m), dtype=bf)},
+                 "pretrain": lane_times(pretrain_kernels[name][bf],
+                                        pretrain_runs[name]["bf16_mix"], bf),
+                 "packed_il": lane_times(packed_rows[name][bf], packed_mix[i], bf)}
+        if name == "attention_fwd":
+            paths = {"serving": {"batch": B, **kernel_times((fwd_rows, mix), dtype=bf)},
+                     **paths}
+        extra[name] = {
+            "bf16": {"launches": {**{p: bf16_launches[p][name] for p in bf16_launches},
+                                  "pretrain": pretrain_runs[name]["bf16_launches"],
+                                  "packed_il": packed_launches[bf][name]}, **paths},
+            "packed_il": {"launches": packed_launches["float32"][name],
+                          "launches_per_update": sum(packed_mix[i].values()),
+                          "text_rows": PACKED_TEXT_CAP,
+                          **lane_times(packed_rows[name]["float32"], packed_mix[i])}}
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel
                     slice_launches["attention_fwd"], fwd_err, fwd_rows, mix, B,
-                    sample["attention_fwd"], family["attention_fwd"], pretrain["attention_fwd"]),
+                    sample["attention_fwd"], family["attention_fwd"], pretrain["attention_fwd"],
+                    **extra["attention_fwd"]),
         summary_row("attention_bwd", "vln_hamt_torch/csrc/attention_bwd.cu",
                     "vln_hamt_tpu/ops/attention.py:85",  # _attn_bwd_kernel
                     train_launches["attention_bwd"], bwd_err, bwd_rows, bwd_mix, TRAIN_B,
-                    sample["attention_bwd"], family["attention_bwd"], pretrain["attention_bwd"]),
+                    sample["attention_bwd"], family["attention_bwd"], pretrain["attention_bwd"],
+                    **extra["attention_bwd"]),
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

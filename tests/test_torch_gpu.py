@@ -227,3 +227,68 @@ def test_pretraining_update_per_task_on_the_card(cuda):
             want = cpu(batch_to_device(batch, "cpu"), task, trainer._feat_table.cpu())[0]
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5, msg=task)
     trainer.close()
+
+
+def test_bf16_layer_launches_both_kernels(cuda):
+    """A bf16 transformer layer on the card: its attention reads bf16 q,
+    k, v through the forward kernel and takes its gradient through the
+    backward kernel, once each; the output is bf16, and it agrees with
+    the same layer in bf16 on the CPU to bf16's precision."""
+    from vln_hamt_torch.configs import ModelConfig
+    from vln_hamt_torch.models.layers import (TransformerLayer, extend_mask,
+                                              set_compute_dtype)
+
+    cfg = ModelConfig(hidden_size=64, num_attention_heads=4, intermediate_size=128,
+                      dtype="bfloat16", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    layer = TransformerLayer(cfg)
+    set_compute_dtype(layer, torch.bfloat16)
+    x = torch.randn(3, 20, 64)
+    mask = torch.ones(3, 20, dtype=torch.bool)
+    mask[1, 15:] = False
+    outs = {}
+    for dev in ("cpu", cuda):
+        lay = TransformerLayer(cfg).to(dev)
+        lay.load_state_dict(layer.state_dict())
+        set_compute_dtype(lay, torch.bfloat16)
+        xi = x.detach().to(dev).requires_grad_()
+        n0 = dict(tops.launch_counts)
+        out = lay(xi, extend_mask(mask.to(dev), torch.bfloat16))
+        out.float().pow(2).sum().backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert {k: tops.launch_counts[k] - n0[k] for k in n0} == {
+                "attention_fwd": 1, "attention_bwd": 1}
+        assert out.dtype == torch.bfloat16 and xi.grad.dtype == torch.float32
+        outs[str(dev)] = (out.float().cpu(), xi.grad.cpu())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _rel_err(got, want) <= 2.0 ** -6
+
+
+def test_packed_il_update_launches_on_the_card(cuda):
+    """One tiny packed IL update on the card, in fp32 and bf16: exactly
+    packed_il_mix's launches, and a finite loss."""
+    from vln_hamt_torch.agents.agent import HAMTAgent
+    from vln_hamt_torch.run.profile_attention import packed_il_mix
+    from vln_hamt_torch.run.finetune import build_synthetic_dataset
+    from vln_hamt_torch.configs import get_preset
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_preset("r2r").replace(
+            model={"hidden_size": 64, "num_attention_heads": 4, "intermediate_size": 128,
+                   "num_l_layers": 2, "num_x_layers": 1, "num_h_pano_layers": 1,
+                   "image_feat_size": 32, "max_position_embeddings": 128,
+                   "max_action_steps": 32, "dtype": dtype},
+            env={"max_action_len": 12, "max_instr_len": 32, "image_feat_size": 32},
+            train={"batch_size": 4, "feedback": "teacher"})
+        cfg, env, _ = build_synthetic_dataset(cfg)
+        agent = HAMTAgent(cfg, env, seed=0, device=cuda)
+        agent.enable_feature_table()
+        agent.enable_packed_il()
+        fwd, bwd = packed_il_mix(cfg, agent._packer.text_cap)
+        n0 = dict(tops.launch_counts)
+        out = agent.train_iteration("teacher")
+        assert {k: tops.launch_counts[k] - n0[k] for k in n0} == {
+            "attention_fwd": sum(fwd.values()), "attention_bwd": sum(bwd.values())}, dtype
+        assert out["episodes"] >= 4 and torch.isfinite(torch.tensor(out["loss"]))

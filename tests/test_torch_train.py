@@ -71,7 +71,8 @@ def train_test_setup(monkeypatch):
     torch.set_num_threads(prev)
 
 
-def tiny_cfg(cls, world, fix=True, dropout=False, optim="adamw", lr=1e-3, no_lang_ca=False):
+def tiny_cfg(cls, world, fix=True, dropout=False, optim="adamw", lr=1e-3, no_lang_ca=False,
+             max_action_len=6):
     feat_dim = world.feat_db.feat_dim
     max_deg = max(g.max_degree for g in world.graphs.values())
     model = {"hidden_size": 64, "num_attention_heads": 4, "intermediate_size": 128,
@@ -83,7 +84,7 @@ def tiny_cfg(cls, world, fix=True, dropout=False, optim="adamw", lr=1e-3, no_lan
         model.update(NO_DROPOUT)
     return cls().replace(
         model=model,
-        env={"max_action_len": 6, "max_instr_len": 24, "max_candidates": max_deg,
+        env={"max_action_len": max_action_len, "max_instr_len": 24, "max_candidates": max_deg,
              "image_feat_size": feat_dim},
         train={"batch_size": 3, "lr": lr, "optim": optim, "feedback": "teacher"},
     )
@@ -286,8 +287,11 @@ def test_save_load_round_trip(tiny_world, tmp_path):
     other.fused_sample_update = False  # rollout-then-replay: the host-loop rollout's path
     with pytest.raises(NotImplementedError, match="ROADMAP item A10"):
         other.train_iteration("sample")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
-        other.enable_packed_il()
+    # a resumed agent goes on with packed IL (ported from ROADMAP item A9)
+    other.enable_packed_il()
+    out = other.train_iteration("teacher")
+    assert out["episodes"] > 0 and other.step == 2
+    assert other.optimizer.param_groups[0]["count"] == 2
 
 
 def test_cli_teacher_training_on_cpu(tmp_path):

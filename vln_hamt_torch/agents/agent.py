@@ -10,7 +10,9 @@ trains (:meth:`HAMTAgent.train_iteration`):
 
 - ``teacher`` feedback: the env rolls the ground-truth episode on the
   host, one teacher-forced episode forward on the device gives the
-  logits, and the summed CE loss steps both optimizers;
+  logits, and the summed CE loss steps both optimizers; with
+  :meth:`HAMTAgent.enable_packed_il` several teacher episodes ride each
+  slot of the episode loop back to back (``agents/packing.py``);
 - ``sample`` feedback (IL + A2C, agent_cmt.py:569-602): the IL loss of a
   teacher episode plus A2C on a sampling device rollout with in-loop
   nDTW rewards, differentiated through the rollout itself. Merged (the
@@ -44,22 +46,25 @@ from ..env.r2r_env import R2RNavEnv
 from ..models.convert import (critic_params_from_flax, load_reference_checkpoint,
                               merge_matching_params, params_from_flax)
 from ..models.hamt import init_hamt
-from ..models.layers import DropoutRNG, set_dropout_rng
+from ..models.layers import DropoutRNG, compute_dtype, set_dropout_rng
 from .losses import IGNORE_ID, a2c_loss, il_loss
 from .optim import OptaxOptimizer
-from .rollout import build_device_rollout, build_episode_forward
+from .packing import PackedILStream
+from .rollout import build_device_rollout, build_episode_forward, build_packed_il_forward
 
 
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller asks for another device; raises when
     the requested CUDA device is not there (no silent CPU fallback).
 
-    Also switches TF32 off for matmuls and cuDNN: the port runs fp32,
-    and its parity with the JAX package depends on full-precision
-    products.
+    Also switches TF32 off for matmuls and cuDNN: the fp32 paths' parity
+    with the JAX package depends on full-precision products; and keeps
+    bf16 products' sums in fp32 (no reduced-precision split-K), as
+    XLA's.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
@@ -76,6 +81,8 @@ class HAMTAgent:
     #: lanes of the rollout, one loop over B + B_il lanes
     #: (``_merged_sample_update_fn``; the CLI turns it on)
     merged_sample_update = False
+    #: ``teacher`` feedback trains on packed episodes (:meth:`enable_packed_il`)
+    packed_il = False
 
     def __init__(self, cfg: HAMTConfig, env: Optional[R2RNavEnv] = None,
                  seed: int = 0, device=None):
@@ -121,13 +128,14 @@ class HAMTAgent:
 
     # ------------------------------------------------------------------
     def enable_feature_table(self, env: Optional[R2RNavEnv] = None) -> None:
-        """Move the split's (N, V, D) pano features and the nav tables to
-        the device and switch the env into node-index mode: the env then
-        touches no features on the host, and each rollout step gathers
-        its panoramas from the resident table."""
+        """Move the split's (N, V, D) pano features, in the compute dtype
+        (bf16 halves the table), and the nav tables to the device and
+        switch the env into node-index mode: the env then touches no
+        features on the host, and each rollout step gathers its panoramas
+        from the resident table."""
         env = env or self.env
         table, offsets = build_feature_table(env.graphs, env.feat_db)
-        self._feat_table = torch.as_tensor(table, device=self.device)
+        self._feat_table = torch.as_tensor(table).to(self.device, self._feat_dtype)
         env.feat_offsets = offsets
         nav, nav_offs = build_nav_tables(env.graphs, self.cfg.env.max_candidates)
         if nav_offs != offsets:
@@ -268,12 +276,62 @@ class HAMTAgent:
         return out
 
     # ------------------------------------------------------------ train
-    def enable_packed_il(self, text_cap: Optional[int] = None) -> None:
-        raise NotImplementedError("packed IL is ROADMAP item A9")
+    def enable_packed_il(self) -> None:
+        """Pack teacher episodes densely into the IL episode loop
+        (``agents/packing.py``): several episodes ride each slot back to
+        back, so the fixed-T loop stops paying for episode padding (about
+        T / mean length more episodes per update at R2R lengths) with the
+        same per-episode estimator. Needs feature-table transport
+        (:meth:`enable_feature_table` first); changes
+        ``train_iteration('teacher')`` only. One packer per env object,
+        made when the agent first trains on it, so GT/aug alternation
+        keeps each env's episode queue apart (JAX ``enable_packed_il``,
+        agent.py:212-262)."""
+        if self._feat_table is None or self.env.feat_offsets is None:
+            raise ValueError("packed IL needs feature-table transport (enable_feature_table)")
+        self._packers: Dict[int, PackedILStream] = {}
+        self._packed_il_forward = build_packed_il_forward(self.model,
+                                                          ob_type=self.cfg.env.ob_type)
+        self.packed_il = True
+
+    @property
+    def _packer(self) -> PackedILStream:
+        """The current env's packed-IL stream."""
+        packer = self._packers.get(id(self.env))
+        if packer is None:
+            packer = PackedILStream(self.env)
+            self._packers[id(self.env)] = packer
+        return packer
+
+    def _pack_to_device(self, pack: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host pack -> device tensors (integers as int64 indices); the
+        normalizer ``n_episodes`` stays on the host."""
+        out = {}
+        for k, v in pack.items():
+            if k == "n_episodes":
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
+        return out
+
+    def _packed_il_loss(self, pack: Dict[str, torch.Tensor], n_episodes: float,
+                        weight: float) -> torch.Tensor:
+        """The summed CE of the packed forward over the live cells, times
+        ``weight / n_episodes``: the estimator of :meth:`_il_loss`, which
+        divides by its batch, its episode count (JAX ``_packed_il_loss``,
+        agent.py:461-471)."""
+        logits = self._packed_il_forward(pack, self._feat_table)
+        return il_loss(logits, pack["teacher"].T, IGNORE_ID) * weight / n_episodes
+
+    @property
+    def _feat_dtype(self) -> torch.dtype:
+        return compute_dtype(self.cfg.model)
 
     def _ep_to_device(self, ep: EpisodeBatch) -> Dict[str, torch.Tensor]:
         """A host teacher episode -> device tensors of the episode
-        forward's schema (``node_idx`` in feature-table mode)."""
+        forward's schema (``node_idx`` in feature-table mode; panorama
+        features cast to the compute dtype at the boundary, as the JAX
+        package's ``episode_to_device``)."""
         d = {"txt_ids": ep.txt_ids, "txt_mask": ep.txt_mask, "view_index": ep.view_index,
              "cand_point": ep.cand_point, "cand_ang": ep.cand_ang, "actions": ep.actions,
              "step_mask": ep.step_mask, "teacher": ep.teacher}
@@ -284,6 +342,8 @@ class HAMTAgent:
         out = {}
         for k, v in d.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
+            if k == "pano_feat":
+                t = t.to(self._feat_dtype)
             out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
         return out
 
@@ -381,7 +441,9 @@ class HAMTAgent:
                         sync: bool = True) -> Dict[str, Any]:
         """One optimizer step (agent_cmt.py:569-602).
 
-        ``teacher``: IL on the env's teacher episode (``teacher_weight``).
+        ``teacher``: IL on the env's teacher episode (``teacher_weight``),
+        or with :meth:`enable_packed_il` on the next pack, whose episode
+        count the result carries under ``episodes`` (a host int).
         ``sample``: IL (``ml_weight``) plus A2C on a sampling device
         rollout, merged or fused as the class attributes say. As in the
         JAX package the host takes the teacher episode first, then resets
@@ -393,7 +455,17 @@ class HAMTAgent:
         logging boundaries only.
         """
         feedback = feedback or self.cfg.train.feedback
-        if feedback == "teacher":
+        extra = {}
+        if feedback == "teacher" and self.packed_il:
+            # one packed update; the critic's optimizer steps on zero
+            # gradients, as in the unpacked update (weight decay applies)
+            pack = self._packer.next_pack()
+            extra["episodes"] = int(pack["n_episodes"])
+            dev_pack = self._pack_to_device(pack)
+            loss = self._update(lambda: (self._packed_il_loss(
+                dev_pack, float(pack["n_episodes"]), self.cfg.train.teacher_weight), {}))[0]
+            aux = {"IL_loss": loss}
+        elif feedback == "teacher":
             ep = self._ep_to_device(self.env.teacher_episode())
             loss = self._il_update(ep, self.cfg.train.teacher_weight)
             aux = {"IL_loss": loss}
@@ -413,12 +485,12 @@ class HAMTAgent:
             raise ValueError(f"bad feedback {feedback!r}")
         self.step += 1
         if not sync:
-            return {"loss": loss, **aux}
+            return {"loss": loss, **aux, **extra}
         out = {"loss": float(loss)}
         for k, v in aux.items():
             out[k] = float(v)
             self.logs[k].append(out[k])
-        return out
+        return {**out, **extra}
 
     # --------------------------------------------- weight initialization
     def _install_params(self, partial: Mapping[str, torch.Tensor],

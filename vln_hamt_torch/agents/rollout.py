@@ -2,8 +2,10 @@
 ``vln_hamt_tpu/agents/rollout.py``: the device rollout
 (:func:`build_device_rollout`), greedy for evaluation or sampled with
 the in-loop R2R reward for the ``sample`` update, optionally with
-teacher-forced IL lanes in the same loop; and the teacher-forced episode
-of IL training and of the A2C replay (:func:`build_episode_forward`).
+teacher-forced IL lanes in the same loop; the teacher-forced episode
+of IL training and of the A2C replay (:func:`build_episode_forward`);
+and its packed twin, several episodes back to back per slot
+(:func:`build_packed_il_forward`, ``agents/packing.py``).
 
 The reference interleaves per-step GPU forwards with Python list
 appends and simulator calls (``agent_cmt.py:248-529``). Here a whole
@@ -496,3 +498,74 @@ def build_episode_forward(model: HAMT, critic: Critic, ob_type: str = "pano"
                               hist_cache=hist_cache)
 
     return episode_forward
+
+
+def build_packed_il_forward(model: HAMT, ob_type: str = "pano"
+                            ) -> Callable[..., torch.Tensor]:
+    """The teacher-forced forward over a packed episode grid
+    (``vln_hamt_tpu/agents/rollout.py:build_packed_il_forward``,
+    :266-359): the per-step model of :func:`build_episode_forward`, but
+    each slot carries several episodes back to back
+    (``agents/packing.py``). One text encoding covers every packed
+    instruction; each cell's ``ep_id`` picks its episode's text (under
+    ``no_lang_ca`` from the (X+1, E, L, D) stack of per-layer states);
+    ``is_start`` cells reset the slot's history cache to ``[hist0]`` and
+    its length to 1; the new history token goes to the episode-local
+    slot ``local_t + 1`` of live cells only. Every episode sees at each
+    of its steps the text, history and observation the unpacked forward
+    shows it, so its logits are the unpacked ones (tested).
+
+    Returns packed_forward(pack, feat_table=None) -> logits (T, S, N)
+    float32, where ``pack`` holds device tensors of the pack schema
+    (``node_idx`` rows of ``feat_table``, or ``pano_feat``). IL only: no
+    critic, no bootstrap. The loop over T only enqueues work: nothing is
+    read back to the host.
+    """
+    cfg = model.config
+    device = next(model.parameters()).device
+    expand_obs = make_expand_obs(36, cfg.angle_feat_size, ob_type, device=device)
+
+    def packed_forward(pack: Dict[str, torch.Tensor],
+                       feat_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pano_feat = (feat_table[pack["node_idx"].long()] if "node_idx" in pack
+                     else pack["pano_feat"])  # (S, T, V, D)
+        s, t_steps = pack["actions"].shape
+        if t_steps > cfg.max_action_steps:
+            raise ValueError(f"pack of {t_steps} steps exceeds the history position "
+                             f"table ({cfg.max_action_steps})")
+        h_max = t_steps + 1
+
+        txt_all = model.encode_text(pack["txt_ids"], pack["txt_mask"])  # all E texts
+        hist0 = model.init_history(s)
+        reset_cache = torch.cat([hist0[:, None],
+                                 hist0.new_zeros((s, t_steps, cfg.hidden_size))], dim=1)
+        hist_cache = reset_cache
+        hist_len = torch.ones(s, dtype=torch.int32, device=device)
+        positions = torch.arange(h_max, device=device)
+        logits = []
+        for t in range(t_steps):
+            start, live = pack["is_start"][:, t], pack["live"][:, t]
+            hist_cache = torch.where(start[:, None, None], reset_cache, hist_cache)
+            hist_len = hist_len.masked_fill(start, 1)
+            ep_id = pack["ep_id"][:, t].long()
+            txt_e = txt_all[:, ep_id] if txt_all.dim() == 4 else txt_all[ep_id]
+            ob = expand_obs(pano_feat[:, t], pack["view_index"][:, t],
+                            pack["cand_point"][:, t], pack["cand_ang"][:, t])
+            lg, _ = model.plan(txt_e, pack["txt_mask"][ep_id], hist_cache,
+                               hist_mask(hist_len, h_max), ob["ob_img"], ob["ob_ang"],
+                               ob["ob_nav"], ob["ob_mask"])
+            action = pack["actions"][:, t].long()
+            act_ang = torch.gather(
+                ob["ob_ang"], 1, action[:, None, None].expand(-1, 1, ob["ob_ang"].shape[-1])
+            ).squeeze(1)
+            local_t = pack["local_t"][:, t]
+            new_tok = model.encode_history(ob["hist_img"], act_ang, local_t,
+                                           ob["pano_img"], ob["pano_ang"])
+            write = (positions[None, :] == local_t[:, None] + 1) & live[:, None]
+            hist_cache = torch.where(write[:, :, None], new_tok[:, None].to(hist_cache.dtype),
+                                     hist_cache)
+            hist_len = hist_len + live.to(hist_len.dtype)
+            logits.append(lg)
+        return torch.stack(logits)
+
+    return packed_forward

@@ -23,7 +23,12 @@ parameters with the per-step methods; its trunk is built without the
 action head (``action_head=False``), whose pretraining twin is a head
 of its own.
 
-The model runs fp32. ``.train()`` turns on the dropouts of the JAX
+The model computes in ``ModelConfig.dtype``, float32 or bfloat16 (the
+JAX package's ``dtype`` / ``param_dtype=float32`` split, see
+``models/layers.py``): in bfloat16 the text and history streams, the
+masks and the heads' activations are bf16 while the parameters, the
+action logits, the state and the critic's value stay fp32, with the
+casts where the JAX package puts them. ``.train()`` turns on the dropouts of the JAX
 package (hidden, attention-probability, feature, action-head and critic
 dropout; see ``models/layers.py`` for where the random draws come
 from), ``.eval()`` turns them off. The ``fix_*`` flags stop gradients as
@@ -42,12 +47,13 @@ import torch
 from torch import nn
 
 from ..configs import ModelConfig
-from .layers import (CrossModalLayer, Dropout, TransformerLayer, TransformerStack,
-                     extend_mask, run_layers)
+from .layers import (CrossModalLayer, Dropout, Embedding, LayerNorm, Linear,
+                     TransformerLayer, TransformerStack, compute_dtype, extend_mask,
+                     run_layers, set_compute_dtype)
 
 
-def _ln(d: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d, eps=1e-12)
+def _ln(d: int) -> LayerNorm:
+    return LayerNorm(d, eps=1e-12)
 
 
 def _frozen(flag: bool):
@@ -66,10 +72,10 @@ class TextEmbeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
-        self.LayerNorm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.word_embeddings = Embedding(cfg.vocab_size, d)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings, d)
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size, d)
+        self.LayerNorm = LayerNorm(d, eps=cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, txt_ids: torch.Tensor) -> torch.Tensor:
@@ -104,11 +110,11 @@ class ImageEmbeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d = cfg.hidden_size
-        self.img_linear = nn.Linear(cfg.image_feat_size, d)
+        self.img_linear = Linear(cfg.image_feat_size, d)
         self.img_layer_norm = _ln(d)
-        self.ang_linear = nn.Linear(cfg.angle_feat_size, d)
+        self.ang_linear = Linear(cfg.angle_feat_size, d)
         self.ang_layer_norm = _ln(d)
-        self.nav_type_embedding = nn.Embedding(3, d)
+        self.nav_type_embedding = Embedding(3, d)
         self.layer_norm = _ln(d)
 
 
@@ -118,18 +124,18 @@ class HistoryEmbeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d = cfg.hidden_size
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
-        self.img_linear = nn.Linear(cfg.image_feat_size, d)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))  # fp32 in every dtype
+        self.img_linear = Linear(cfg.image_feat_size, d)
         self.img_layer_norm = _ln(d)
-        self.ang_linear = nn.Linear(cfg.angle_feat_size, d)
+        self.ang_linear = Linear(cfg.angle_feat_size, d)
         self.ang_layer_norm = _ln(d)
-        self.position_embeddings = nn.Embedding(cfg.max_action_steps, d)
-        self.type_embedding = nn.Embedding(1, d)
+        self.position_embeddings = Embedding(cfg.max_action_steps, d)
+        self.type_embedding = Embedding(1, d)
         self.layer_norm = _ln(d)
         if cfg.hist_enc_pano:
-            self.pano_img_linear = nn.Linear(cfg.image_feat_size, d)
+            self.pano_img_linear = Linear(cfg.image_feat_size, d)
             self.pano_img_layer_norm = _ln(d)
-            self.pano_ang_linear = nn.Linear(cfg.angle_feat_size, d)
+            self.pano_ang_linear = Linear(cfg.angle_feat_size, d)
             self.pano_ang_layer_norm = _ln(d)
             self.pano_encoder = TransformerStack(cfg, cfg.num_h_pano_layers)
 
@@ -142,10 +148,10 @@ class MLP2Head(nn.Module):
 
     def __init__(self, d_in: int, d: int, out: int, dropout: Optional[float]):
         super().__init__()
-        layers = [nn.Linear(d_in, d), nn.ReLU(), _ln(d)]
+        layers = [Linear(d_in, d), nn.ReLU(), _ln(d)]
         if dropout is not None:
             layers.append(Dropout(dropout))
-        self.net = nn.Sequential(*layers, nn.Linear(d, out))
+        self.net = nn.Sequential(*layers, Linear(d, out))
 
     def forward(self, x):
         return self.net(x)
@@ -154,11 +160,8 @@ class MLP2Head(nn.Module):
 class HAMT(nn.Module):
     def __init__(self, cfg: ModelConfig, action_head: bool = True):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"compute dtype {cfg.dtype!r}: the port runs float32 "
-                "(bfloat16 compute is ROADMAP item A8)")
         self.config = cfg
+        self.compute_dtype = compute_dtype(cfg)
         self.embeddings = TextEmbeddings(cfg)
         self.encoder = Encoder(cfg)
         self.img_embeddings = ImageEmbeddings(cfg)
@@ -167,6 +170,7 @@ class HAMT(nn.Module):
         self.next_action = MLP2Head(d, d, 1, cfg.pred_head_dropout_prob) if action_head else None
         self.hidden_dropout = Dropout(cfg.hidden_dropout_prob)
         self.feat_drop = Dropout(cfg.feat_dropout)  # visual features (model_HAMT.py:18)
+        set_compute_dtype(self, self.compute_dtype)
 
     # ------------------------------------------------------------------
     def encode_text(self, txt_ids: torch.Tensor, txt_mask: torch.Tensor) -> torch.Tensor:
@@ -176,7 +180,7 @@ class HAMT(nn.Module):
         states when ``no_lang_ca`` (precomputed lang stream).
         """
         cfg = self.config
-        ext = extend_mask(txt_mask)
+        ext = extend_mask(txt_mask, self.compute_dtype)
         with _frozen(cfg.fix_lang_embedding or not cfg.update_lang_bert):
             x = self.embeddings(txt_ids)
             x = run_layers(self.encoder.layer, x, ext)
@@ -194,7 +198,7 @@ class HAMT(nn.Module):
         he = self.hist_embeddings
         with _frozen(self.config.fix_hist_embedding):
             type_ids = torch.zeros(batch_size, dtype=torch.long, device=he.cls_token.device)
-            cls = he.cls_token.view(1, -1) + he.type_embedding(type_ids)
+            cls = he.cls_token.view(1, -1).to(self.compute_dtype) + he.type_embedding(type_ids)
             return self.hidden_dropout(he.layer_norm(cls))
 
     def encode_history(
@@ -269,7 +273,8 @@ class HAMT(nn.Module):
         """The history-only stack, if the model has one."""
         if self.encoder.h_layers is None:
             return hist_tokens
-        return run_layers(self.encoder.h_layers, hist_tokens, extend_mask(hist_mask))
+        return run_layers(self.encoder.h_layers, hist_tokens,
+                          extend_mask(hist_mask, self.compute_dtype))
 
     def fuse(self, txt_embeds: torch.Tensor, txt_mask: torch.Tensor, visn: torch.Tensor,
              visn_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -278,7 +283,9 @@ class HAMT(nn.Module):
         is (B, L, D), or under ``no_lang_ca`` the (X+1, B, L, D) stack of
         :meth:`encode_text`, whose layer ``i`` reads state ``i``; masks
         are (B, L) and (B, M) booleans. Returns (text, visual) outputs."""
-        return self._x_layers(txt_embeds, extend_mask(txt_mask), visn, extend_mask(visn_mask))
+        dt = self.compute_dtype
+        return self._x_layers(txt_embeds, extend_mask(txt_mask, dt), visn,
+                              extend_mask(visn_mask, dt))
 
     def _x_layers(self, txt_embeds, ext_txt, visn, ext_visn):
         no_lang_ca = self.config.no_lang_ca
@@ -319,9 +326,10 @@ class HAMT(nn.Module):
         """
         cfg = self.config
         enc = self.encoder
-        ext_hist = extend_mask(hist_mask)
-        ext_ob = extend_mask(ob_mask)
-        ext_txt = extend_mask(txt_mask)
+        dt = self.compute_dtype
+        ext_hist = extend_mask(hist_mask, dt)
+        ext_ob = extend_mask(ob_mask, dt)
+        ext_txt = extend_mask(txt_mask, dt)
 
         hist = hist_tokens
         if enc.h_layers is not None:
@@ -368,8 +376,9 @@ class Critic(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.state2value = nn.Sequential(nn.Linear(cfg.hidden_size, 512), nn.ReLU(),
-                                         Dropout(cfg.critic_dropout), nn.Linear(512, 1))
+        self.state2value = nn.Sequential(Linear(cfg.hidden_size, 512), nn.ReLU(),
+                                         Dropout(cfg.critic_dropout), Linear(512, 1))
+        set_compute_dtype(self, compute_dtype(cfg))
 
     def forward(self, state: torch.Tensor) -> torch.Tensor:
         return self.state2value(state).squeeze(-1).float()

@@ -15,6 +15,20 @@ is a reference NavCMT state dict (``models/convert.py``). Every
 attention goes through :func:`vln_hamt_torch.ops.fused_attention`: the
 CUDA kernels on the card, their plain torch twins on the CPU.
 
+Compute dtype (``ModelConfig.dtype``) follows flax's ``dtype=bfloat16,
+param_dtype=float32``: parameters stay fp32 ``nn.Parameter``s under
+their reference names (so ``models/convert.py``, checkpoints and the
+optimizers see fp32 alone) and :class:`Linear`, :class:`LayerNorm` and
+:class:`Embedding` cast at the point of use: a Linear casts its input,
+weight and bias to the compute dtype on every call, a LayerNorm takes
+its statistics in fp32 and returns the compute dtype (flax 0.12's
+``force_float32_reductions``), an Embedding returns its rows in it.
+:func:`set_compute_dtype` hands the dtype to every such module below a
+model; in fp32 every cast is a no-op. Two elementwise chains run in
+fp32 and round once, as XLA's fusions do: the GELU and the residual sum
+before each post-LN (``tests/test_torch_bf16.py`` holds the result
+against the JAX package's bf16).
+
 Dropout follows ``nn.Module.train()`` / ``.eval()``. In training mode
 every draw comes from the :class:`DropoutRNG` that
 :func:`set_dropout_rng` hands to the modules (the agent owns it), never
@@ -29,15 +43,66 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs import ModelConfig
 from ..ops.attention import fused_attention
 
 
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The activations' dtype of ``cfg``: bfloat16 or float32."""
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute dtype {cfg.dtype!r}: float32 or bfloat16")
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in the compute dtype (flax ``nn.Dense``): input,
+    weight and bias cast on every call."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with fp32 statistics and affine terms, returning
+    the compute dtype (flax ``nn.LayerNorm`` with ``dtype``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in the compute dtype (flax
+    ``nn.Embed`` with ``dtype``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Hand the compute dtype to every casting module below ``module``."""
+    for m in module.modules():
+        if isinstance(m, (Linear, LayerNorm, Embedding)):
+            m.compute_dtype = dtype
+
+
 def erf_gelu(x: torch.Tensor) -> torch.Tensor:
-    """x * 0.5 * (1 + erf(x / sqrt(2))) — parity vilmodel_cmt.py:22-28."""
-    return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    """x * 0.5 * (1 + erf(x / sqrt(2))) — parity vilmodel_cmt.py:22-28 —
+    returned in x's dtype, computed in fp32: one rounding where eager bf16
+    would round each of its four ops (XLA fuses the chain; rounding each
+    op makes the bf16 logits' distance from fp32 half as large again)."""
+    xf = x.float()
+    return (xf * 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
 
 
 ACT2FN = {"gelu": erf_gelu, "relu": torch.relu, "swish": nn.functional.silu}
@@ -82,7 +147,9 @@ class Dropout(nn.Module):
 
 
 def extend_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """(B, L) bool/int -> (B, 1, 1, L) additive mask with -10000 at pads."""
+    """(B, L) bool/int -> (B, 1, 1, L) additive mask with -10000 at pads,
+    built in ``dtype`` (bfloat16 rounds it to -9984, as the JAX
+    package's)."""
     m = mask.to(dtype)
     return ((1.0 - m) * -10000.0)[:, None, None, :]
 
@@ -100,9 +167,9 @@ class MultiHeadAttention(nn.Module):
         self.dropout_prob = cfg.attention_probs_dropout_prob
         self.rng: Optional[DropoutRNG] = None
         width = self.num_heads * self.head_dim
-        self.query = nn.Linear(cfg.hidden_size, width)
-        self.key = nn.Linear(cfg.hidden_size, width)
-        self.value = nn.Linear(cfg.hidden_size, width)
+        self.query = Linear(cfg.hidden_size, width)
+        self.key = Linear(cfg.hidden_size, width)
+        self.value = Linear(cfg.hidden_size, width)
 
     def forward(self, hidden: torch.Tensor, context: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -119,7 +186,8 @@ class MultiHeadAttention(nn.Module):
         else:
             add_mask = attn_mask.reshape(attn_mask.shape[0], -1)
         # attention-probability dropout runs inside the kernel, keyed by
-        # a fresh seed per call (layers.py:74-97 of the JAX package)
+        # a fresh seed per call (layers.py:74-97 of the JAX package); the
+        # fp32 output takes the compute dtype (layers.py:96)
         rate = self.dropout_prob if self.training else 0.0
         seed = _rng(self).attention_seed() if rate > 0.0 else None
         out = fused_attention(q, k, v, add_mask, rate, seed)
@@ -132,12 +200,13 @@ class AttnOutput(nn.Module):
 
     def __init__(self, cfg: ModelConfig, in_size: Optional[int] = None):
         super().__init__()
-        self.dense = nn.Linear(in_size or cfg.hidden_size, cfg.hidden_size)
+        self.dense = Linear(in_size or cfg.hidden_size, cfg.hidden_size)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dropout(self.dense(x)) + residual)
+        # the residual sum in fp32, fused into the LayerNorm as XLA fuses it
+        return self.LayerNorm(self.dropout(self.dense(x)).float() + residual.float())
 
 
 class Attention(nn.Module):
@@ -165,7 +234,7 @@ class Intermediate(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.dense = Linear(cfg.hidden_size, cfg.intermediate_size)
         self.act = ACT2FN[cfg.hidden_act]
 
     def forward(self, x):

@@ -16,7 +16,10 @@ Every forward has one shape per task (histories padded to
 ``max_hist_len``, observations to the 37-token pano layout or the
 candidate-first width); every attention goes through
 ``ops/attention.py:fused_attention`` (the CUDA kernels on the card).
-Losses are masked means on the device. ITM's negatives (in-batch indices
+Losses are masked means on the device, in fp32 under bfloat16 compute
+as well (``ModelConfig.dtype``; the heads run in the compute dtype and
+their outputs are cast to fp32 where the JAX package casts them). ITM's
+negatives (in-batch indices
 and shuffled history orders) come in the batch from the host batcher.
 """
 
@@ -33,7 +36,7 @@ from ..agents.losses import masked_log_softmax
 from ..configs import ModelConfig
 from ..data.angle import all_point_angle_feature
 from ..models.hamt import HAMT, MLP2Head, init_weights_
-from ..models.layers import erf_gelu
+from ..models.layers import LayerNorm, Linear, erf_gelu, set_compute_dtype
 from .tasks import TASK_NAMES
 from .trajectory_data import IGNORE_ID
 
@@ -43,8 +46,8 @@ Batch = Dict[str, torch.Tensor]
 class _Transform(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
 
 class _Predictions(nn.Module):
@@ -58,7 +61,9 @@ class MLMHead(nn.Module):
     """BertOnlyMLMHead (pretrain_cmt.py:96-99, vilmodel.py:288-295):
     dense, erf-GELU, LayerNorm, then the decoder tied to the word
     embeddings, plus a bias. Only ``predictions.transform.*`` and
-    ``predictions.bias`` carry weights."""
+    ``predictions.bias`` carry weights. The decoder's product runs in the
+    compute dtype; its logits are cast to fp32 before the fp32 bias
+    (``vln_hamt_tpu/pretrain/model.py:73-76``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -67,7 +72,7 @@ class MLMHead(nn.Module):
     def forward(self, hidden: torch.Tensor, word_embeddings: torch.Tensor) -> torch.Tensor:
         t = self.predictions.transform
         h = t.LayerNorm(erf_gelu(t.dense(hidden)))
-        return (h @ word_embeddings.t()).float() + self.predictions.bias
+        return (h @ word_embeddings.to(h.dtype).t()).float() + self.predictions.bias
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -90,6 +95,7 @@ class HAMTPretrain(nn.Module):
         self.sprel_head = MLP2Head(2 * d, d, 2, p)
         self.image_classifier = MLP2Head(d, d, cfg.image_prob_size, None)
         self.itm_head = MLP2Head(d, d, 1, None)
+        set_compute_dtype(self, self.bert.compute_dtype)
 
     # ------------------------------------------------------------------
     def _history(self, b: Batch, pos_ids: Optional[torch.Tensor] = None):

@@ -29,7 +29,7 @@ import torch
 from ..agents.agent import resolve_device
 from ..configs import ModelConfig
 from ..models.convert import pretrain_params_from_flax
-from ..models.layers import DropoutRNG, set_dropout_rng
+from ..models.layers import DropoutRNG, compute_dtype, set_dropout_rng
 from .model import HAMTPretrain, batch_to_device, init_pretrain
 from .optim import build_pretrain_optimizer, warmup_linear_schedule
 from .tasks import TASK_NAMES, PretrainBatcher
@@ -62,7 +62,9 @@ class PretrainTrainer:
     """Pretraining of a :class:`HAMTPretrain` on ``device`` (the card
     unless told otherwise). ``optim`` names the zoo's optimizer
     (``pretrain/optim.py``); ``feat_table`` (N, 36, D + P), when given,
-    lives on the device and the batchers' datasets must be in index mode
+    lives on the device in the compute dtype (bf16 under bfloat16
+    compute: half the memory, and MRC's prob-tail labels bf16-approximate,
+    as the JAX CLI's table) and the batchers' datasets must be in index mode
     (``TrajectoryDataset.set_feat_offsets``)."""
 
     def __init__(
@@ -86,8 +88,8 @@ class PretrainTrainer:
         self.batcher = batcher
         self.batch_size = batch_size
         self.scheduler = TaskScheduler(tasks, mix_ratio, seed)
-        self._feat_table = (None if feat_table is None
-                            else torch.as_tensor(feat_table, device=self.device))
+        self._feat_table = (None if feat_table is None else torch.as_tensor(feat_table).to(
+            self.device, compute_dtype(cfg)))
         self.model: HAMTPretrain = init_pretrain(cfg, seed).to(self.device)
         # dropout masks on the device, the attention kernels' seeds on the host
         self.dropout_rng = DropoutRNG(self.device, seed + 99)

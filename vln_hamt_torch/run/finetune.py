@@ -5,7 +5,8 @@ port of ``vln_hamt_tpu/run/finetune.py``.
         --anno_dir DIR --connectivity_dir DIR --img_ft_file FILE.hdf5 \\
         [--aug AUG.json] [--init_pretrain P.pt | --init_ref_ckpt REF.pt] \\
         [--resume_file latest.pt] \\
-        [--eval_first] [--feedback teacher] [--no_merged_sample] [--iters N --log_every K]
+        [--eval_first] [--feedback teacher [--packed_il]] [--no_merged_sample] [--bf16] \\
+        [--iters N --log_every K]
     python -m vln_hamt_torch.run.finetune --task rxr --synthetic [--valid_only] ...
 
 runs the task's preset at full width on the GPU (``--cpu`` runs on the
@@ -23,7 +24,10 @@ Training takes ``--iters`` updates with the preset's ``sample`` feedback
 (IL plus A2C on a sampling rollout; merged, or fused with
 ``--no_merged_sample``) or with ``--feedback teacher`` (IL alone); with
 ``--aug`` the updates of an interval alternate between the GT and the
-aug env. Every ``--log_every`` it appends the interval's loss,
+aug env. ``--packed_il`` packs several teacher episodes into each slot
+of the IL episode loop (teacher feedback only); ``--bf16`` computes in
+bfloat16 (parameters, optimizers and losses fp32, features bf16).
+Every ``--log_every`` it appends the interval's loss,
 episodes/s and MFU to ``metrics.jsonl`` (and its mean losses to
 ``train.txt``), evaluates the validation splits greedily, and writes
 ``latest.pt`` and, on a better selection score, ``best_val_unseen.pt``;
@@ -67,7 +71,7 @@ def _check_task(task: str) -> None:
 #: flags of the JAX CLI that the port does not run yet, with their
 #: ROADMAP item
 _UNPORTED_FLAGS = {
-    "bf16": "A8", "packed_il": "A9", "no_feat_table": "A10", "no_cand_backtrack": "A10",
+    "no_feat_table": "A10", "no_cand_backtrack": "A10",
     "sharded_feed": "A13", "data_shards": "A13", "model_shards": "A13",
     "orbax_ckpt": "A13", "obj_ft_file": "A11",
     "remat": "A19", "remat_policy": "A19", "rng_impl": "A20",
@@ -233,12 +237,13 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
           iters: Optional[int] = None, log_every: Optional[int] = None,
           eval_first: bool = False, resume_file: Optional[str] = None,
           merged_sample: bool = True, init_ref_ckpt: Optional[str] = None,
-          device=None) -> Dict[str, float]:
+          packed_il: bool = False, device=None) -> Dict[str, float]:
     """The train/validate loop (main.py:86-222) with the config's
     feedback; ``sample`` updates are merged (the JAX CLI's production
-    default) unless ``merged_sample`` is off, then fused. ``train_env``
-    may be a (train_env, aug_env) pair: the updates of an interval then
-    alternate between the two (main.py:150-161)."""
+    default) unless ``merged_sample`` is off, then fused; ``packed_il``
+    packs the ``teacher`` updates' episodes (one packer per env).
+    ``train_env`` may be a (train_env, aug_env) pair: the updates of an
+    interval then alternate between the two (main.py:150-161)."""
     os.makedirs(output_dir, exist_ok=True)
     logger = MetricsLogger(output_dir)
     record_file = os.path.join(output_dir, "train.txt")
@@ -253,6 +258,13 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
     _apply_weight_init(agent, init_ref_ckpt, record_file)
     _share_feature_table(agent, train_env,
                          ([aug_env] if aug_env is not None else []) + list(val_envs.values()))
+    if packed_il:
+        # the JAX CLI's guard (finetune.py:365-379); main() refuses
+        # --no_feat_table with it, and the agent packs from the table only
+        if cfg.train.feedback != "teacher":
+            raise ValueError("--packed_il applies to teacher feedback only (an interactive "
+                             "'sample' rollout has policy-dependent lengths)")
+        agent.enable_packed_il()
     if resume_file:
         agent.load(resume_file, resume_optimizer=cfg.train.resume_optimizer)
     with open(os.path.join(output_dir, "training_config.json"), "w") as f:
@@ -292,7 +304,8 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
         if not np.isfinite(vals).all():
             raise FloatingPointError(f"non-finite loss by iter {step}: {dict(zip(keys, vals.T))}")
         dt = train_t.last
-        eps_per_sec = interval * cfg.train.batch_size / dt
+        # a packed update trains a varying number of episodes
+        eps_per_sec = sum(o.get("episodes", cfg.train.batch_size) for o in outs) / dt
         logger.log(step, {"loss": float(vals[:, 0].mean()), "eps_per_sec": eps_per_sec,
                           "mfu": None if peak is None else interval * flops_per_iter / dt / peak})
         means = ", ".join(f"{k}={v:.4f}" for k, v in zip(keys, vals.mean(axis=0)))
@@ -401,7 +414,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain attention, no kernel)")
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (parameters, optimizers and losses fp32; the "
+                        "feature table bf16)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--remat_policy", default=None, choices=["full", "dots"])
     p.add_argument("--no_feat_table", action="store_true")
@@ -412,7 +427,11 @@ def parse_args(argv=None):
     p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"])
     p.add_argument("--orbax_ckpt", action="store_true")
     p.add_argument("--sharded_feed", action="store_true")
-    p.add_argument("--packed_il", action="store_true")
+    p.add_argument("--packed_il", action="store_true",
+                   help="pack several teacher episodes into each slot of the IL episode "
+                        "loop (agents/packing.py): about T / mean length more episodes "
+                        "per update, the same per-episode estimator; teacher feedback "
+                        "and the feature table only")
     p.add_argument("--data_shards", type=int, default=None)
     p.add_argument("--model_shards", type=int, default=None)
     return p.parse_args(argv)
@@ -421,6 +440,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     _check_task(args.task)
+    if args.packed_il and args.no_feat_table:
+        raise ValueError("--packed_il requires the feature table")
     for flag, item in _UNPORTED_FLAGS.items():
         value = getattr(args, flag)
         if value not in (None, False):
@@ -437,6 +458,8 @@ def main(argv=None):
     overrides = {key: getattr(args, key) for key in ("batch_size", "lr", "feedback")
                  if getattr(args, key) is not None}
     cfg = cfg.replace(train={**overrides, "seed": args.seed})
+    if args.bf16:
+        cfg = cfg.replace(model={"dtype": "bfloat16"})
     if args.tiny:
         cfg = cfg.replace(
             model={"hidden_size": 64, "num_attention_heads": 4,
@@ -467,7 +490,7 @@ def main(argv=None):
     best = train(cfg, train_env, train_val_envs, args.output_dir, iters=args.iters,
                  log_every=args.log_every, eval_first=args.eval_first,
                  resume_file=args.resume_file, merged_sample=not args.no_merged_sample,
-                 init_ref_ckpt=init_ckpt, device=device)
+                 init_ref_ckpt=init_ckpt, packed_il=args.packed_il, device=device)
     print(json.dumps({"best": best}, default=float))
     return best
 

@@ -20,7 +20,9 @@ trained: the fine-tuning presets' ``fix_lang_embedding`` and
 ``fix_hist_embedding`` do not apply to pretraining (the reference's
 pretraining config has neither; the JAX CLI takes them from the preset,
 ROADMAP §C). Features live on the device and batches ship table rows
-unless ``--no_feat_table``.
+unless ``--no_feat_table``. ``--bf16`` computes in bfloat16 (the JAX
+CLI's ``dtype="bfloat16"``: parameters, optimizer and losses fp32, the
+feature table bf16).
 
 Every ``valid_steps // 10`` steps it appends the task's loss, metrics
 and examples/s to ``metrics.jsonl``; every ``valid_steps`` (and at the
@@ -64,7 +66,7 @@ RXR_MIX = (5, 1, 1, 1, 2)
 
 #: flags of the JAX CLI that the port does not run yet, with their
 #: ROADMAP item
-_UNPORTED_FLAGS = {"bf16": "A8", "data_shards": "A13", "model_shards": "A13",
+_UNPORTED_FLAGS = {"data_shards": "A13", "model_shards": "A13",
                    "sharded_feed": "A13", "rng_impl": "A20"}
 
 
@@ -80,11 +82,14 @@ def parse_val_specs(entries: List[str]) -> Dict[str, List[str]]:
     return out
 
 
-def pretrain_model_config(preset: str, tiny: bool, max_txt_len: int) -> ModelConfig:
+def pretrain_model_config(preset: str, tiny: bool, max_txt_len: int,
+                          bf16: bool = False) -> ModelConfig:
     """The preset's model with every stack trained (no ``fix_*``);
-    ``tiny``: the JAX CLI's small model for smoke runs."""
+    ``tiny``: the JAX CLI's small model for smoke runs; ``bf16``:
+    bfloat16 compute."""
     mcfg = dataclasses.replace(get_preset(preset).model, fix_lang_embedding=False,
-                               fix_hist_embedding=False)
+                               fix_hist_embedding=False,
+                               dtype="bfloat16" if bf16 else "float32")
     if tiny:
         mcfg = dataclasses.replace(
             mcfg, hidden_size=64, num_attention_heads=4, intermediate_size=128,
@@ -193,7 +198,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain attention, no kernel)")
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (parameters, optimizer and losses fp32; the "
+                        "feature table bf16)")
     p.add_argument("--data_shards", type=int, default=None)
     p.add_argument("--model_shards", type=int, default=None)
     p.add_argument("--sharded_feed", action="store_true")
@@ -222,7 +229,7 @@ def resolve(args) -> ModelConfig:
     args.max_txt_len = args.max_txt_len or (250 if rxr else 80)
     if args.ob_cand_pano_view is None:
         args.ob_cand_pano_view = rxr
-    return pretrain_model_config(args.preset, args.tiny, args.max_txt_len)
+    return pretrain_model_config(args.preset, args.tiny, args.max_txt_len, args.bf16)
 
 
 def build(args, device) -> Tuple[PretrainTrainer, Dict[str, PretrainBatcher]]:

@@ -44,9 +44,11 @@ from ..agents.agent import resolve_device
 from ..ops import attention as attn
 from .profile_eval import slice_config
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 CUDA-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and FLOP/s by
+# the inputs' element size: fp32 on the CUDA cores (TF32 off, as the
+# port runs), bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+PEAK_FLOPS = {4: 67e12, 2: 989e12}
 
 Shape = Tuple[int, int]
 
@@ -90,22 +92,24 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 50, warmup: int = 3,
 def attention_bound_ms(b: int, h: int, lq: int, lk: int, dh: int, elt_bytes: int):
     """Least time for one forward launch, as (bytes ms, operations ms):
     q, k, v read once, the (B, Lk) fp32 mask read once, the fp32 output
-    written once, over HBM; and 4*B*H*Lq*Lk*Dh fp32 FLOPs over the CUDA
-    cores' peak."""
+    written once, over HBM; and 4*B*H*Lq*Lk*Dh FLOPs over the peak of
+    the inputs' type (:data:`PEAK_FLOPS`: bf16 inputs at the tensor
+    cores' rate, whatever the kernel computes in)."""
     nbytes = b * h * (lq + 2 * lk) * dh * elt_bytes + b * lk * 4 + b * h * lq * dh * 4
     flops = 4 * b * h * lq * lk * dh
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[elt_bytes] * 1e3
 
 
 def attention_bwd_bound_ms(b: int, h: int, lq: int, lk: int, dh: int, elt_bytes: int):
     """Least time for one backward launch, as (bytes ms, operations ms):
     q, k, v (input type), g (fp32) and the (B, Lk) fp32 mask read once,
     dq, dk, dv (input type) and dm (fp32) written once; 10*B*H*Lq*Lk*Dh
-    fp32 FLOPs (the recomputed scores, g v^T, dv, dq and dk)."""
+    FLOPs (the recomputed scores, g v^T, dv, dq and dk) over the peak of
+    the inputs' type."""
     qkv = b * h * (lq + 2 * lk) * dh * elt_bytes
     nbytes = 2 * qkv + b * h * lq * dh * 4 + 2 * b * lk * 4
     flops = 10 * b * h * lq * lk * dh
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[elt_bytes] * 1e3
 
 
 def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
@@ -128,14 +132,11 @@ def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
     n_ob = cfg.env.max_candidates + 1 + 36
     l_txt, l_pano, l_visn = cfg.env.max_instr_len, 36, t_max + 1 + n_ob
     n_x, n_p = mcfg.num_x_layers, mcfg.num_h_pano_layers
-    text_frozen = mcfg.fix_lang_embedding or not mcfg.update_lang_bert
-    lang_once = n_x if mcfg.no_lang_ca else 0  # the precomputed language half
     per_step = [(l_visn, l_txt), (l_visn, l_visn)]
     if not mcfg.no_lang_ca:
         per_step += [(l_txt, l_visn), (l_txt, l_txt)]
     fwd, bwd = collections.Counter(), collections.Counter()
-    fwd[(l_txt, l_txt)] += mcfg.num_l_layers + lang_once
-    bwd[(l_txt, l_txt)] += (0 if text_frozen else mcfg.num_l_layers) + lang_once
+    fwd[(l_txt, l_txt)], bwd[(l_txt, l_txt)] = text_launches(mcfg)
     fwd[(l_pano, l_pano)] += t_max * n_p
     if not mcfg.fix_hist_embedding:
         bwd[(l_pano, l_pano)] += (t_max - 1) * n_p
@@ -143,6 +144,36 @@ def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
         fwd[shape] += t_max * n_x
         bwd[shape] += t_max * n_x
     return fwd, +bwd
+
+
+def text_launches(mcfg) -> Tuple[int, int]:
+    """Attention launches of one text encoding (the text stack, and under
+    ``no_lang_ca`` the cross-modal layers' language half, precomputed),
+    forward and backward: the text stack runs backward unless
+    ``fix_lang_embedding`` (or ``update_lang_bert`` off) keeps it out of
+    the graph, the precomputed language half always."""
+    text_frozen = mcfg.fix_lang_embedding or not mcfg.update_lang_bert
+    lang_once = mcfg.num_x_layers if mcfg.no_lang_ca else 0
+    return (mcfg.num_l_layers + lang_once,
+            (0 if text_frozen else mcfg.num_l_layers) + lang_once)
+
+
+def packed_il_mix(cfg, text_cap: int) -> Tuple[collections.Counter, collections.Counter]:
+    """Attention launches of one packed IL update by (lanes, Lq, Lk),
+    forward and backward (``agents/rollout.py:build_packed_il_forward``):
+    :func:`launch_mix`'s IL update, with the one text encoding at the
+    pack's ``text_cap`` lanes and every per-step attention at the slots
+    (the batch). As in the unpacked update, the panorama encoder of the
+    last step takes no backward: no later step reads its token."""
+    fwd, bwd = launch_mix(cfg)
+    s, l_txt = cfg.train.batch_size, cfg.env.max_instr_len
+    out = []
+    for mix, n_text in zip((fwd, bwd), text_launches(cfg.model)):
+        lanes = collections.Counter({(s, *shape): n for shape, n in mix.items()})
+        lanes[(s, l_txt, l_txt)] -= n_text
+        lanes[(text_cap, l_txt, l_txt)] += n_text
+        out.append(+lanes)
+    return out[0], out[1]
 
 
 #: pretraining tasks whose loss reads the text output, and the visual

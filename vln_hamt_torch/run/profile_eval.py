@@ -1,16 +1,16 @@
 """Where the time of full-width greedy evaluation goes on the card.
 
     python -m vln_hamt_torch.run.profile_eval [--task r2r|r2r_last|r4r|rxr]
-        [--batch_size 32] [--out DIR]
+        [--batch_size 32] [--bf16] [--out DIR]
 
 Builds the evaluation that ``chip_smoke.py`` drives (the task's preset,
-``r2r`` by default, fp32, seeded random weights, synthetic world of 2
+``r2r`` by default, fp32 or with ``--bf16`` bfloat16, seeded random weights, synthetic world of 2
 scans x 36 nodes and 96 items), warms it up, then traces one ``eval_split_device`` with
 ``torch.profiler``. Prints one JSON line: wall time without and with
 the profiler, summed kernel time (one stream: the device is busy that
 long), the idle share against both wall times, and kernel time by group (the
 attention forward kernel, matrix products, the rest); writes the per-kernel
-table to ``DIR/profile_eval.txt``.
+table to ``DIR/profile_eval[_bf16].txt``.
 """
 
 from __future__ import annotations
@@ -59,7 +59,9 @@ def _group(name: str) -> str:
         return "attention_fwd_kernel"
     if "attention_bwd" in low:  # the backward kernel, its block-sum and dm passes
         return "attention_bwd_kernel"
-    if any(s in low for s in ("gemm", "gemv", "cutlass", "cublas", "matmul")):
+    # cuBLAS's Hopper bf16 products are named nvjet_* or *xmma*
+    if any(s in low for s in ("gemm", "gemv", "cutlass", "cublas", "matmul", "nvjet",
+                              "xmma")):
         return "matmul"
     return "other"
 
@@ -93,12 +95,14 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--task", default="r2r", choices=("r2r", "r2r_last", "r4r", "rxr"))
     p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="runs/profile_eval")
     args = p.parse_args(argv)
     device = resolve_device()  # the card; raises without one
 
     cfg, world = slice_config(args.batch_size, args.seed, args.task)
+    cfg = cfg.replace(model={"dtype": "bfloat16" if args.bf16 else "float32"})
     agent = HAMTAgent(cfg, slice_env(cfg, world, args.seed), seed=args.seed, device=device)
     agent.enable_feature_table()
     agent.eval_split_device()  # warm-up
@@ -117,12 +121,14 @@ def main(argv=None):
     kernels, groups = kernel_table(prof)
     busy_ms = sum(ms for _, ms, _ in kernels)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_eval.txt"), "w") as f:
+    with open(os.path.join(args.out, "profile_eval" + ("_bf16" if args.bf16 else "")
+                           + ".txt"), "w") as f:
         f.write(f"{'device ms':>10} {'launches':>9}  kernel\n")
         for name, ms, n in kernels:
             f.write(f"{ms:10.3f} {n:9d}  {name}\n")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "task": args.task, "batch": args.batch_size,
+        "dtype": cfg.model.dtype,
         "episodes": len(preds), "unprofiled_wall_ms": unprofiled_ms, "wall_ms": wall_ms,
         "kernel_ms": busy_ms,
         # kernel durations barely change under the tracer, the host's

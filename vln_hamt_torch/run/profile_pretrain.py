@@ -1,11 +1,11 @@
 """Where the time of full-width pretraining goes on the card.
 
     python -m vln_hamt_torch.run.profile_pretrain [--preset r2r|rxr] [--updates 30]
-        [--per_task 5] [--out DIR]
+        [--per_task 5] [--bf16] [--out DIR]
 
 Builds the pretraining that ``run/pretrain.py --synthetic`` runs and
 ``chip_smoke.py`` drives (the preset's model at full width, every stack
-trained, fp32, production dropout, batch 16, the JAX CLI's adamw with
+trained, fp32 or with ``--bf16`` bfloat16, production dropout, batch 16, the JAX CLI's adamw with
 warmup-linear and grad-norm 5, index-mode batches over the resident
 feature table, seeded random weights), warms it up with one update per
 task, times ``--per_task`` unprofiled updates of each task on host
@@ -18,7 +18,7 @@ per update, summed kernel time (one stream: the device is busy that
 long), the idle share against the unprofiled and the traced wall time,
 kernel time by group (matrix products, the attention forward and
 backward kernels, the rest), peak memory; writes each task's per-kernel
-table to ``DIR/profile_pretrain_{preset}_{task}.txt``.
+table to ``DIR/profile_pretrain_{preset}_{task}[_bf16].txt``.
 """
 
 from __future__ import annotations
@@ -83,10 +83,14 @@ def main(argv=None):
     p.add_argument("--preset", default="r2r", choices=("r2r", "rxr"))
     p.add_argument("--updates", type=int, default=30)
     p.add_argument("--per_task", type=int, default=5)
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="runs/profile_pretrain")
     args = p.parse_args(argv)
-    trainer, _ = slice_trainer(args.preset, seed=args.seed)  # the card; raises without one
+    # the card; raises without one
+    trainer, _ = slice_trainer(args.preset, seed=args.seed,
+                               extra=("--bf16",) if args.bf16 else ())
+    suffix = "_bf16" if args.bf16 else ""
     tasks = trainer.scheduler.tasks
     bs = trainer.batch_size
     for task in tasks:  # warm-up: allocator, cuBLAS handles
@@ -107,7 +111,8 @@ def main(argv=None):
         traced_ms = (time.perf_counter() - t0) * 1e3
         kernels, groups = kernel_table(prof)
         busy_ms = sum(ms for _, ms, _ in kernels)
-        with open(os.path.join(args.out, f"profile_pretrain_{args.preset}_{task}.txt"), "w") as f:
+        with open(os.path.join(args.out, f"profile_pretrain_{args.preset}_{task}{suffix}.txt"),
+                  "w") as f:
             f.write(f"{'device ms':>10} {'launches':>9}  kernel\n")
             for name, ms, n in kernels:
                 f.write(f"{ms:10.3f} {n:9d}  {name}\n")
@@ -117,7 +122,8 @@ def main(argv=None):
                       "idle_share_traced": 1.0 - busy_ms / traced_ms,
                       "kernel_launches": sum(n for *_, n in kernels), "groups": groups}
         print(json.dumps({"device": torch.cuda.get_device_name(0), "preset": args.preset,
-                          "task": task, "batch": bs, **rows[task]}), flush=True)
+                          "dtype": trainer.cfg.dtype, "task": task, "batch": bs,
+                          **rows[task]}), flush=True)
 
     # the mix as the CLI trains it: batch building and its prefetch are
     # inside the clock; one step first, so that a batch is in preparation
@@ -137,7 +143,8 @@ def main(argv=None):
                      for t, n in counts.items()) / args.updates
               for g in ("matmul", "attention_fwd_kernel", "attention_bwd_kernel", "other")}
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "preset": args.preset, "task": "mix",
+        "device": torch.cuda.get_device_name(0), "preset": args.preset,
+        "dtype": trainer.cfg.dtype, "task": "mix",
         "batch": bs, "updates": args.updates, "draw": dict(counts),
         "examples_per_s": bs * args.updates / seconds, "wall_ms": wall_ms,
         "kernel_ms_weighted": kernel_ms, "idle_share_unprofiled": 1.0 - kernel_ms / wall_ms,

@@ -1,23 +1,27 @@
 """Where the time of one full-width training update goes on the card.
 
     python -m vln_hamt_torch.run.profile_train [--task r2r|r2r_last|r4r|rxr]
-        [--feedback teacher|sample] [--no_merged_sample] [--batch_size B] [--out DIR]
+        [--feedback teacher|sample] [--no_merged_sample] [--packed_il] [--bf16]
+        [--batch_size B] [--out DIR]
 
 Builds the training that ``chip_smoke.py`` drives (the task's preset,
-``r2r`` by default, fp32, production dropout, adamw lr 1e-5, clip 40,
+``r2r`` by default, fp32 or with ``--bf16`` bfloat16, production
+dropout, adamw lr 1e-5, clip 40,
 the preset's batch unless ``--batch_size``, seeded random weights, the
 synthetic world of ``run/profile_eval.py:slice_config``) with IL
-(``teacher``, the default) or IL + A2C (``sample``: the merged update,
-or the fused one with ``--no_merged_sample``), warms it up with three
+(``teacher``, the default; packed with ``--packed_il``) or IL + A2C
+(``sample``: the merged update, or the fused one with
+``--no_merged_sample``), warms it up with three
 updates, times 20 unprofiled updates (as many as ``chip_smoke.py``'s
 ``train`` and ``sample`` phases: the host's pace varies, and the idle
 share rests on this wall time), then traces one ``train_iteration``
 with ``torch.profiler``. Prints one JSON line: wall time per update
-without and with the profiler, summed kernel time (one stream: the
+without and with the profiler, episodes per update and per second,
+summed kernel time (one stream: the
 device is busy that long), the idle share against both wall times, and
 kernel time by group (the attention forward and backward kernels,
 matrix products, the rest); writes the per-kernel table to
-``DIR/profile_train_{task}_{teacher|merged|fused}.txt``.
+``DIR/profile_train_{task}_{teacher|packed|merged|fused}[_bf16].txt``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ def main(argv=None):
     p.add_argument("--feedback", default="teacher", choices=("teacher", "sample"))
     p.add_argument("--no_merged_sample", action="store_true",
                    help="profile the fused sample update instead of the merged one")
+    p.add_argument("--packed_il", action="store_true",
+                   help="profile the packed IL update (teacher feedback)")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--batch_size", type=int, default=None, help="the preset's by default")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="runs/profile_train")
@@ -49,11 +56,16 @@ def main(argv=None):
 
     cfg, world = slice_config(args.batch_size or get_preset(args.task).train.batch_size,
                               args.seed, args.task)
-    cfg = cfg.replace(train={"feedback": args.feedback})
+    if args.packed_il and args.feedback != "teacher":
+        raise ValueError("--packed_il profiles the teacher update")
+    cfg = cfg.replace(train={"feedback": args.feedback},
+                      model={"dtype": "bfloat16" if args.bf16 else "float32"})
     agent = HAMTAgent(cfg, slice_env(cfg, world, args.seed), seed=args.seed, device=device)
     agent.merged_sample_update = not args.no_merged_sample
     agent.enable_feature_table()
-    update = ("teacher" if args.feedback == "teacher"
+    if args.packed_il:
+        agent.enable_packed_il()
+    update = ("packed" if args.packed_il else "teacher" if args.feedback == "teacher"
               else "fused" if args.no_merged_sample else "merged")
     for _ in range(3):  # warm-up
         agent.train_iteration(sync=False)
@@ -61,8 +73,8 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     n = 20
     t0 = time.perf_counter()
-    for _ in range(n):
-        agent.train_iteration(sync=False)
+    episodes = sum(agent.train_iteration(sync=False).get("episodes", cfg.train.batch_size)
+                   for _ in range(n))
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3 / n
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -76,13 +88,17 @@ def main(argv=None):
     kernels, groups = kernel_table(prof)
     busy_ms = sum(ms for _, ms, _ in kernels)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_train_{args.task}_{update}.txt"), "w") as f:
+    stem = f"profile_train_{args.task}_{update}" + ("_bf16" if args.bf16 else "")
+    with open(os.path.join(args.out, stem + ".txt"), "w") as f:
         f.write(f"{'device ms':>10} {'launches':>9}  kernel\n")
         for name, ms, k in kernels:
             f.write(f"{ms:10.3f} {k:9d}  {name}\n")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "task": args.task, "update": update,
-        "batch": cfg.train.batch_size, "peak_mem_gb": peak_gb, "t_max": cfg.env.max_action_len, "losses": out,
+        "dtype": cfg.model.dtype, "batch": cfg.train.batch_size, "peak_mem_gb": peak_gb,
+        "t_max": cfg.env.max_action_len, "losses": out,
+        "episodes_per_update": episodes / n,
+        "episodes_per_s": episodes / (unprofiled_ms * n / 1e3),
         "unprofiled_wall_ms_per_update": unprofiled_ms, "wall_ms": wall_ms,
         "kernel_ms": busy_ms,
         "idle_share_traced": 1.0 - busy_ms / wall_ms,
