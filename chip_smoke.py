@@ -139,8 +139,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. bf16    -- bfloat16 compute at full `r2r` width (ModelConfig.dtype,
                the CLI's --bf16; parameters, optimizers and losses fp32):
                greedy evaluation at batch 32 (exactly 279 forward launches
-               per batch), 3 warm-up and 20 timed IL updates at batch 8
-               (279 / 240), 3 warm-up and 20 timed merged sample updates
+               per batch), 3 warm-up and 10 timed IL updates at batch 8
+               (279 / 240), 3 warm-up and 10 timed merged sample updates
                (295 / 240), episodes/s and peak memory of each beside the
                fp32 phases' of this run; 15 updates on one repeated batch
                (dropout off): the loss must fall; card against CPU, both
@@ -152,7 +152,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                bf16_close of the card's fp32 answer, as in the pretrain
                phase (tests/test_torch_bf16.py's yardstick).
 14. packed_il -- packed IL (--packed_il) at full `r2r` width, 8 slots, T
-               15, 30 text rows, fp32 and bf16: 3 warm-up and 20 timed
+               15, 30 text rows, fp32 and bf16: 3 warm-up and 10 timed
                packed updates, episodes per update and episodes/s beside
                the unpacked IL update's of this run, and exactly
                packed_il_mix's launches (279 forward, the text stack's 9
@@ -160,6 +160,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                update's loss and gradients against the unpacked update's
                over the same episodes (fp32, dropout off); card against
                CPU for the packed loss and every gradient at 4 slots.
+15. hostloop -- the host-loop evaluators at full `r2r` width, batch 32,
+               fp32: eval_split (lock-step), eval_split_packed at
+               pipelines 4 and 1 and eval_split_device over the slice's
+               world give identical trajectories (viewpoints; headings
+               and elevations within 1e-6), episodes/s each, and exactly
+               9 attention launches per text encoding (a lock-step batch,
+               a packed group's first fill, each 8-row chunk of refilled
+               text rows) plus 18 per policy step; the packed evaluator's
+               dispatch runs under torch.cuda's sync debug mode "error"
+               (it never waits for the card); no_cand_backtrack through
+               eval_split and eval_split_packed, identical and never
+               revisiting a viewpoint; eval_split without the feature
+               table (panoramas shipped per step) identical to it with
+               the table. Then bf16: packed against lock-step, each
+               episode identical up to the first step where the two
+               part, their logits within the bf16 phase's tolerance at
+               every step through it.
+16. replay  -- the rollout-then-replay sample update at full `r2r` width,
+               fp32, production dropout, batch 8, T 15: with the device
+               rollout (merged and fused off) and with the host-loop
+               rollout (no feature table), one warm-up and 10 timed
+               updates each (sample episodes/s, peak memory, and exactly
+               the rollout's launches, 279 on the device or 9 + 18 per
+               policy step on the host loop, plus 279 + 279 + 16 forward
+               for the IL episode, the replay and its bootstrap, and 240
+               + 240 backward per update); with dropout on, the replay's
+               logits against the rollout's recorded ones within 2e-4;
+               card against CPU at batch 4, dropout off: an argmax
+               host-loop rollout's episode and rewards, and the replay
+               update's loss and every model and critic gradient within
+               train_parity's tolerances.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -175,7 +206,14 @@ mix (`r2r`), and its times weighted by the mix's launches by lanes and
 shape; per kernel its bf16 times (``bf16``: per path, weighted by the
 path's launches, the bound counting bf16 q, k, v bytes and the tensor
 cores' bf16 rate) and launches of
-the bf16 phases, and its packed-IL launches and times (``packed_il``).
+the bf16 phases, and its packed-IL launches and times (``packed_il``);
+its launches per batch of each host-loop evaluator (``hostloop``, the
+forward) and per replay update (``replay``, by rollout). The family
+times and the `rxr` pretraining mix's come in fp32 and bf16 (``bf16``
+under each preset). The bf16
+phases' lines carry the fp32 peak memory beside the bf16 one and the
+device kernels per update in both (torch.profiler, as
+run/profile_train.py counts them).
 The last is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing either.
@@ -193,8 +231,9 @@ import tempfile
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from vln_hamt_torch.agents.agent import HAMTAgent
+from vln_hamt_torch.agents.agent import HAMTAgent, _PackedEvalGroup
 from vln_hamt_torch.agents.losses import IGNORE_ID, il_loss
 from vln_hamt_torch.agents.packing import unpack_episodes
 from vln_hamt_torch.configs import get_preset
@@ -204,8 +243,8 @@ from vln_hamt_torch.pretrain.model import batch_to_device, init_pretrain
 from vln_hamt_torch.run import finetune
 from vln_hamt_torch.run.profile_attention import (
     bootstrap_mix, build_all, kernel_inputs, launch_mix, nvidia_smi, packed_il_mix, rel_err,
-    time_backward, time_forward, weighted)
-from vln_hamt_torch.run.profile_eval import slice_config, slice_env
+    text_launches, time_backward, time_forward, weighted)
+from vln_hamt_torch.run.profile_eval import kernel_table, slice_config, slice_env
 from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
 
 B, H, DH = 32, 12, 64
@@ -272,6 +311,14 @@ ZERO_GRAD_RTOL = 1e-4
 NO_DROPOUT = {"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
               "feat_dropout": 0.0, "pred_head_dropout_prob": 0.0, "critic_dropout": 0.0}
 BF16 = {"dtype": "bfloat16"}
+# host-loop evaluators: poses of identical trajectories (headings and
+# elevations are functions of the view index on every path)
+POSE_ATOL = 1e-6
+# the replay update: timed updates per rollout, and replayed against
+# recorded logits with dropout on (the JAX package's
+# test_rl_replay_matches_rollout_logits bound)
+REPLAY_UPDATES = 10
+REPLAY_LOGIT_ATOL = 2e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -552,7 +599,7 @@ def phase_family_kernels(dev, mixes):
     """Both kernels at each family preset's shapes, at its batch (the
     greedy batch and the bootstrap) and at twice it (the merged update's
     rollout and backward), against their plain twins (fp32 and bf16,
-    dropout off and on), timed in fp32 with dropout off. Per preset a
+    dropout off and on), timed in fp32 and bf16 with dropout off. Per preset a
     dict batch -> (forward rows, backward rows), and the largest forward
     and backward errors over all presets."""
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -568,7 +615,7 @@ def phase_family_kernels(dev, mixes):
                     for rate in (0.0, 0.1):
                         where = f"{task} B {b} ({lq},{lk})"
                         case = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate}
-                        timed = rate == 0.0 and dtype == torch.float32
+                        timed = rate == 0.0
                         err = check_fwd(q, k, v, m, seed, rate, where)
                         ferr = max(ferr, err)
                         frows.append({**case, "max_abs_err": err,
@@ -582,7 +629,8 @@ def phase_family_kernels(dev, mixes):
             for name, rows, mix in (("attention_fwd", frows, fwd_mix),
                                     ("attention_bwd", brows, bwd_mix)):
                 emit("kernels", kernel=name, preset=task, batch=b, heads=H, head_dim=DH,
-                     results=rows, weighted=kernel_times((rows, mix)))
+                     results=rows, weighted=kernel_times((rows, mix)),
+                     weighted_bf16=kernel_times((rows, mix), dtype="bfloat16"))
             out[task][b] = (frows, brows)
     return out, ferr, berr
 
@@ -726,6 +774,7 @@ def phase_pretrain(pmixes, tmp):
     peak = torch.cuda.max_memory_allocated() / 2**30
     draw_mix = mix_launches({t: mixes[t] for t in set(draw)},
                             {t: draw.count(t) / len(draw) for t in set(draw)})
+    kernels = task_kernels(trainer, tasks)
 
     # card against CPU, dropout off, per task at batch 2
     cpu_model = init_pretrain(cfg, seed=0)
@@ -774,7 +823,7 @@ def phase_pretrain(pmixes, tmp):
          warmup_losses=warm, updates=PRETRAIN_UPDATES, draw={t: draw.count(t) for t in tasks},
          seconds=seconds, examples_per_s=PRETRAIN_UPDATES * PRETRAIN_B / seconds,
          ms_per_update=seconds / PRETRAIN_UPDATES * 1e3, loss_mean=losses.mean().item(),
-         launches=launches, peak_mem_gb=peak,
+         launches=launches, peak_mem_gb=peak, kernels_per_update=kernels,
          launches_per_update={t: {"attention_fwd": sum(f.values()),
                                   "attention_bwd": sum(b.values())}
                               for t, (f, b) in mixes.items()},
@@ -800,7 +849,7 @@ def phase_pretrain(pmixes, tmp):
     trainer.close()
     del trainer
     torch.cuda.empty_cache()
-    bf16_launches, bf16_mix = phase_pretrain_bf16(mixes, table32)
+    bf16_launches, bf16_mix = phase_pretrain_bf16(mixes, table32, peak, kernels)
     return {name: {"batch": PRETRAIN_B, "updates": PRETRAIN_UPDATES,
                    "launches": launches[name],
                    "launches_per_update": {t: sum(m[i].values()) for t, m in mixes.items()},
@@ -884,9 +933,21 @@ def bf16_grads_close(card, cpu, fp32, what) -> dict:
             if others else None, "grads": per}
 
 
-def phase_pretrain_bf16(mixes, table32):
-    """The r2r preset's pretraining in bf16 (see the module docstring).
-    Returns its launches in the timed mix and the draw's mix."""
+def task_kernels(trainer, tasks):
+    """Device kernels of one update per task (torch.profiler), on a batch
+    built before the trace."""
+    out = {}
+    for task in tasks:
+        batch = trainer.batcher.batch(task, PRETRAIN_B)
+        out[task] = kernels_per_call(lambda: trainer.update(task, batch))
+    return out
+
+
+def phase_pretrain_bf16(mixes, table32, fp32_peak, fp32_kernels):
+    """The r2r preset's pretraining in bf16 (see the module docstring);
+    ``fp32_peak`` and ``fp32_kernels``: the fp32 part's peak memory and
+    kernels per update of each task. Returns its launches in the timed
+    mix and the draw's mix."""
     trainer, _ = slice_trainer("r2r", batch_size=PRETRAIN_B, seed=0, extra=("--bf16",))
     cfg, tasks = trainer.cfg, trainer.scheduler.tasks
     if cfg.dtype != "bfloat16" or trainer._feat_table.dtype != torch.bfloat16:
@@ -911,6 +972,7 @@ def phase_pretrain_bf16(mixes, table32):
     peak = torch.cuda.max_memory_allocated() / 2**30
     draw_mix = mix_launches({t: mixes[t] for t in set(draw)},
                             {t: draw.count(t) / len(draw) for t in set(draw)})
+    kernels = task_kernels(trainer, tasks)
 
     # card against CPU per task at batch 2, both bf16, dropout off; the
     # card's fp32 model on the same weights (and the fp32 table) answers
@@ -941,7 +1003,9 @@ def phase_pretrain_bf16(mixes, table32):
          updates=PRETRAIN_UPDATES, draw={t: draw.count(t) for t in tasks}, seconds=seconds,
          examples_per_s=PRETRAIN_UPDATES * PRETRAIN_B / seconds,
          ms_per_update=seconds / PRETRAIN_UPDATES * 1e3, loss_mean=losses.mean().item(),
-         launches=launches, peak_mem_gb=peak,
+         launches=launches, peak_mem_gb=peak, fp32_peak_mem_gb=fp32_peak,
+         kernels_per_update={t: {"float32": fp32_kernels[t], "bfloat16": kernels[t]}
+                             for t in tasks},
          parity={"batch": PRETRAIN_PARITY_B, "factor": BF16_FACTOR, "atol": BF16_ATOL,
                  "seconds": time.perf_counter() - t1, **parity})
     del trainer
@@ -1234,7 +1298,7 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
         agent.train_iteration("teacher", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    iters = 20
+    iters = 10  # 20 in the fp32 phases; the script's time limit
     reset_counts()
     t0 = time.perf_counter()
     losses = torch.stack([agent.train_iteration("teacher", sync=False)["loss"]
@@ -1247,7 +1311,9 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
                              f"{losses.tolist()}")
     runs["il"] = {"batch": TRAIN_B, "updates": iters, "episodes_per_s": iters * TRAIN_B / seconds,
                   "ms_per_update": seconds / iters * 1e3, "loss_mean": losses.mean().item(),
-                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                  "kernels_per_update": kernels_per_call(
+                      lambda: agent.train_iteration("teacher"))}
     del agent
 
     scfg = cfg.replace(model=BF16, train={"batch_size": TRAIN_B, "feedback": "sample"})
@@ -1266,7 +1332,9 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
                       "episodes_per_s": iters * TRAIN_B / seconds,
                       "ms_per_update": seconds / iters * 1e3,
                       **{f"{k}_mean": v.mean().item() for k, v in losses.items()},
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "kernels_per_update": kernels_per_call(
+                          lambda: agent.train_iteration("sample"))}
     del agent
 
     # one repeated batch, dropout off, lr 1e-4: the loss must fall
@@ -1282,6 +1350,11 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
     emit("bf16", preset="r2r", hidden=cfg.model.hidden_size, **runs,
          fp32=fp32, bf16_over_fp32_episodes_per_s={
              k: runs[k]["episodes_per_s"] / fp32[k]["episodes_per_s"] for k in runs},
+         bf16_over_fp32_peak_mem={k: runs[k]["peak_mem_gb"] / fp32[k]["peak_mem_gb"]
+                                  for k in runs},
+         kernels_per_update={k: {"float32": fp32[k]["kernels_per_update"],
+                                 "bfloat16": runs[k]["kernels_per_update"]}
+                             for k in ("il", "sample")},
          launches=launches, overfit_losses=fit.tolist(),
          seconds=time.perf_counter() - t_phase)
     bf16_runs = runs
@@ -1316,7 +1389,7 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
          losses_fp32=f_loss, loss=bf16_close(g_loss, c_loss, f_loss, "bf16 IL losses"),
          tensors=len(c_grads), **bf16_grads_close(g_grads, c_grads, f_grads, "bf16 IL"),
          seconds=time.perf_counter() - t_parity)
-    return launches, bf16_runs
+    return launches, bf16_runs, tol
 
 
 def loss_and_grads(agent, loss_fn):
@@ -1340,7 +1413,7 @@ def phase_packed(cfg, world, pmix, unpacked):
     t_phase = time.perf_counter()
     per = {"attention_fwd": sum(pmix[0].values()), "attention_bwd": sum(pmix[1].values())}
     runs, launches = {}, {}
-    iters = 20
+    iters = 10  # 20 in the fp32 phases; the script's time limit
     for dtype in ("float32", "bfloat16"):
         pcfg = cfg.replace(model={"dtype": dtype},
                            train={"batch_size": TRAIN_B, "feedback": "teacher"})
@@ -1424,6 +1497,341 @@ def phase_packed(cfg, world, pmix, unpacked):
          grad_rel_tol=TRAIN_GRAD_REL, grad_floor=TRAIN_GRAD_FLOOR,
          seconds=time.perf_counter() - t_grads)
     return launches
+
+
+def kernels_per_call(fn) -> int:
+    """Device kernels one call of ``fn`` launches, from a torch.profiler
+    trace as run/profile_train.py counts them."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(n for *_, n in kernel_table(prof)[0])
+
+
+class HostLoopCounter:
+    """Counts an agent's host-loop policy steps and text encodings, the
+    calls whose attention launches the evaluators' formulas count."""
+
+    def __init__(self, agent):
+        self.steps = self.texts = 0
+        step, encode = agent._policy_step, agent.model.encode_text
+
+        def counted_step(*args, **kw):
+            self.steps += 1
+            return step(*args, **kw)
+
+        def counted_encode(*args, **kw):
+            self.texts += 1
+            return encode(*args, **kw)
+
+        agent._policy_step, agent.model.encode_text = counted_step, counted_encode
+
+    def reset(self) -> None:
+        self.steps = self.texts = 0
+
+
+class LogitRecorder:
+    """Keeps the host-loop policy steps' logits (host copies) by
+    (instr_id, step) of each live slot, the first record of each (the
+    kept prediction's); ``rec`` is emptied by the caller per run."""
+
+    def __init__(self, agent):
+        self.rec = {}
+        step, packed_step = agent._policy_step, agent._packed_policy_step
+        group = []
+
+        def packed(g, step_ins):  # the packed step's env: its group's
+            group.append(g)
+            try:
+                return packed_step(g, step_ins)
+            finally:
+                group.pop()
+
+        def recorded(*args, **kw):
+            out = step(*args, **kw)
+            env = group[-1].env if group else agent.env
+            t = args[4].expand(len(env.batch)).tolist()
+            live, logits = kw["live"].tolist(), out[1].float().cpu()
+            for i, item in enumerate(env.batch):
+                if live[i]:
+                    self.rec.setdefault((item["instr_id"], t[i]), logits[i])
+            return out
+
+        agent._policy_step, agent._packed_policy_step = recorded, packed
+
+
+def by_instr(preds):
+    return {p["instr_id"]: p["trajectory"] for p in preds}
+
+
+def same_trajectories(a, b, what) -> None:
+    """Identical predictions: the same items and viewpoints, headings and
+    elevations within POSE_ATOL."""
+    a, b = by_instr(a), by_instr(b)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: different items predicted")
+    for k in a:
+        if [x[0] for x in a[k]] != [x[0] for x in b[k]] or any(
+                abs(ha - hb) > POSE_ATOL or abs(ea - eb) > POSE_ATOL
+                for (_, ha, ea), (_, hb, eb) in zip(a[k], b[k])):
+            raise AssertionError(f"{what}: trajectories of {k} differ: {a[k]} vs {b[k]}")
+
+
+def revisits(preds) -> int:
+    return sum(len(vps) - len(set(vps)) for vps in
+               ([x[0] for x in p["trajectory"]] for p in preds))
+
+
+def compare_hostloop_bf16(a, b, rec_a, rec_b, t_max, tol, what):
+    """Two bf16 evaluations of one split: each episode takes the same path
+    until the two part, and their logits agree within ``tol`` at every
+    step through the first parting step (the same history and observation
+    on both sides up to there). Returns the largest logit difference and
+    the episodes that parted."""
+    a, b = by_instr(a), by_instr(b)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: different items predicted")
+    err, parted = 0.0, 0
+    for k in a:
+        va, vb = [x[0] for x in a[k]], [x[0] for x in b[k]]
+        last = t_max - 1
+        if va != vb:
+            n = next((i for i in range(min(len(va), len(vb))) if va[i] != vb[i]),
+                     min(len(va), len(vb)))
+            last, parted = n - 1, parted + 1
+        for s in range(last + 1):
+            if (k, s) not in rec_a and (k, s) not in rec_b and va == vb:
+                continue
+            x, y = rec_a[(k, s)], rec_b[(k, s)]
+            fin = torch.isfinite(y)
+            if not torch.equal(torch.isfinite(x), fin):
+                raise AssertionError(f"{what}: logits of {k} step {s} -inf at other places")
+            err = max(err, (x[fin] - y[fin]).abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"{what}: logits differ by {err} > {tol}")
+    return err, parted
+
+
+def timed_eval(agent, count, fn, per_batch, text, per_step, what):
+    """One evaluation from zeroed counts: its predictions, seconds and
+    launches, raising unless the forward launches are the formula's: the
+    device rollout's ``per_batch`` per text encoding (one per batch), a
+    host loop's ``text`` per text encoding plus ``per_step`` per policy
+    step; no backward."""
+    torch.cuda.synchronize()
+    reset_counts()
+    count.reset()
+    t0 = time.perf_counter()
+    preds = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = dict(attn.launch_counts)
+    formula = (per_batch * count.texts if count.steps == 0
+               else text * count.texts + per_step * count.steps)
+    if got != {"attention_fwd": formula, "attention_bwd": 0}:
+        raise AssertionError(f"{what}: launches {got}, formula {formula} ({count.texts} text "
+                             f"encodings, {count.steps} policy steps)")
+    return preds, seconds, {"measured": got["attention_fwd"], "formula": formula,
+                            "text_encodings": count.texts, "policy_steps": count.steps}
+
+
+def phase_hostloop(cfg, world, per_batch, bf16_tol):
+    """The host-loop evaluators at full r2r width (see the module
+    docstring); ``bf16_tol``: the bf16 phase's logit tolerance. Returns
+    each evaluator's fp32 launches."""
+    t_phase = time.perf_counter()
+    t_max = cfg.env.max_action_len
+    text = text_launches(cfg.model)[0]
+    per_step = (per_batch - text) // t_max
+    n_items = len(world.instr_data)
+
+    agent = HAMTAgent(cfg, slice_env(cfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    count = HostLoopCounter(agent)
+    # warm-up (pinned host blocks, the allocator), with every dispatch of
+    # the packed evaluator under the sync debug mode: a wait for the card
+    # there raises
+    dispatch = _PackedEvalGroup.dispatch
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # the mode is live: a read of the card raises
+        torch.ones(1, device="cuda").item()
+        raise AssertionError("sync debug mode let .item() pass")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    def strict_dispatch(group):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch(group)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    _PackedEvalGroup.dispatch = strict_dispatch
+    try:
+        agent.eval_split_packed(pipeline=4)
+    finally:
+        _PackedEvalGroup.dispatch = dispatch
+    runs, preds, launches = {}, {}, {}
+    for name, fn in (("lockstep", agent.eval_split),
+                     ("packed_p4", lambda: agent.eval_split_packed(pipeline=4)),
+                     ("packed_p1", lambda: agent.eval_split_packed(pipeline=1)),
+                     ("device", agent.eval_split_device)):
+        preds[name], seconds, launches[name] = timed_eval(
+            agent, count, fn, per_batch, text, per_step, f"hostloop {name}")
+        if len(preds[name]) != n_items:
+            raise AssertionError(f"hostloop {name}: {len(preds[name])} predictions for "
+                                 f"{n_items} items")
+        runs[name] = {"seconds": seconds, "episodes_per_s": n_items / seconds}
+    for name in ("packed_p4", "packed_p1", "device"):
+        same_trajectories(preds["lockstep"], preds[name], f"hostloop: lockstep vs {name}")
+    metrics, _ = agent.env.eval_metrics(preds["lockstep"])
+
+    nb = {"lockstep": agent.eval_split(no_cand_backtrack=True),
+          "packed_p4": agent.eval_split_packed(no_cand_backtrack=True)}
+    same_trajectories(nb["lockstep"], nb["packed_p4"], "hostloop no_cand_backtrack")
+    if revisits(nb["lockstep"]):
+        raise AssertionError(f"no_cand_backtrack: {revisits(nb['lockstep'])} revisits")
+    del agent
+
+    bare = HAMTAgent(cfg, slice_env(cfg, world, seed=0), seed=0)  # the same weights
+    count = HostLoopCounter(bare)
+    p, seconds, launches["lockstep_no_table"] = timed_eval(
+        bare, count, bare.eval_split, per_batch, text, per_step, "hostloop without the table")
+    same_trajectories(preds["lockstep"], p, "hostloop: lockstep with vs without the table")
+    runs["lockstep_no_table"] = {"seconds": seconds, "episodes_per_s": n_items / seconds}
+    del bare
+
+    bcfg = cfg.replace(model=BF16)
+    agent = HAMTAgent(bcfg, slice_env(bcfg, world, seed=0), seed=0)
+    agent.enable_feature_table()
+    count = HostLoopCounter(agent)
+    recorder = LogitRecorder(agent)
+    bpreds, recs, blaunches = {}, {}, {}
+    for name, fn in (("lockstep", agent.eval_split), ("packed_p4", agent.eval_split_packed)):
+        recorder.rec = recs[name] = {}
+        bpreds[name], _, blaunches[name] = timed_eval(agent, count, fn, per_batch, text,
+                                                      per_step, f"hostloop bf16 {name}")
+    del agent
+    err, parted = compare_hostloop_bf16(bpreds["lockstep"], bpreds["packed_p4"],
+                                        recs["lockstep"], recs["packed_p4"], t_max, bf16_tol,
+                                        "hostloop bf16 packed vs lockstep")
+    emit("hostloop", preset="r2r", hidden=cfg.model.hidden_size, batch=B, t_max=t_max,
+         episodes=n_items, **runs, launches=launches,
+         launches_formula={"per_text_encoding": text, "per_policy_step": per_step},
+         trajectories_identical=True, pose_atol=POSE_ATOL, sr=metrics["sr"],
+         revisits_greedy=revisits(preds["lockstep"]),
+         no_cand_backtrack={"trajectories_identical": True, "revisits": 0},
+         bf16={"launches": blaunches, "max_abs_logit_err": err, "tol": bf16_tol,
+               "episodes_parted": parted},
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def replay_gradients(agent, il_ep, extras, start):
+    """The replay update's loss and every model and critic gradient, in
+    training mode, no step."""
+    agent.model.train()
+    agent.critic.train()
+    loss, _ = agent._replay_sample_loss(il_ep, extras["ep"], extras, start)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
+             if p.grad is not None}
+    grads.update({"critic." + k: p.grad.detach().cpu()
+                  for k, p in agent.critic.named_parameters()})
+    return loss.item(), grads
+
+
+def phase_replay(cfg, world, per_batch, per_update_bwd, boot):
+    """The rollout-then-replay sample update at full r2r width (see the
+    module docstring). Returns its launches per update by rollout."""
+    t_phase = time.perf_counter()
+    text = text_launches(cfg.model)[0]
+    per_step = (per_batch - text) // cfg.env.max_action_len
+    scfg = cfg.replace(train={"batch_size": TRAIN_B, "feedback": "sample"})
+    runs, per_update = {}, {}
+    iters = REPLAY_UPDATES
+    for name, table in (("device_rollout", True), ("host_loop", False)):
+        agent = HAMTAgent(scfg, slice_env(scfg, world, seed=0), seed=0)
+        agent.merged_sample_update = agent.fused_sample_update = False
+        if table:
+            agent.enable_feature_table()
+        count = HostLoopCounter(agent)
+        agent.train_iteration("sample", sync=False)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        count.reset()
+        losses, seconds, launches = timed_sample_updates(agent, iters)
+        # the rollout (the device's whole batch, or the host loop's text
+        # and policy steps), then the IL episode, the replay and its
+        # bootstrap forward, and the IL episode's and the replay's backward
+        rollout = per_batch * iters if table else text * iters + per_step * count.steps
+        if count.texts != 3 * iters:  # the rollout's, the IL episode's and the replay's
+            raise AssertionError(f"replay {name}: {count.texts} text encodings")
+        want = {"attention_fwd": rollout + (2 * per_batch + boot) * iters,
+                "attention_bwd": 2 * per_update_bwd * iters}
+        if launches != want:
+            raise AssertionError(f"replay {name}: launches {launches}, expected {want}")
+        per_update[name] = {k: v / iters for k, v in launches.items()}
+        runs[name] = {"updates": iters, "seconds": seconds,
+                      "sample_episodes_per_s": iters * TRAIN_B / seconds,
+                      "ms_per_update": seconds / iters * 1e3,
+                      **{f"{k}_mean": v.mean().item() for k, v in losses.items()},
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": launches, "launches_per_update": per_update[name],
+                      "rollout_policy_steps": count.steps}
+        # dropout on: the replay from the rollout's dropout state
+        ep, ex, start = agent._sample_for_replay(table)
+        rec = ex["rollout_logits"]
+        with torch.no_grad():
+            agent.dropout_rng.set_state(start)
+            replay = agent.episode_forward(ep, agent._feat_table).logits[: rec.shape[0]]
+        fin = torch.isfinite(rec)
+        if not torch.equal(torch.isfinite(replay), fin):
+            raise AssertionError(f"replay {name}: logits -inf at other places")
+        err = (replay[fin] - rec[fin]).abs().max().item()
+        if not err <= REPLAY_LOGIT_ATOL:
+            raise AssertionError(f"replay {name}: replayed logits {err} from the rollout's")
+        runs[name]["replayed_logits_max_abs_err"] = err
+        del agent
+
+    # card against CPU, batch 4, dropout off: an argmax host-loop rollout
+    # (the sampling draws of two devices differ) and the replay update
+    pcfg = cfg.replace(model=NO_DROPOUT, train={"batch_size": 4, "feedback": "sample"})
+    res = {}
+    for device in ("cuda", "cpu"):
+        pagent = HAMTAgent(pcfg, slice_env(pcfg, world, seed=0), seed=0, device=device)
+        pagent.enable_feature_table()
+        il_ep = pagent._ep_to_device(pagent.env.teacher_episode())
+        pagent.model.train()
+        pagent.critic.train()
+        start = pagent.dropout_rng.get_state()
+        _, ex = pagent.interactive_rollout("argmax", record_for_replay=True)
+        loss, grads = replay_gradients(pagent, il_ep, ex, start)
+        res[device] = ({k: ex["ep"][k].cpu() for k in ("node_idx", "actions", "step_mask")},
+                       ex["rewards"].cpu(), loss, grads)
+        del pagent
+    (ep_g, rw_g, loss_g, grads_g), (ep_c, rw_c, loss_c, grads_c) = res["cuda"], res["cpu"]
+    for key in ep_c:
+        if not torch.equal(ep_g[key], ep_c[key]):
+            raise AssertionError(f"replay parity: card and CPU rollouts differ in {key}")
+    if not torch.allclose(rw_g, rw_c, rtol=REWARD_RTOL, atol=REWARD_ATOL):
+        raise AssertionError(f"replay parity: rewards {rw_g.tolist()} vs {rw_c.tolist()}")
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"replay parity: card vs CPU loss {loss_g} vs {loss_c}")
+    emit("replay", preset="r2r", hidden=cfg.model.hidden_size, batch=TRAIN_B,
+         t_max=cfg.env.max_action_len, **runs, replay_logit_atol=REPLAY_LOGIT_ATOL,
+         parity={"batch": 4, "trajectories_identical": True,
+                 "reward_max_abs_err": (rw_g - rw_c).abs().max().item(),
+                 "loss_cuda": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_err,
+                 "loss_rtol": TRAIN_LOSS_RTOL, "tensors": len(grads_c),
+                 "max_grad_err_over_tol": check_grads(grads_g, grads_c, "replay update"),
+                 "grad_rel_tol": TRAIN_GRAD_REL, "grad_floor": TRAIN_GRAD_FLOOR},
+         seconds=time.perf_counter() - t_phase)
+    return per_update
 
 
 def main() -> int:
@@ -1553,7 +1961,9 @@ def main() -> int:
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite IL losses {losses.tolist()}")
     fp32["il"] = {"episodes_per_s": iters * TRAIN_B / seconds,
-                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                  "kernels_per_update": kernels_per_call(
+                      lambda: agent.train_iteration("teacher"))}
     emit("train", preset="r2r", hidden=mcfg.hidden_size, batch=TRAIN_B, t_max=t_max,
          optim=tr.optim, lr=tr.lr, grad_clip=tr.grad_clip,
          dropout=[mcfg.hidden_dropout_prob, mcfg.attention_probs_dropout_prob,
@@ -1631,7 +2041,9 @@ def main() -> int:
         raise AssertionError(f"merged sample launches {merged_launches} over {iters} "
                              f"updates, expected {merged_per} per update")
     fp32["sample"] = {"episodes_per_s": iters * TRAIN_B / seconds,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "kernels_per_update": kernels_per_call(
+                          lambda: agent.train_iteration("sample"))}
     emit("sample", update="merged", preset="r2r", hidden=mcfg.hidden_size, batch=TRAIN_B,
          lanes=MERGED_B, t_max=t_max, optim=tr.optim, lr=tr.lr, grad_clip=tr.grad_clip,
          ml_weight=scfg.train.ml_weight, updates=iters, seconds=seconds,
@@ -1712,8 +2124,8 @@ def main() -> int:
          max_grad_err_over_tol=worst, launches=counts)
 
     # -------------------------------------------------------------- bf16
-    bf16_launches, bf16_runs = phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per,
-                                          fp32)
+    bf16_launches, bf16_runs, bf16_tol = phase_bf16(cfg, world, per_batch, per_update_bwd,
+                                                    merged_per, fp32)
 
     # --------------------------------------------------------- packed_il
     packed_mix = packed_il_mix(tcfg, PACKED_TEXT_CAP)
@@ -1723,6 +2135,12 @@ def main() -> int:
     packed_launches = phase_packed(cfg, world, packed_mix, {
         "float32": fp32["il"]["episodes_per_s"],
         "bfloat16": bf16_runs["il"]["episodes_per_s"]})
+
+    # ---------------------------------------------------------- hostloop
+    hostloop_launches = phase_hostloop(cfg, world, per_batch, bf16_tol)
+
+    # ------------------------------------------------------------ replay
+    replay_per_update = phase_replay(cfg, world, per_batch, per_update_bwd, boot)
 
     # ------------------------------------------------------------ family
     family_runs = {task: phase_family(task, family_mixes) for task in FAMILY + ("r2r_last",)}
@@ -1743,7 +2161,8 @@ def main() -> int:
                                                           "launches_per_update")}
             | lane_times(pretrain_kernels[name]["float32"], run["mix"]),
             "rxr": {"launches_per_update": run["rxr_launches_per_update"]}
-            | lane_times(pretrain_kernels[name]["float32"], rxr_mix)}
+            | lane_times(pretrain_kernels[name]["float32"], rxr_mix)
+            | {"bf16": lane_times(pretrain_kernels[name]["bfloat16"], rxr_mix, "bfloat16")}}
 
     sample = {
         name: {"launches_per_update": {"merged": merged_per[name], "fused": fused_per[name]},
@@ -1762,9 +2181,10 @@ def main() -> int:
                 "batch": batch, "lanes": 2 * batch,
                 "launches": family_runs[task]["launches"][name],
                 "launches_per_merged_update": family_runs[task]["launches_per_update"][name],
-                **kernel_times(*parts)}
-        family["attention_fwd"][task]["greedy"] = {"batch": batch,
-                                                   **kernel_times((f1, fwd_mix))}
+                **kernel_times(*parts), "bf16": kernel_times(*parts, dtype="bfloat16")}
+        family["attention_fwd"][task]["greedy"] = {
+            "batch": batch, **kernel_times((f1, fwd_mix)),
+            "bf16": kernel_times((f1, fwd_mix), dtype="bfloat16")}
     # bf16: per path the bf16 phases' launches and the times weighted by
     # the path's launches (bf16 rows; the bound counts bf16 q, k, v bytes
     # and the tensor cores' bf16 rate);
@@ -1795,7 +2215,10 @@ def main() -> int:
             "packed_il": {"launches": packed_launches["float32"][name],
                           "launches_per_update": sum(packed_mix[i].values()),
                           "text_rows": PACKED_TEXT_CAP,
-                          **lane_times(packed_rows[name]["float32"], packed_mix[i])}}
+                          **lane_times(packed_rows[name]["float32"], packed_mix[i])},
+            "replay": {rollout: per[name] for rollout, per in replay_per_update.items()}}
+        if name == "attention_fwd":
+            extra[name]["hostloop"] = hostloop_launches
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel

@@ -58,8 +58,7 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
 # every flag of the JAX CLI that the port does not run yet, with a value
 # and the ROADMAP item its error names
 UNPORTED = {
-    "no_feat_table": ([], "A10"),
-    "no_cand_backtrack": ([], "A10"), "sharded_feed": ([], "A13"),
+    "sharded_feed": ([], "A13"),
     "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"), "orbax_ckpt": ([], "A13"),
     "obj_ft_file": (["o.hdf5"], "A11"),
     "remat": ([], "A19"), "remat_policy": (["dots"], "A19"), "rng_impl": (["rbg"], "A20"),

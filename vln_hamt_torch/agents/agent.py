@@ -4,9 +4,17 @@
 Parity target: ``Seq2SeqCMTAgent`` (``finetune_src/r2r/agent_cmt.py``).
 The agent holds the model, the critic and their optimizers, moves the
 split's features and nav tables to the device once
-(:meth:`HAMTAgent.enable_feature_table`), evaluates a split as one
-device rollout per batch (:meth:`HAMTAgent.eval_split_device`), and
-trains (:meth:`HAMTAgent.train_iteration`):
+(:meth:`HAMTAgent.enable_feature_table`), and evaluates a split greedily
+(:meth:`HAMTAgent.eval_split_fast` picks the fastest that applies): as
+one device rollout per batch (:meth:`HAMTAgent.eval_split_device`), or
+on the host loop, one policy step per device call with the env stepped
+on the host in between, lock-step per batch
+(:meth:`HAMTAgent.eval_split`, over :meth:`HAMTAgent.interactive_rollout`)
+or continuation-packed, a finished slot taking the next item at once
+(:meth:`HAMTAgent.eval_split_packed`). The host loop serves the options
+the device rollout lacks: features shipped per step (no feature table)
+and ``no_cand_backtrack``. The agent trains
+(:meth:`HAMTAgent.train_iteration`):
 
 - ``teacher`` feedback: the env rolls the ground-truth episode on the
   host, one teacher-forced episode forward on the device gives the
@@ -18,7 +26,11 @@ trains (:meth:`HAMTAgent.train_iteration`):
   nDTW rewards, differentiated through the rollout itself. Merged (the
   CLI's default): the teacher episode rides as extra lanes of the
   rollout, one loop over 2B lanes. Fused (the class default): the
-  teacher episode forward, then the rollout.
+  teacher episode forward, then the rollout. Rollout-then-replay (both
+  off, or no feature table): a sampling rollout without gradient, on the
+  device or the host loop, then the IL loss plus A2C on the recorded
+  episode replayed through the teacher-forced forward with the
+  rollout's own dropout draws.
 
 Every update clips the navigator's gradient at 40 (agent_cmt.py:597-601).
 Weights come from a seed, from a released reference checkpoint
@@ -41,16 +53,18 @@ from ..configs import HAMTConfig
 from ..data.angle import view_elevation, view_heading
 from ..data.feature_db import build_feature_table
 from ..data.nav_graph import build_nav_tables
-from ..env.observation import EpisodeBatch
+from ..env.observation import EpisodeBatch, ObsBatch
 from ..env.r2r_env import R2RNavEnv
+from ..eval.metrics import IncrementalNDTW
 from ..models.convert import (critic_params_from_flax, load_reference_checkpoint,
                               merge_matching_params, params_from_flax)
 from ..models.hamt import init_hamt
-from ..models.layers import DropoutRNG, compute_dtype, set_dropout_rng
+from ..models.layers import DropoutRNG, compute_dtype, drop_weight_cache, set_dropout_rng
 from .losses import IGNORE_ID, a2c_loss, il_loss
 from .optim import OptaxOptimizer
 from .packing import PackedILStream
-from .rollout import build_device_rollout, build_episode_forward, build_packed_il_forward
+from .rollout import (build_device_rollout, build_episode_forward, build_packed_il_forward,
+                      build_policy_step, build_slot_reset, build_text_row_update)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,6 +97,11 @@ class HAMTAgent:
     merged_sample_update = False
     #: ``teacher`` feedback trains on packed episodes (:meth:`enable_packed_il`)
     packed_il = False
+    #: :meth:`eval_split_fast` may take the continuation-packed evaluator
+    supports_packed_eval = True
+    #: the rollout-then-replay ``sample`` update samples on the device
+    #: when the tables are resident (else on the host loop)
+    device_rollout_rewards = True
 
     def __init__(self, cfg: HAMTConfig, env: Optional[R2RNavEnv] = None,
                  seed: int = 0, device=None):
@@ -108,6 +127,14 @@ class HAMTAgent:
         self._feat_table: Optional[torch.Tensor] = None  # (N, V, D)
         self._nav_tables: Optional[Dict[str, torch.Tensor]] = None
         self._rollout_cache: Dict[int, Any] = {}
+        # observation slots: [C candidates | STOP | views]
+        self.stop_slot = cfg.env.max_candidates
+        self.num_ob_tokens = self.stop_slot + 1 + cfg.env.views
+        # the host loop's step functions
+        self._policy_step = build_policy_step(self.model, self.critic,
+                                              ob_type=cfg.env.ob_type)
+        self._slot_reset = build_slot_reset(self.model)
+        self._text_row_update = build_text_row_update(self.model)
 
     def _make_optimizers(self) -> None:
         """Fresh optimizers (no moments, count 0): the optimizer zoo of
@@ -125,6 +152,13 @@ class HAMTAgent:
                            (self.critic, critic_params_from_flax(cparams))):
             module.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                                    strict=True)
+        self._weights_changed()
+
+    def _weights_changed(self) -> None:
+        """Free the bf16 weight copies of the old weights (each Linear
+        casts anew at its next call; ``models/layers.py:Linear``)."""
+        drop_weight_cache(self.model)
+        drop_weight_cache(self.critic)
 
     # ------------------------------------------------------------------
     def enable_feature_table(self, env: Optional[R2RNavEnv] = None) -> None:
@@ -204,12 +238,352 @@ class HAMTAgent:
             ref_cost[i, : g.num_nodes, : len(ref)] = g.dist[:, ref]
         return {"ref_cost": ref_cost, "ref_len": ref_len}
 
+    # -------------------------------------------------------- host loop
+    def _h2d(self, arr: np.ndarray, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A host array on the device, int32 as int64 indices unless
+        ``dtype`` says otherwise. On the card through pinned memory and
+        an asynchronous copy: a copy from pageable memory would wait for
+        the device's queue, which the packed evaluator's pipelining needs
+        to keep running."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = t.to(dtype) if dtype is not None else (t.long() if t.dtype == torch.int32 else t)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _start_fetch(x: torch.Tensor):
+        """Start copying ``x`` to the host; :meth:`_finish_fetch` waits for
+        this copy and the work before it, not for work queued later."""
+        if x.device.type != "cuda":
+            return x, None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _finish_fetch(pending) -> np.ndarray:
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    def _forbid(self, obs: ObsBatch, visited: List[set], no_cand_backtrack: bool) -> np.ndarray:
+        """(B, N) logit mask: with ``no_cand_backtrack`` the candidates
+        whose node the episode has visited (agent_cmt.py:342-350)."""
+        forbid = np.zeros((obs.batch_size, self.num_ob_tokens), bool)
+        if no_cand_backtrack:
+            for i in range(obs.batch_size):
+                for c in range(self.stop_slot):
+                    cn = int(obs.cand_node[i, c])
+                    if cn >= 0 and cn in visited[i]:
+                        forbid[i, c] = True
+        return forbid
+
+    def _step_inputs(self, env: R2RNavEnv, obs: ObsBatch, live: np.ndarray,
+                     forbid: np.ndarray, given_action: np.ndarray) -> Dict[str, Any]:
+        """One policy step's observation on the device, as keyword
+        arguments of the policy step: node rows of the resident table
+        when the env is in feature-table mode, else the panoramas in the
+        compute dtype."""
+        ins = {"view_index": self._h2d(obs.view_index), "cand_point": self._h2d(obs.cand_point),
+               "cand_ang": self._h2d(obs.cand_ang), "live": self._h2d(live),
+               "forbid": self._h2d(forbid), "given_action": self._h2d(given_action)}
+        if env.feat_offsets is not None:
+            if self._feat_table is None:
+                raise RuntimeError("the env is in feature-table mode but the agent has no "
+                                   "table (enable_feature_table)")
+            offs = np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
+            ins.update(node_idx=self._h2d(offs + obs.node), feat_table=self._feat_table)
+        else:
+            ins["pano_feat"] = self._h2d(obs.pano_feat, self._feat_dtype)
+        return ins
+
+    def interactive_rollout(self, mode: str, record_for_replay: bool = False,
+                            no_cand_backtrack: bool = False) -> Tuple[List[dict], Dict[str, Any]]:
+        """One episode batch of ``self.env`` on the host loop (JAX
+        ``interactive_rollout``, agent.py:629-788), without gradient and
+        in the modules' train/eval mode: per step one policy step on the
+        device, the action read back, the env stepped on the host.
+
+        ``mode``: ``argmax``, ``sample`` (Gumbel-max from ``action_rng``,
+        as the device rollout draws) or ``teacher``. Returns
+        (trajectories, extras); trajectories follow the reference's
+        result schema ``[{instr_id, path: [(vp, heading, elevation)]}]``.
+        With ``record_for_replay`` the extras hold what the replay needs:
+        ``ep``, the episode padded to ``t_max`` with its final pose, in
+        the episode forward's schema; time-major ``rewards`` and
+        ``masks``; ``bootstrap_mask``; and ``rollout_logits`` (T_used, B,
+        N) of the steps taken.
+        """
+        env = self.env
+        stop = self.stop_slot
+        dev = self.device
+        obs = env.reset()
+        feat_offs = (np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
+                     if env.feat_offsets is not None else None)
+        b, t_max = obs.batch_size, env.max_action_len
+        txt_ids, txt_mask = env.txt_batch()
+        txt_mask_d = self._h2d(txt_mask)
+        steps = torch.arange(t_max, device=dev)
+        with torch.no_grad():
+            txt_embeds = self.model.encode_text(self._h2d(txt_ids), txt_mask_d)
+            hist0 = self.model.init_history(b)
+            hist_cache = torch.cat([hist0[:, None],
+                                    hist0.new_zeros((b, t_max, self.cfg.model.hidden_size))], dim=1)
+            hist_len = torch.ones(b, dtype=torch.int32, device=dev)
+
+            graphs = [env.sim.graph(i) for i in range(b)]
+            traj = [{"instr_id": env.batch[i]["instr_id"], "path": [self._pose_tuple(env, i)]}
+                    for i in range(b)]
+            # reward bookkeeping (agent_cmt.py:283-289), the task's
+            # mutable episode state for the reward and transition hooks
+            ep_state = self._episode_state_init(obs, graphs, traj)
+            ended = np.zeros((b,), bool)
+            visited = [{int(obs.node[i])} for i in range(b)]
+            obs_list: List[ObsBatch] = []
+            actions_rec = np.full((b, t_max), stop, np.int32)
+            step_mask = np.zeros((b, t_max), bool)
+            rewards = np.zeros((t_max, b), np.float32)
+            logits_rec: List[torch.Tensor] = []
+            for t in range(t_max):
+                obs_list.append(obs)
+                live = ~ended
+                given = (np.where(obs.teacher >= 0, obs.teacher, stop) if mode == "teacher"
+                         else np.zeros((b,), np.int32))
+                a_dev, logits, _, hist_cache, hist_len = self._policy_step(
+                    txt_embeds, txt_mask_d, hist_cache, hist_len, steps[t], mode=mode,
+                    generator=self.action_rng,
+                    **self._step_inputs(env, obs, live, self._forbid(obs, visited,
+                                                                     no_cand_backtrack), given))
+                a_t = a_dev.cpu().numpy()
+                step_mask[:, t] = live
+                actions_rec[:, t] = np.where(live, a_t, stop)
+                if record_for_replay:
+                    logits_rec.append(logits)
+
+                self._pre_env_step(t, a_t, live, ended, obs, ep_state, traj)
+                env_actions = np.where(live & (a_t != stop), a_t, -1)
+                obs = env.step(env_actions, obs)
+                for i in range(b):
+                    if env_actions[i] >= 0:
+                        traj[i]["path"].append(self._pose_tuple(env, i))
+                        visited[i].add(int(obs.node[i]))
+                        if "ndtw" in ep_state:
+                            ep_state["ndtw"].update(i, int(obs.node[i]))
+                if record_for_replay:
+                    rewards[t] = self._step_rewards(t, a_t, live, ended, obs, ep_state)
+                ended = self._update_ended(ended, a_t, ep_state, train_rl=record_for_replay)
+                if ended.all():
+                    break
+
+        extras: Dict[str, Any] = {}
+        if record_for_replay:
+            # padded to t_max, the replay's fixed shape (the reference
+            # breaks early per batch, agent_cmt.py:450-451)
+            obs_list += [obs_list[-1]] * (t_max - len(obs_list))
+            extras = {
+                "ep": self._stack_obs_episode(obs_list, txt_ids, txt_mask, actions_rec,
+                                              step_mask, final_obs=obs, feat_offs=feat_offs),
+                "rewards": torch.from_numpy(rewards).to(dev),
+                "masks": torch.from_numpy(step_mask.T.astype(np.float32)).to(dev),
+                "bootstrap_mask": torch.from_numpy(~ended).to(dev),
+                "rollout_logits": torch.stack(logits_rec),
+            }
+        return traj, extras
+
+    # Rollout hooks: the R2R reward and termination (agent_cmt.py:407-447);
+    # the task-variant agents override them.
+    def _episode_state_init(self, obs: ObsBatch, graphs, traj) -> Dict[str, Any]:
+        b = obs.batch_size
+        gt_idx = [graphs[i].indices(self.env.batch[i]["path"]) for i in range(b)]
+        ndtw = IncrementalNDTW([g.dist for g in graphs], gt_idx, obs.node.tolist())
+        return {"ndtw": ndtw, "last_dist": obs.dist_to_goal.copy(),
+                "last_ndtw": np.array([ndtw.value(i) for i in range(b)], np.float32)}
+
+    def _pre_env_step(self, t, a_t, live, ended, obs, ep_state, traj) -> None:
+        """Called after the action is chosen, before the env moves."""
+
+    def _step_rewards(self, t, a_t, live, ended, obs, ep_state) -> np.ndarray:
+        b = len(a_t)
+        rewards = np.zeros((b,), np.float32)
+        ndtw = ep_state["ndtw"]
+        dist = obs.dist_to_goal
+        cur_ndtw = np.array([ndtw.value(i) for i in range(b)], np.float32)
+        last_dist, last_ndtw = ep_state["last_dist"], ep_state["last_ndtw"]
+        for i in range(b):
+            if not live[i]:
+                continue
+            if a_t[i] == self.stop_slot:  # stop (agent_cmt.py:424-428)
+                rewards[i] = 2.0 + cur_ndtw[i] * 2.0 if dist[i] < 3.0 else -2.0
+            else:
+                # sign-quantified fidelity reward (agent_cmt.py:430-438; the
+                # reference raises on delta == 0, which equidistant nodes
+                # allow: taken as a regress)
+                delta = -(dist[i] - last_dist[i])
+                nr = cur_ndtw[i] - last_ndtw[i]
+                rewards[i] = (1.0 + nr) if delta > 0.0 else (-1.0 + nr)
+                # miss-the-target penalty (agent_cmt.py:439-441)
+                if last_dist[i] <= 1.0 and dist[i] - last_dist[i] > 0.0:
+                    rewards[i] -= (1.0 - last_dist[i]) * 2.0
+        ep_state["last_dist"] = dist.copy()
+        ep_state["last_ndtw"] = cur_ndtw
+        return rewards
+
+    def _update_ended(self, ended, a_t, ep_state, train_rl: bool) -> np.ndarray:
+        return ended | (a_t == self.stop_slot)
+
+    # Per-slot hooks of the packed evaluator: R2R-Back's two phases and
+    # REVERIE's object grounding ride it through these.
+    def _packed_slot_init(self, env: R2RNavEnv, i: int) -> Dict[str, Any]:
+        """Fresh per-slot episode state when a slot (re)loads an item."""
+        return {}
+
+    def _packed_slot_done(self, st: Dict[str, Any], g: "_PackedEvalGroup", i: int,
+                          a_t_i: int, steps: int) -> bool:
+        """The episode's end after a policy step; ``steps`` counts its
+        policy steps (the lock-step budget, agent_base.py:25-47)."""
+        return a_t_i == self.stop_slot or steps >= g.env.max_action_len
+
+    def _packed_slot_result(self, st: Dict[str, Any], pred: dict) -> None:
+        """Attach per-slot extras (midstop, predObjId) to a prediction."""
+
+    def _packed_env_actions(self, a_t: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """The env's action vector of a packed step (-1: no move)."""
+        return np.where(active & (a_t != self.stop_slot), a_t, -1)
+
+    def _packed_policy_step(self, g: "_PackedEvalGroup", step_ins: Dict[str, Any]):
+        """Enqueue one packed policy step without waiting: each slot at its
+        own step, clipped at ``t_max - 1`` (JAX agent.py:953-964). Updates
+        the group's history and returns (action, aux) on the device."""
+        t = self._h2d(np.minimum(g.t_vec, g.t_max - 1))
+        a_dev, _, _, g.hist_cache, g.hist_len = self._policy_step(
+            g.txt_embeds, g.txt_mask, g.hist_cache, g.hist_len, t, mode="argmax", **step_ins)
+        return a_dev, None
+
+    @staticmethod
+    def _pose_tuple(env: R2RNavEnv, i: int) -> Tuple[str, float, float]:
+        st = env.sim.get_state(i)
+        return (env.sim.graph(i).node_ids[st.node], st.heading, st.elevation)
+
+    def _stack_obs_episode(self, obs_list: List[ObsBatch], txt_ids, txt_mask, actions,
+                           step_mask, final_obs: Optional[ObsBatch] = None,
+                           feat_offs: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """A host-loop episode as the episode forward's device inputs:
+        node rows in feature-table mode, else the panoramas; with
+        ``final_obs`` the pose after the last action (the bootstrap)."""
+        stack = lambda attr: np.stack([getattr(o, attr) for o in obs_list], axis=1)  # noqa: E731
+        d = {"txt_ids": txt_ids, "txt_mask": txt_mask, "view_index": stack("view_index"),
+             "cand_point": stack("cand_point"), "cand_ang": stack("cand_ang"),
+             "actions": actions, "step_mask": step_mask, "teacher": stack("teacher")}
+        if feat_offs is not None:
+            d["node_idx"] = np.stack([feat_offs + o.node for o in obs_list], axis=1)
+        else:
+            d["pano_feat"] = stack("pano_feat")
+        if final_obs is not None:
+            d.update(final_view_index=final_obs.view_index,
+                     final_cand_point=final_obs.cand_point, final_cand_ang=final_obs.cand_ang)
+            if feat_offs is not None:
+                d["final_node_idx"] = feat_offs + final_obs.node
+            else:
+                d["final_pano_feat"] = final_obs.pano_feat
+        return self._arrays_to_device(d)
+
     # ------------------------------------------------------------- eval
-    def eval_split_fast(self, env: Optional[R2RNavEnv] = None) -> List[dict]:
-        """The fastest greedy evaluator; in the port so far, the device
-        rollout (the packed and lock-step host-loop evaluators are
-        ROADMAP item A10)."""
-        return self.eval_split_device(env)
+    def eval_split(self, env: Optional[R2RNavEnv] = None,
+                   no_cand_backtrack: bool = False) -> List[dict]:
+        """Greedy full-split evaluation on the host loop, lock-step per
+        batch (agent_base.py:25-47): batches until an instr_id repeats,
+        the FIRST prediction kept."""
+        env = env or self.env
+        self.model.eval()
+        self.critic.eval()
+        old_env, self.env = self.env, env
+        try:
+            env.reset_epoch(shuffle=False)
+            results: Dict[str, dict] = {}
+            looped = False
+            while not looped:
+                trajs, _ = self.interactive_rollout("argmax",
+                                                    no_cand_backtrack=no_cand_backtrack)
+                for tr in trajs:
+                    if tr["instr_id"] in results:
+                        looped = True
+                    else:
+                        results[tr["instr_id"]] = tr
+        finally:
+            self.env = old_env
+        out = []
+        for k, v in results.items():
+            pred = {"instr_id": k, "trajectory": v["path"]}
+            for extra in ("midstop", "predObjId"):
+                if extra in v:
+                    pred[extra] = v[extra]
+            out.append(pred)
+        return out
+
+    def eval_split_fast(self, env: Optional[R2RNavEnv] = None,
+                        no_cand_backtrack: bool = False) -> List[dict]:
+        """The fastest greedy evaluator that applies: the device rollout
+        when the tables are resident and ``no_cand_backtrack`` is off (it
+        needs the host's visited sets), else the packed evaluator, else
+        lock-step. All three give the same predictions (tested)."""
+        env = env or self.env
+        if (not no_cand_backtrack and self._nav_tables is not None
+                and env.feat_offsets is not None):
+            return self.eval_split_device(env)
+        if self.supports_packed_eval:
+            return self.eval_split_packed(env, no_cand_backtrack)
+        return self.eval_split(env, no_cand_backtrack)
+
+    def eval_split_packed(self, env: Optional[R2RNavEnv] = None,
+                          no_cand_backtrack: bool = False, pipeline: int = 4) -> List[dict]:
+        """Continuation-packed greedy evaluation, pipelined (JAX
+        agent.py:1316-1372).
+
+        Packing: where the lock-step evaluator idles a slot whose episode
+        stopped until the whole batch stops, here a finished slot loads
+        the next pending item at once: its history row is reset, its text
+        row re-encoded (in chunks of ``min(B, 8)`` rows) and its step
+        counter restarted, so every step runs at the full batch.
+
+        Pipelining: the split is dealt to ``pipeline`` groups (at most
+        one per full batch of items), each with its own env and history.
+        Every group's policy step is enqueued before any action is read,
+        so one group's host env step overlaps the others' device work;
+        each slot's rows are independent of the others', so the
+        predictions equal ``pipeline=1``'s. Each item is predicted once,
+        as by :meth:`eval_split`.
+        """
+        env = env or self.env
+        self.model.eval()
+        self.critic.eval()
+        old_env, self.env = self.env, env
+        try:
+            items = list(env.data)
+            b = env.batch_size
+            n_groups = max(1, min(int(pipeline), len(items) // b))
+            groups = []
+            with torch.no_grad():
+                for k in range(n_groups):
+                    part = items[k::n_groups]
+                    genv = env if k == 0 else env.clone_shell(part)
+                    groups.append(_PackedEvalGroup(self, genv, part, no_cand_backtrack))
+                while any(g.active.any() for g in groups):
+                    for g in groups:  # enqueue every group's step...
+                        if g.active.any():
+                            g.dispatch()
+                    for g in groups:  # ...then read and step one at a time
+                        if g.active.any():
+                            g.consume()
+        finally:
+            self.env = old_env
+        results: Dict[str, dict] = {}
+        for g in groups:
+            results.update(g.results)
+        return list(results.values())
 
     def eval_split_device(self, env: Optional[R2RNavEnv] = None) -> List[dict]:
         """Greedy full-split evaluation, one device rollout per batch.
@@ -339,10 +713,15 @@ class HAMTAgent:
             d["node_idx"] = ep.node_idx
         else:
             d["pano_feat"] = ep.pano_feat
+        return self._arrays_to_device(d)
+
+    def _arrays_to_device(self, d: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host episode arrays -> device tensors: integers as int64
+        indices, panorama features in the compute dtype."""
         out = {}
         for k, v in d.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if k == "pano_feat":
+            if k in ("pano_feat", "final_pano_feat"):
                 t = t.to(self._feat_dtype)
             out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
         return out
@@ -417,6 +796,49 @@ class HAMTAgent:
         l2, aux = self._rollout_a2c(ep, extras)
         return l1 + l2, {**aux, "IL_loss": l1}
 
+    def _sample_for_replay(self, use_device: bool):
+        """The sampling rollout of the rollout-then-replay update: without
+        gradient, in training mode, on the device (``use_device``) or the
+        host loop. Returns its recorded episode (with the final pose), its
+        extras (rewards, masks, bootstrap mask, logits) and both dropout
+        streams' state at its start."""
+        self.model.train()
+        self.critic.train()
+        start = self.dropout_rng.get_state()
+        with torch.no_grad():
+            if use_device:
+                ins = self._device_rollout_args()
+                ep, extras = self._ensure_device_rollout_fn()(
+                    ins["txt_ids"], ins["txt_mask"], self._feat_table, self._nav_tables,
+                    ins["start_node"], ins["start_view"], ins["offs"], ins["task_inputs"],
+                    policy="sample", compute_rewards=True, generator=self.action_rng)
+            else:
+                _, extras = self.interactive_rollout("sample", record_for_replay=True)
+                ep = extras["ep"]
+        return ep, extras, start
+
+    def _replay_sample_loss(self, il_ep: Dict[str, torch.Tensor], ep: Dict[str, torch.Tensor],
+                            extras: Dict[str, torch.Tensor], start
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss of the rollout-then-replay ``sample`` update (JAX
+        ``_il_rl_update_fn``, agent.py:495-514): IL on the teacher episode
+        (``ml_weight``) plus :meth:`_rl_loss` on the episode of
+        :meth:`_sample_for_replay`.
+
+        The replay draws the rollout's own dropout: both streams of
+        ``dropout_rng`` go back to ``start``, where the rollout began, so
+        the replay (text, history [CLS], then per step plan, critic and
+        history token, in the rollout's order and shapes) repeats its
+        masks and attention seeds and takes the gradient under the
+        rollout's distribution. The IL episode draws before the rewind,
+        and the streams resume after its draws."""
+        l1 = self._il_loss(il_ep, self.cfg.train.ml_weight)
+        after_il = self.dropout_rng.get_state()
+        self.dropout_rng.set_state(start)
+        l2, aux = self._rl_loss(ep, extras["rewards"], extras["masks"], extras["bootstrap_mask"])
+        self.dropout_rng.set_state(after_il)
+        return l1 + l2, {"IL_loss": l1, **aux}
+
     def _update(self, loss_fn: Callable[[], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One update: ``loss_fn()`` in training mode, its backward, one
@@ -430,6 +852,7 @@ class HAMTAgent:
         loss.backward()
         self.optimizer.step()
         self.critic_optimizer.step()
+        self._weights_changed()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def _il_update(self, ep: Dict[str, torch.Tensor], weight: float) -> torch.Tensor:
@@ -444,10 +867,12 @@ class HAMTAgent:
         ``teacher``: IL on the env's teacher episode (``teacher_weight``),
         or with :meth:`enable_packed_il` on the next pack, whose episode
         count the result carries under ``episodes`` (a host int).
-        ``sample``: IL (``ml_weight``) plus A2C on a sampling device
-        rollout, merged or fused as the class attributes say. As in the
-        JAX package the host takes the teacher episode first, then resets
-        the env for the rollout, so one env seed gives the same items.
+        ``sample``: IL (``ml_weight``) plus A2C on a sampling rollout:
+        merged or fused through the device rollout as the class
+        attributes say, else (both off, or no feature table) rollout then
+        replay (:meth:`_replay_sample_loss`). As in the JAX package the
+        host takes the teacher episode first, then resets the env for the
+        rollout, so one env seed gives the same items.
 
         With ``sync=False`` the returned scalars are device tensors and
         the host does not wait for the step, so the next episode's host
@@ -470,17 +895,18 @@ class HAMTAgent:
             loss = self._il_update(ep, self.cfg.train.teacher_weight)
             aux = {"IL_loss": loss}
         elif feedback == "sample":
-            if (self._nav_tables is None or self.env.feat_offsets is None
-                    or not (self.merged_sample_update or self.fused_sample_update)):
-                raise NotImplementedError(
-                    "'sample' feedback without the device rollout (rollout-then-replay "
-                    "over the host-loop rollout) is ROADMAP item A10")
             il_ep = self._ep_to_device(self.env.teacher_episode())
-            ins = self._device_rollout_args()
-            if self.merged_sample_update:
+            use_device = (self.device_rollout_rewards and self._nav_tables is not None
+                          and self.env.feat_offsets is not None)
+            if use_device and self.merged_sample_update:
+                ins = self._device_rollout_args()
                 loss, aux = self._update(lambda: self._merged_sample_loss(il_ep, ins))
-            else:
+            elif use_device and self.fused_sample_update:
+                ins = self._device_rollout_args()
                 loss, aux = self._update(lambda: self._fused_sample_loss(il_ep, ins))
+            else:
+                rollout = self._sample_for_replay(use_device)
+                loss, aux = self._update(lambda: self._replay_sample_loss(il_ep, *rollout))
         else:
             raise ValueError(f"bad feedback {feedback!r}")
         self.step += 1
@@ -510,6 +936,7 @@ class HAMTAgent:
             merged, skip = merge_matching_params(module.state_dict(), part)
             module.load_state_dict(merged, strict=True)  # copies, casting
             skipped += [prefix + k for k in skip]
+        self._weights_changed()
         self._make_optimizers()
         return skipped
 
@@ -542,8 +969,115 @@ class HAMTAgent:
         blob = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(blob["model"], strict=True)
         self.critic.load_state_dict(blob["critic"], strict=True)
+        self._weights_changed()
         if resume_optimizer:
             self.optimizer.load_state_dict(blob["optimizer"])
             self.critic_optimizer.load_state_dict(blob["critic_optimizer"])
         self.step = blob["step"]
         return self.step
+
+
+class _PackedEvalGroup:
+    """One pipeline group of the continuation-packed evaluator (JAX
+    agent.py:1567-1717): an env whose batch slots each run their own
+    episode, the slots' history and text states on the device, and the
+    host bookkeeping. :meth:`dispatch` enqueues one policy step and
+    starts the action's copy to the host without waiting for anything;
+    :meth:`consume` waits for that copy, steps the env and refills the
+    finished slots."""
+
+    def __init__(self, agent: HAMTAgent, env: R2RNavEnv, items: List[dict],
+                 no_cand_backtrack: bool):
+        self.a = agent
+        self.env = env
+        self.no_cand_backtrack = no_cand_backtrack
+        self.b = b = env.batch_size
+        self.t_max = env.max_action_len
+        # the first fill through load_item; a split smaller than the batch
+        # fills by cycling
+        env.batch = [None] * b
+        for i in range(b):
+            env.load_item(i, items[i % len(items)])
+        self.pending = list(items[b:])
+        self.pending.reverse()  # pop() from the front of the split order
+
+        txt_ids, txt_mask = env.txt_batch()
+        self.txt_mask = agent._h2d(txt_mask)
+        self.txt_embeds = agent.model.encode_text(agent._h2d(txt_ids), self.txt_mask)
+        # the history cache in the compute dtype (JAX agent.py:1604-1608)
+        hist_cache = torch.zeros((b, self.t_max + 1, agent.cfg.model.hidden_size),
+                                 dtype=agent._feat_dtype, device=agent.device)
+        ones = np.ones((b,), np.int32)
+        self.hist_cache, self.hist_len = agent._slot_reset(
+            hist_cache, agent._h2d(ones, torch.int32), agent._h2d(ones.astype(bool)))
+
+        self.t_vec = np.zeros((b,), np.int32)  # policy steps of each slot's episode
+        self.active = np.ones((b,), bool)
+        self.traj = [[agent._pose_tuple(env, i)] for i in range(b)]
+        self.visited = [{int(env.sim.node[i])} for i in range(b)]
+        self.slot_state = [agent._packed_slot_init(env, i) for i in range(b)]
+        self.results: Dict[str, dict] = {}
+        self.obs = env._observe()
+        self._pending_action = None
+        self._aux_dev = None
+
+    def dispatch(self) -> None:
+        a, obs, b = self.a, self.obs, self.b
+        step_ins = a._step_inputs(self.env, obs, self.active.copy(),
+                                  a._forbid(obs, self.visited, self.no_cand_backtrack),
+                                  np.zeros((b,), np.int32))
+        a_dev, self._aux_dev = a._packed_policy_step(self, step_ins)
+        self._pending_action = a._start_fetch(a_dev)
+
+    def consume(self) -> None:
+        a, env, b = self.a, self.env, self.b
+        a_t = a._finish_fetch(self._pending_action)  # waits for this group's step
+        self._pending_action = None
+
+        env_actions = a._packed_env_actions(a_t, self.active)
+        obs_after = env.step(env_actions, self.obs)
+        reset_mask = np.zeros((b,), bool)
+        for i in range(b):
+            if not self.active[i]:
+                continue
+            self.t_vec[i] += 1  # the lock-step budget counts policy steps
+            if env_actions[i] >= 0:
+                self.traj[i].append(a._pose_tuple(env, i))
+                self.visited[i].add(int(env.sim.node[i]))
+            if not a._packed_slot_done(self.slot_state[i], self, i, int(a_t[i]),
+                                       int(self.t_vec[i])):
+                continue
+            instr_id = env.batch[i]["instr_id"]
+            if instr_id not in self.results:
+                # a cycled fill's duplicate keeps the first prediction
+                pred = {"instr_id": instr_id, "trajectory": self.traj[i]}
+                a._packed_slot_result(self.slot_state[i], pred)
+                self.results[instr_id] = pred
+            if self.pending:
+                env.load_item(i, self.pending.pop())
+                self.traj[i] = [a._pose_tuple(env, i)]
+                self.visited[i] = {int(env.sim.node[i])}
+                self.slot_state[i] = a._packed_slot_init(env, i)
+                self.t_vec[i] = 0
+                reset_mask[i] = True
+            else:
+                self.active[i] = False
+        if not reset_mask.any():
+            self.obs = obs_after
+            return
+        self.hist_cache, self.hist_len = a._slot_reset(self.hist_cache, self.hist_len,
+                                                       a._h2d(reset_mask))
+        txt_ids, txt_mask = env.txt_batch()
+        self.txt_mask = a._h2d(txt_mask)
+        # only the reset rows run the text stack, in chunks of a fixed K
+        # rows, padded by repeating the chunk's first row (same ids, so the
+        # repeated write is of equal values)
+        rows = np.nonzero(reset_mask)[0]
+        k = min(b, 8)
+        for s in range(0, len(rows), k):
+            chunk = rows[s:s + k]
+            pad = np.full((k,), chunk[0], np.int64)
+            pad[: len(chunk)] = chunk
+            self.txt_embeds = a._text_row_update(self.txt_embeds, a._h2d(txt_ids[pad]),
+                                                 a._h2d(txt_mask[pad]), a._h2d(pad))
+        self.obs = env._observe()

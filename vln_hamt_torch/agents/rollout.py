@@ -4,8 +4,12 @@
 the in-loop R2R reward for the ``sample`` update, optionally with
 teacher-forced IL lanes in the same loop; the teacher-forced episode
 of IL training and of the A2C replay (:func:`build_episode_forward`);
-and its packed twin, several episodes back to back per slot
-(:func:`build_packed_il_forward`, ``agents/packing.py``).
+its packed twin, several episodes back to back per slot
+(:func:`build_packed_il_forward`, ``agents/packing.py``); and the step
+functions of the host-loop rollouts and evaluators
+(:func:`build_policy_step`, :func:`build_slot_reset`,
+:func:`build_text_row_update`), which the agent calls once per policy
+step and reads the action back from.
 
 The reference interleaves per-step GPU forwards with Python list
 appends and simulator calls (``agent_cmt.py:248-529``). Here a whole
@@ -569,3 +573,75 @@ def build_packed_il_forward(model: HAMT, ob_type: str = "pano"
         return torch.stack(logits)
 
     return packed_forward
+
+
+# ----------------------------------------------------------------------
+def build_policy_step(model: HAMT, critic: Critic, ob_type: str = "pano"):
+    """One interactive step of the host loop (JAX ``build_policy_step``,
+    rollout.py:363-400): :func:`make_policy_core` on one step's compact
+    observation.
+
+    policy_step(txt_embeds, txt_mask, hist_cache, hist_len, t, view_index,
+                cand_point, cand_ang, live, forbid, given_action, mode, *,
+                pano_feat=None, node_idx=None, feat_table=None,
+                generator=None)
+      -> action (B,), logits (B, N), value (B,), hist_cache, hist_len
+
+    The panoramas are ``pano_feat`` (B, V, D), shipped per step, or with
+    ``node_idx`` (B,) rows gathered from the resident ``feat_table``.
+    ``t`` is a 0-d step (the lock-step rollout) or a (B,) per-slot step
+    (the packed evaluator); ``forbid`` (B, N) masks candidates for
+    ``no_cand_backtrack``. Nothing is read back to the host.
+    """
+    cfg = model.config
+    device = next(model.parameters()).device
+    expand_obs = make_expand_obs(36, cfg.angle_feat_size, ob_type, device=device)
+    core = make_policy_core(model, critic, expand_obs)
+
+    def policy_step(txt_embeds, txt_mask, hist_cache, hist_len, t, view_index, cand_point,
+                    cand_ang, live, forbid, given_action, mode: str, *, pano_feat=None,
+                    node_idx=None, feat_table=None,
+                    generator: Optional[torch.Generator] = None):
+        if node_idx is not None:
+            pano_feat = feat_table[node_idx]
+        action, logits, _, value, hist_cache, hist_len = core(
+            txt_embeds, txt_mask, hist_cache, hist_len, t, pano_feat, view_index,
+            cand_point, cand_ang, live, forbid, given_action, mode, generator)
+        return action, logits, value, hist_cache, hist_len
+
+    return policy_step
+
+
+def build_slot_reset(model: HAMT):
+    """Reset chosen history-cache rows to a fresh episode, ``[hist0]`` and
+    length 1 (JAX ``build_slot_reset``, rollout.py:547-562): the packed
+    evaluator's slot that takes its next item.
+
+    slot_reset(hist_cache, hist_len, reset_mask) -> hist_cache, hist_len
+    """
+
+    def slot_reset(hist_cache, hist_len, reset_mask):
+        b, h, d = hist_cache.shape
+        hist0 = model.init_history(b).to(hist_cache.dtype)
+        fresh = torch.cat([hist0[:, None], hist0.new_zeros((b, h - 1, d))], dim=1)
+        return (torch.where(reset_mask[:, None, None], fresh, hist_cache),
+                hist_len.masked_fill(reset_mask, 1))
+
+    return slot_reset
+
+
+def build_text_row_update(model: HAMT):
+    """Re-encode K text rows and write them into the cached text states
+    (JAX ``_ensure_text_row_update``, agent.py:1280-1298): the packed
+    evaluator's slot resets touch a few rows at a time. Under
+    ``no_lang_ca`` the states are (X+1, B, L, D), batch on axis 1.
+
+    update(txt_embeds, ids_k, mask_k, rows) -> txt_embeds; ``rows`` (K,)
+    may repeat a row with the same ids (a padded chunk).
+    """
+
+    def update(txt_embeds, ids_k, mask_k, rows):
+        emb = model.encode_text(ids_k, mask_k).to(txt_embeds.dtype)
+        return txt_embeds.index_copy(txt_embeds.dim() - 3, rows, emb)
+
+    return update

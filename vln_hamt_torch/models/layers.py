@@ -19,15 +19,21 @@ Compute dtype (``ModelConfig.dtype``) follows flax's ``dtype=bfloat16,
 param_dtype=float32``: parameters stay fp32 ``nn.Parameter``s under
 their reference names (so ``models/convert.py``, checkpoints and the
 optimizers see fp32 alone) and :class:`Linear`, :class:`LayerNorm` and
-:class:`Embedding` cast at the point of use: a Linear casts its input,
-weight and bias to the compute dtype on every call, a LayerNorm takes
-its statistics in fp32 and returns the compute dtype (flax 0.12's
+:class:`Embedding` cast at the point of use: a Linear casts its input to
+the compute dtype and takes its weight and bias in it from a cache made
+once per weight version (so once per pass over the weights, and one
+cache serves a whole evaluation), a LayerNorm takes its statistics in
+fp32 and returns the compute dtype (flax 0.12's
 ``force_float32_reductions``), an Embedding returns its rows in it.
 :func:`set_compute_dtype` hands the dtype to every such module below a
-model; in fp32 every cast is a no-op. Two elementwise chains run in
-fp32 and round once, as XLA's fusions do: the GELU and the residual sum
-before each post-LN (``tests/test_torch_bf16.py`` holds the result
-against the JAX package's bf16).
+model; in fp32 every cast is a no-op and no cache is made. Two
+elementwise chains run in fp32 and round once, as XLA's fusions do: the
+GELU and the residual sum before each post-LN
+(``tests/test_torch_bf16.py`` holds the result against the JAX
+package's bf16). The bf16 GELU saves its bf16 input for backward and
+recomputes the fp32 chain there. The bf16 results and gradients are
+bit-identical to casting the weights on every call
+(``tests/test_torch_bf16_cache.py``).
 
 Dropout follows ``nn.Module.train()`` / ``.eval()``. In training mode
 every draw comes from the :class:`DropoutRNG` that
@@ -57,15 +63,60 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+class _CachedCast(torch.autograd.Function):
+    """A parameter's cached low-precision copy as a function of the
+    parameter: the forward returns the copy, the backward casts the
+    call's cotangent to the parameter's fp32. Each call is a node of its
+    own, so the calls' weight gradients sum in fp32 in ``.grad``, as the
+    per-call cast's do (a bare cached copy would sum them in bf16)."""
+
+    @staticmethod
+    def forward(ctx, param: torch.Tensor, cached: torch.Tensor) -> torch.Tensor:
+        return cached.view_as(cached)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.to(torch.float32), None
+
+
 class Linear(nn.Linear):
-    """``nn.Linear`` in the compute dtype (flax ``nn.Dense``): input,
-    weight and bias cast on every call."""
+    """``nn.Linear`` in the compute dtype (flax ``nn.Dense``): the input
+    cast on every call; below fp32 the weight and bias from
+    :meth:`low_precision_params`."""
 
     compute_dtype = torch.float32
+    _cache: Optional[Tuple[tuple, torch.Tensor, torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if dt == torch.float32:
+            return F.linear(x.to(dt), self.weight, self.bias)
+        return F.linear(x.to(dt), *self.low_precision_params())
+
+    def low_precision_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The weight and bias in the compute dtype, cast once per version
+        of the parameters: an in-place change (an optimizer step, a
+        ``load_state_dict``) bumps the version and the next call casts
+        anew, so a stale copy is never used; :func:`drop_weight_cache`
+        frees the copies at once. Under autograd each copy enters through
+        :class:`_CachedCast`."""
+        w, b, dt = self.weight, self.bias, self.compute_dtype
+        key = (dt, w._version, b._version, w.data_ptr(), b.data_ptr())
+        if self._cache is None or self._cache[0] != key:
+            with torch.no_grad():
+                self._cache = (key, w.to(dt), b.to(dt))
+        _, wc, bc = self._cache
+        if torch.is_grad_enabled() and w.requires_grad:
+            return _CachedCast.apply(w, wc), _CachedCast.apply(b, bc)
+        return wc, bc
+
+
+def drop_weight_cache(module: nn.Module) -> None:
+    """Free the low-precision weight copies of every :class:`Linear` below
+    ``module`` (after its weights change; the next pass casts anew)."""
+    for m in module.modules():
+        if isinstance(m, Linear):
+            m._cache = None
 
 
 class LayerNorm(nn.LayerNorm):
@@ -96,13 +147,37 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
             m.compute_dtype = dtype
 
 
+def _gelu_chain(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return (xf * 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+
+
+class _LowPrecisionGelu(torch.autograd.Function):
+    """:func:`erf_gelu` below fp32: saves its input in its own dtype and
+    reruns the fp32 chain under autograd in backward, so the gradient is
+    the plain chain's to the bit and no fp32 copy waits for backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return _gelu_chain(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_()
+            return torch.autograd.grad(_gelu_chain(xd), xd, grad)[0]
+
+
 def erf_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * 0.5 * (1 + erf(x / sqrt(2))) — parity vilmodel_cmt.py:22-28 —
     returned in x's dtype, computed in fp32: one rounding where eager bf16
     would round each of its four ops (XLA fuses the chain; rounding each
     op makes the bf16 logits' distance from fp32 half as large again)."""
-    xf = x.float()
-    return (xf * 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+    if x.dtype == torch.float32 or not (torch.is_grad_enabled() and x.requires_grad):
+        return _gelu_chain(x)
+    return _LowPrecisionGelu.apply(x)
 
 
 ACT2FN = {"gelu": erf_gelu, "relu": torch.relu, "swish": nn.functional.silu}
@@ -123,6 +198,16 @@ class DropoutRNG:
 
     def attention_seed(self) -> int:
         return int(torch.randint(0, 2**32, (), generator=self.seeds))
+
+    def get_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both streams' positions: :meth:`set_state` of them makes the
+        next draws repeat the ones that followed (the replay of a
+        rollout's dropout)."""
+        return self.masks.get_state(), self.seeds.get_state()
+
+    def set_state(self, state: Tuple[torch.Tensor, torch.Tensor]) -> None:
+        self.masks.set_state(state[0])
+        self.seeds.set_state(state[1])
 
 
 def _rng(module: nn.Module) -> DropoutRNG:

@@ -29,7 +29,7 @@ import torch
 from ..agents.agent import resolve_device
 from ..configs import ModelConfig
 from ..models.convert import pretrain_params_from_flax
-from ..models.layers import DropoutRNG, compute_dtype, set_dropout_rng
+from ..models.layers import DropoutRNG, compute_dtype, drop_weight_cache, set_dropout_rng
 from .model import HAMTPretrain, batch_to_device, init_pretrain
 from .optim import build_pretrain_optimizer, warmup_linear_schedule
 from .tasks import TASK_NAMES, PretrainBatcher
@@ -114,6 +114,7 @@ class PretrainTrainer:
         weights are copies of these), the step count stays."""
         self.model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()},
                                    strict=True)
+        drop_weight_cache(self.model)
         self.optimizer = build_pretrain_optimizer(model=self.model, **self._opt_args)
 
     def load_flax_params(self, params: Mapping) -> None:
@@ -167,6 +168,7 @@ class PretrainTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
+        drop_weight_cache(self.model)
         self.step += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 

@@ -6,7 +6,7 @@ port of ``vln_hamt_tpu/run/finetune.py``.
         [--aug AUG.json] [--init_pretrain P.pt | --init_ref_ckpt REF.pt] \\
         [--resume_file latest.pt] \\
         [--eval_first] [--feedback teacher [--packed_il]] [--no_merged_sample] [--bf16] \\
-        [--iters N --log_every K]
+        [--no_feat_table] [--no_cand_backtrack] [--iters N --log_every K]
     python -m vln_hamt_torch.run.finetune --task rxr --synthetic [--valid_only] ...
 
 runs the task's preset at full width on the GPU (``--cpu`` runs on the
@@ -27,6 +27,11 @@ Training takes ``--iters`` updates with the preset's ``sample`` feedback
 aug env. ``--packed_il`` packs several teacher episodes into each slot
 of the IL episode loop (teacher feedback only); ``--bf16`` computes in
 bfloat16 (parameters, optimizers and losses fp32, features bf16).
+``--no_feat_table`` keeps the features on the host and ships them per
+step: evaluation then runs on the packed host-loop evaluator and the
+``sample`` update samples on the host loop, then replays.
+``--no_cand_backtrack`` forbids candidates the episode has visited in
+every evaluation (the packed evaluator).
 Every ``--log_every`` it appends the interval's loss,
 episodes/s and MFU to ``metrics.jsonl`` (and its mean losses to
 ``train.txt``), evaluates the validation splits greedily, and writes
@@ -71,7 +76,6 @@ def _check_task(task: str) -> None:
 #: flags of the JAX CLI that the port does not run yet, with their
 #: ROADMAP item
 _UNPORTED_FLAGS = {
-    "no_feat_table": "A10", "no_cand_backtrack": "A10",
     "sharded_feed": "A13", "data_shards": "A13", "model_shards": "A13",
     "orbax_ckpt": "A13", "obj_ft_file": "A11",
     "remat": "A19", "remat_policy": "A19", "rng_impl": "A20",
@@ -237,11 +241,14 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
           iters: Optional[int] = None, log_every: Optional[int] = None,
           eval_first: bool = False, resume_file: Optional[str] = None,
           merged_sample: bool = True, init_ref_ckpt: Optional[str] = None,
-          packed_il: bool = False, device=None) -> Dict[str, float]:
+          packed_il: bool = False, no_cand_backtrack: bool = False,
+          device=None) -> Dict[str, float]:
     """The train/validate loop (main.py:86-222) with the config's
     feedback; ``sample`` updates are merged (the JAX CLI's production
     default) unless ``merged_sample`` is off, then fused; ``packed_il``
-    packs the ``teacher`` updates' episodes (one packer per env).
+    packs the ``teacher`` updates' episodes (one packer per env);
+    ``no_cand_backtrack`` goes to every evaluation. Without the config's
+    ``feat_table`` the features stay on the host.
     ``train_env`` may be a (train_env, aug_env) pair: the updates of an
     interval then alternate between the two (main.py:150-161)."""
     os.makedirs(output_dir, exist_ok=True)
@@ -256,8 +263,9 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
     # reference or pretrained weights first, then the feature table, then
     # a resumed checkpoint, which wins
     _apply_weight_init(agent, init_ref_ckpt, record_file)
-    _share_feature_table(agent, train_env,
-                         ([aug_env] if aug_env is not None else []) + list(val_envs.values()))
+    if cfg.train.feat_table:
+        _share_feature_table(agent, train_env, ([aug_env] if aug_env is not None else [])
+                             + list(val_envs.values()))
     if packed_il:
         # the JAX CLI's guard (finetune.py:365-379); main() refuses
         # --no_feat_table with it, and the agent packs from the table only
@@ -272,7 +280,8 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
 
     if eval_first:  # sanity eval before training (main.py:112-128)
         for name, env in val_envs.items():
-            metrics, _ = env.eval_metrics(_merge_preds(agent.eval_split_fast(env)))
+            metrics, _ = env.eval_metrics(_merge_preds(
+                agent.eval_split_fast(env, no_cand_backtrack)))
             write_record(record_file, f"eval_first {name}: {metrics}")
 
     iters = iters or cfg.train.iters
@@ -313,7 +322,8 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
 
         for name, env in val_envs.items():
             with logger.timer(f"eval_{name}"):
-                metrics, _ = env.eval_metrics(_merge_preds(agent.eval_split_fast(env)))
+                metrics, _ = env.eval_metrics(_merge_preds(
+                    agent.eval_split_fast(env, no_cand_backtrack)))
             logger.log(step, metrics, prefix=f"{name}/")
             write_record(record_file, f"iter {step} {name}: " + ", ".join(
                 f"{k}={v:.2f}" for k, v in metrics.items()))
@@ -329,7 +339,7 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
 
 def valid(cfg: HAMTConfig, ckpt: Optional[str], val_envs: Dict[str, R2RNavEnv],
           output_dir: str, submit: bool = False, init_ref_ckpt: Optional[str] = None,
-          device=None) -> Dict[str, Dict[str, float]]:
+          no_cand_backtrack: bool = False, device=None) -> Dict[str, Dict[str, float]]:
     """Stand-alone greedy evaluation of a checkpoint (main.py:225-269):
     greedy eval per split, metrics for GT splits, ``submit_{split}.json``
     dumps, and a valid.txt record file."""
@@ -342,11 +352,12 @@ def valid(cfg: HAMTConfig, ckpt: Optional[str], val_envs: Dict[str, R2RNavEnv],
         write_record(record_file, f"loaded {ckpt} at iter {step}")
     first = next(iter(val_envs.values()))
     agent.env = first
-    _share_feature_table(agent, first, val_envs.values())
+    if cfg.train.feat_table:
+        _share_feature_table(agent, first, val_envs.values())
     results = {}
     for name, env in val_envs.items():
         agent.env = env
-        merged = _merge_preds(agent.eval_split_fast(env))
+        merged = _merge_preds(agent.eval_split_fast(env, no_cand_backtrack))
         if "test" not in name:  # test splits have no GT (main.py:258-262)
             metrics, _ = env.eval_metrics(merged)
             results[name] = metrics
@@ -410,7 +421,9 @@ def parse_args(argv=None):
     p.add_argument("--test", action="store_true",
                    help="use the full val_unseen for R4R instead of val_unseen_sampled "
                         "(r2r/main.py:59-63)")
-    p.add_argument("--no_cand_backtrack", action="store_true")
+    p.add_argument("--no_cand_backtrack", action="store_true",
+                   help="greedy evaluation never moves to a visited viewpoint (the "
+                        "packed host-loop evaluator)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain attention, no kernel)")
@@ -419,7 +432,9 @@ def parse_args(argv=None):
                         "feature table bf16)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--remat_policy", default=None, choices=["full", "dots"])
-    p.add_argument("--no_feat_table", action="store_true")
+    p.add_argument("--no_feat_table", action="store_true",
+                   help="keep the features on the host, shipped per step: host-loop "
+                        "evaluation and rollout-then-replay sample updates")
     p.add_argument("--no_merged_sample", action="store_true",
                    help="sample feedback as the fused update (teacher episode forward, "
                         "then the rollout) instead of the merged one (the teacher "
@@ -458,6 +473,8 @@ def main(argv=None):
     overrides = {key: getattr(args, key) for key in ("batch_size", "lr", "feedback")
                  if getattr(args, key) is not None}
     cfg = cfg.replace(train={**overrides, "seed": args.seed})
+    if args.no_feat_table:
+        cfg = cfg.replace(train={"feat_table": False})
     if args.bf16:
         cfg = cfg.replace(model={"dtype": "bfloat16"})
     if args.tiny:
@@ -481,7 +498,8 @@ def main(argv=None):
 
     if args.valid_only:
         results = valid(cfg, args.resume_file, val_envs, args.output_dir, submit=args.submit,
-                        init_ref_ckpt=init_ckpt, device=device)
+                        init_ref_ckpt=init_ckpt, no_cand_backtrack=args.no_cand_backtrack,
+                        device=device)
         print(json.dumps({"valid": results}, default=float))
         return results
 
@@ -490,7 +508,8 @@ def main(argv=None):
     best = train(cfg, train_env, train_val_envs, args.output_dir, iters=args.iters,
                  log_every=args.log_every, eval_first=args.eval_first,
                  resume_file=args.resume_file, merged_sample=not args.no_merged_sample,
-                 init_ref_ckpt=init_ckpt, packed_il=args.packed_il, device=device)
+                 init_ref_ckpt=init_ckpt, packed_il=args.packed_il,
+                 no_cand_backtrack=args.no_cand_backtrack, device=device)
     print(json.dumps({"best": best}, default=float))
     return best
 

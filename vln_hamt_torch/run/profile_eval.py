@@ -1,16 +1,17 @@
 """Where the time of full-width greedy evaluation goes on the card.
 
     python -m vln_hamt_torch.run.profile_eval [--task r2r|r2r_last|r4r|rxr]
-        [--batch_size 32] [--bf16] [--out DIR]
+        [--batch_size 32] [--evaluator device|lockstep|packed] [--bf16] [--out DIR]
 
 Builds the evaluation that ``chip_smoke.py`` drives (the task's preset,
 ``r2r`` by default, fp32 or with ``--bf16`` bfloat16, seeded random weights, synthetic world of 2
-scans x 36 nodes and 96 items), warms it up, then traces one ``eval_split_device`` with
-``torch.profiler``. Prints one JSON line: wall time without and with
+scans x 36 nodes and 96 items), warms it up, then traces one evaluation of the split with
+``torch.profiler``: the device rollout (``eval_split_device``, the default), or the host loop,
+lock-step (``eval_split``) or continuation-packed (``eval_split_packed``). Prints one JSON line: wall time without and with
 the profiler, summed kernel time (one stream: the device is busy that
 long), the idle share against both wall times, and kernel time by group (the
 attention forward kernel, matrix products, the rest); writes the per-kernel
-table to ``DIR/profile_eval[_bf16].txt``.
+table to ``DIR/profile_eval[_lockstep|_packed][_bf16].txt``.
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--task", default="r2r", choices=("r2r", "r2r_last", "r4r", "rxr"))
     p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--evaluator", default="device", choices=("device", "lockstep", "packed"))
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="runs/profile_eval")
@@ -105,30 +107,33 @@ def main(argv=None):
     cfg = cfg.replace(model={"dtype": "bfloat16" if args.bf16 else "float32"})
     agent = HAMTAgent(cfg, slice_env(cfg, world, args.seed), seed=args.seed, device=device)
     agent.enable_feature_table()
-    agent.eval_split_device()  # warm-up
+    evaluate = {"device": agent.eval_split_device, "lockstep": agent.eval_split,
+                "packed": agent.eval_split_packed}[args.evaluator]
+    evaluate()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    agent.eval_split_device()
+    evaluate()
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        preds = agent.eval_split_device()
+        preds = evaluate()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels, groups = kernel_table(prof)
     busy_ms = sum(ms for _, ms, _ in kernels)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_eval" + ("_bf16" if args.bf16 else "")
-                           + ".txt"), "w") as f:
+    stem = ("profile_eval" + ("" if args.evaluator == "device" else f"_{args.evaluator}")
+            + ("_bf16" if args.bf16 else ""))
+    with open(os.path.join(args.out, stem + ".txt"), "w") as f:
         f.write(f"{'device ms':>10} {'launches':>9}  kernel\n")
         for name, ms, n in kernels:
             f.write(f"{ms:10.3f} {n:9d}  {name}\n")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "task": args.task, "batch": args.batch_size,
-        "dtype": cfg.model.dtype,
+        "evaluator": args.evaluator, "dtype": cfg.model.dtype,
         "episodes": len(preds), "unprofiled_wall_ms": unprofiled_ms, "wall_ms": wall_ms,
         "kernel_ms": busy_ms,
         # kernel durations barely change under the tracer, the host's

@@ -1,8 +1,8 @@
 """Where the time of one full-width training update goes on the card.
 
     python -m vln_hamt_torch.run.profile_train [--task r2r|r2r_last|r4r|rxr]
-        [--feedback teacher|sample] [--no_merged_sample] [--packed_il] [--bf16]
-        [--batch_size B] [--out DIR]
+        [--feedback teacher|sample] [--no_merged_sample | --replay [--no_feat_table]]
+        [--packed_il] [--bf16] [--batch_size B] [--out DIR]
 
 Builds the training that ``chip_smoke.py`` drives (the task's preset,
 ``r2r`` by default, fp32 or with ``--bf16`` bfloat16, production
@@ -10,8 +10,11 @@ dropout, adamw lr 1e-5, clip 40,
 the preset's batch unless ``--batch_size``, seeded random weights, the
 synthetic world of ``run/profile_eval.py:slice_config``) with IL
 (``teacher``, the default; packed with ``--packed_il``) or IL + A2C
-(``sample``: the merged update, or the fused one with
-``--no_merged_sample``), warms it up with three
+(``sample``: the merged update, the fused one with
+``--no_merged_sample``, or rollout-then-replay with ``--replay``: a
+sampling device rollout, or with ``--no_feat_table`` a host-loop one
+over features shipped per step, then the IL episode and the replay),
+warms it up with three
 updates, times 20 unprofiled updates (as many as ``chip_smoke.py``'s
 ``train`` and ``sample`` phases: the host's pace varies, and the idle
 share rests on this wall time), then traces one ``train_iteration``
@@ -21,7 +24,7 @@ summed kernel time (one stream: the
 device is busy that long), the idle share against both wall times, and
 kernel time by group (the attention forward and backward kernels,
 matrix products, the rest); writes the per-kernel table to
-``DIR/profile_train_{task}_{teacher|packed|merged|fused}[_bf16].txt``.
+``DIR/profile_train_{task}_{teacher|packed|merged|fused|replay|replay_host}[_bf16].txt``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,11 @@ def main(argv=None):
     p.add_argument("--feedback", default="teacher", choices=("teacher", "sample"))
     p.add_argument("--no_merged_sample", action="store_true",
                    help="profile the fused sample update instead of the merged one")
+    p.add_argument("--replay", action="store_true",
+                   help="profile the rollout-then-replay sample update (merged and fused off)")
+    p.add_argument("--no_feat_table", action="store_true",
+                   help="features on the host, shipped per step (with --replay: the "
+                        "host-loop rollout)")
     p.add_argument("--packed_il", action="store_true",
                    help="profile the packed IL update (teacher feedback)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
@@ -56,16 +64,23 @@ def main(argv=None):
 
     cfg, world = slice_config(args.batch_size or get_preset(args.task).train.batch_size,
                               args.seed, args.task)
+    if args.replay and args.feedback != "sample":
+        raise ValueError("--replay profiles the sample update")
+    if args.no_feat_table and not args.replay:
+        raise ValueError("--no_feat_table profiles the replay update's host-loop rollout")
     if args.packed_il and args.feedback != "teacher":
         raise ValueError("--packed_il profiles the teacher update")
     cfg = cfg.replace(train={"feedback": args.feedback},
                       model={"dtype": "bfloat16" if args.bf16 else "float32"})
     agent = HAMTAgent(cfg, slice_env(cfg, world, args.seed), seed=args.seed, device=device)
-    agent.merged_sample_update = not args.no_merged_sample
-    agent.enable_feature_table()
+    agent.merged_sample_update = not (args.no_merged_sample or args.replay)
+    agent.fused_sample_update = not args.replay
+    if not args.no_feat_table:
+        agent.enable_feature_table()
     if args.packed_il:
         agent.enable_packed_il()
     update = ("packed" if args.packed_il else "teacher" if args.feedback == "teacher"
+              else ("replay_host" if args.no_feat_table else "replay") if args.replay
               else "fused" if args.no_merged_sample else "merged")
     for _ in range(3):  # warm-up
         agent.train_iteration(sync=False)
