@@ -35,6 +35,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                as under fix_lang_embedding off; both kernels timed in fp32
                and bf16 at the serving, training, merged-update, packed
                and pretraining lanes (the summary's bf16 times);
+               and both at the task variants' shapes of phase 17 (lines
+               with a "preset" key too): R2R-Back's 80-token visual stream
+               against 60-token text, CVDN's 80 x 100 and 100 x 100 (r4r's,
+               measured once), REVERIE's 85-token stream (65 + 20 objects),
+               each at its preset's batch (4, 4, 8) and twice that;
                and both at every pretraining shape of phase 12 (lines with
                a "pretrain" key), each at its lanes: the panorama encoder's
                36 x 36 over 400 lanes, the text's 80 x 80 (and `rxr`'s
@@ -191,6 +196,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                host-loop rollout's episode and rewards, and the replay
                update's loss and every model and critic gradient within
                train_parity's tolerances.
+17. variants -- the task variants at full width, fp32, seeded random
+               weights, each at its preset's batch over the slice's world
+               with the task's items (run/profile_eval.py:slice_agent):
+               `r2r_back` (T 30, frozen text and history: 549 forward
+               launches per greedy batch, 480 backward per IL update),
+               `cvdn` (100-token text, no_lang_ca, T 30: 313 / 311) and
+               `reverie` (no_lang_ca, 20 objects per viewpoint, T 15: 159
+               / 157; plan_ref reads the initial text encoding, so no
+               precomputed language half runs). Per task: one timed
+               greedy device-rollout batch with exactly launch_mix's
+               forward launches; eval_split, eval_split_packed and
+               eval_split_device over 24 items give identical
+               trajectories, midstops and predicted objects, with exactly
+               their launch formulas, and the task's metrics; one warm-up
+               and 3 timed updates each of IL and the merged sample update
+               (exact launches, episodes/s, peak memory), for REVERIE 3
+               packed IL updates too; the sampling device rollout's
+               rewards against the host hooks' on the same draws (within
+               1e-6); card against CPU at batch 2, dropout off: identical
+               greedy trajectories with logits within 1e-3, the IL loss
+               and every gradient within check_grads (REVERIE's object
+               logits within 1e-3 too).
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -208,7 +235,10 @@ path's launches, the bound counting bf16 q, k, v bytes and the tensor
 cores' bf16 rate) and launches of
 the bf16 phases, and its packed-IL launches and times (``packed_il``);
 its launches per batch of each host-loop evaluator (``hostloop``, the
-forward) and per replay update (``replay``, by rollout). The family
+forward) and per replay update (``replay``, by rollout); and per task
+variant (``variants``) its launches per greedy batch, IL, merged and
+packed update, the launches of phase 17, and its times weighted as the
+family's. The family
 times and the `rxr` pretraining mix's come in fp32 and bf16 (``bf16``
 under each preset). The bf16
 phases' lines carry the fp32 peak memory beside the bf16 one and the
@@ -244,7 +274,7 @@ from vln_hamt_torch.run import finetune
 from vln_hamt_torch.run.profile_attention import (
     bootstrap_mix, build_all, kernel_inputs, launch_mix, nvidia_smi, packed_il_mix, rel_err,
     text_launches, time_backward, time_forward, weighted)
-from vln_hamt_torch.run.profile_eval import kernel_table, slice_config, slice_env
+from vln_hamt_torch.run.profile_eval import kernel_table, slice_agent, slice_config, slice_env
 from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
 
 B, H, DH = 32, 12, 64
@@ -287,6 +317,11 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-3, 1e-6
 # the family presets whose shapes are new to the kernels; r2r_last has r2r's
 FAMILY = ("rxr", "r4r")
+# the task variants (phase 17), the items each evaluator takes there, and
+# the sampling rollout's rewards, device against host hooks, on the card
+VARIANTS = ("r2r_back", "cvdn", "reverie")
+VARIANT_EVAL_ITEMS = 24
+VARIANT_REWARD_ATOL = 1e-6
 # one agent's logits against another's with the same weights, the same
 # kernels and the same inputs: only the order of host-issued work differs
 SAME_WEIGHTS_ATOL = 1e-6
@@ -605,6 +640,7 @@ def phase_family_kernels(dev, mixes):
     gen = torch.Generator(device=dev).manual_seed(1)
     seed = 2**31 + 7
     out, ferr, berr = {}, 0.0, 0.0
+    done = {}  # (kernel, lanes, Lq, Lk, dtype, rate) -> row: a shape two presets share
     for task, (batch, fwd_mix, bwd_mix) in mixes.items():
         out[task] = {}
         for b in (batch, 2 * batch):
@@ -616,16 +652,23 @@ def phase_family_kernels(dev, mixes):
                         where = f"{task} B {b} ({lq},{lk})"
                         case = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate}
                         timed = rate == 0.0
-                        err = check_fwd(q, k, v, m, seed, rate, where)
-                        ferr = max(ferr, err)
-                        frows.append({**case, "max_abs_err": err,
-                                      **(time_forward(q, k, v, m) if timed else {})})
+                        key = (b, lq, lk, case["dtype"], rate)
+                        if ("fwd",) + key not in done:
+                            err = check_fwd(q, k, v, m, seed, rate, where)
+                            ferr = max(ferr, err)
+                            done[("fwd",) + key] = {
+                                **case, "max_abs_err": err,
+                                **(time_forward(q, k, v, m) if timed else {})}
+                        frows.append(done[("fwd",) + key])
                         if (lq, lk) not in bwd_mix:
                             continue
-                        errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
-                        berr = max(berr, err)
-                        brows.append({**case, "rel_err": errs, "max_abs_err": err,
-                                      **(time_backward(q, k, v, m, g) if timed else {})})
+                        if ("bwd",) + key not in done:
+                            errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+                            berr = max(berr, err)
+                            done[("bwd",) + key] = {
+                                **case, "rel_err": errs, "max_abs_err": err,
+                                **(time_backward(q, k, v, m, g) if timed else {})}
+                        brows.append(done[("bwd",) + key])
             for name, rows, mix in (("attention_fwd", frows, fwd_mix),
                                     ("attention_bwd", brows, bwd_mix)):
                 emit("kernels", kernel=name, preset=task, batch=b, heads=H, head_dim=DH,
@@ -1024,7 +1067,7 @@ def greedy_batch(agent):
     with torch.no_grad():  # as eval_split_device calls it
         ep, extras = agent._ensure_device_rollout_fn()(
             ins["txt_ids"], ins["txt_mask"], agent._feat_table, agent._nav_tables,
-            ins["start_node"], ins["start_view"])
+            ins["start_node"], ins["start_view"], obj_tables=agent._obj_tables)
     trajs = agent._decode_device_trajectories(agent.env, ep, extras)
     return trajs, {k: v.cpu() for k, v in ep.items()}, {k: v.cpu() for k, v in extras.items()}
 
@@ -1834,6 +1877,187 @@ def phase_replay(cfg, world, per_batch, per_update_bwd, boot):
     return per_update
 
 
+def variant_il_grads(agent, ep):
+    """The teacher-forced episode's logits (REVERIE's object logits too),
+    the agent's IL loss (REVERIE: the dual CE) and every model gradient,
+    in training mode, no step."""
+    agent.model.train()
+    agent.critic.train()
+    out = agent.episode_forward(ep, agent._feat_table, agent._obj_tables)
+    loss = (agent._ce(out.logits, out.obj_logits, ep) * agent.cfg.train.teacher_weight
+            / ep["actions"].shape[0])
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in agent.model.named_parameters()
+             if p.grad is not None}
+    obj = None if out.obj_logits is None else out.obj_logits.detach().cpu()
+    return out.logits.detach().cpu(), obj, loss.item(), grads
+
+
+def timed_updates(agent, feedback, iters, per_update, what):
+    """One warm-up and ``iters`` timed updates of ``feedback`` from zeroed
+    launch counts, unsynchronized; raises unless each launched exactly
+    ``per_update``. Returns episodes/s, ms per update, peak GB and the
+    episodes per update (packed IL's vary)."""
+    agent.train_iteration(feedback, sync=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [agent.train_iteration(feedback, sync=False) for _ in range(iters)]
+    losses = torch.stack([o["loss"] for o in outs]).cpu()
+    seconds = time.perf_counter() - t0
+    launches = dict(attn.launch_counts)
+    if launches != {k: n * iters for k, n in per_update.items()}:
+        raise AssertionError(f"{what}: launches {launches} over {iters} updates, expected "
+                             f"{per_update} per update")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{what}: non-finite losses {losses.tolist()}")
+    episodes = sum(o.get("episodes", agent.cfg.train.batch_size) for o in outs)
+    return {"episodes_per_s": episodes / seconds, "ms_per_update": seconds / iters * 1e3,
+            "episodes_per_update": episodes / iters, "loss_mean": losses.mean().item(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_update": per_update}
+
+
+def same_extras(a, b, keys, what) -> None:
+    """The predictions' task extras (midstop, predObjId) equal per item."""
+    a = {p["instr_id"]: [p.get(k) for k in keys] for p in a}
+    b = {p["instr_id"]: [p.get(k) for k in keys] for p in b}
+    if a != b:
+        raise AssertionError(f"{what}: {keys} differ")
+
+
+def phase_variants(task):
+    """One task variant at full width (see the module docstring, phase
+    17). Returns the phase's launches per path."""
+    t_phase = time.perf_counter()
+    cfg, world = slice_config(get_preset(task).train.batch_size, seed=0, task=task)
+    b, t_max, mcfg = cfg.train.batch_size, cfg.env.max_action_len, cfg.model
+    fwd_mix, bwd_mix = launch_mix(cfg)
+    per_batch, per_bwd = sum(fwd_mix.values()), sum(bwd_mix.values())
+    boot = sum(bootstrap_mix(cfg).values())
+    extras = {"r2r_back": ("midstop",), "cvdn": (), "reverie": ("predObjId",)}[task]
+
+    agent = slice_agent(cfg, world, seed=0)
+    agent.enable_feature_table()
+    eps, _ = timed_greedy_batch(agent, per_batch, task)
+    # the three evaluators over the first items, with their launch formulas
+    env = agent.env.clone_shell(list(agent.env.data)[:VARIANT_EVAL_ITEMS])
+    text = text_launches(mcfg)[0]
+    per_step = (per_batch - text) // t_max
+    count = HostLoopCounter(agent)
+    preds, evals = {}, {}
+    for name, fn in (("lockstep", lambda: agent.eval_split(env)),
+                     ("packed", lambda: agent.eval_split_packed(env)),
+                     ("device", lambda: agent.eval_split_device(env))):
+        preds[name], seconds, launches = timed_eval(agent, count, fn, per_batch, text,
+                                                    per_step, f"{task} {name}")
+        if len(preds[name]) != VARIANT_EVAL_ITEMS:
+            raise AssertionError(f"{task} {name}: {len(preds[name])} predictions")
+        evals[name] = {"episodes_per_s": VARIANT_EVAL_ITEMS / seconds, "launches": launches}
+    for name in ("packed", "device"):
+        same_trajectories(preds["lockstep"], preds[name], f"{task}: lockstep vs {name}")
+        same_extras(preds["lockstep"], preds[name], extras, f"{task}: lockstep vs {name}")
+    metrics, _ = env.eval_metrics(preds["device"])
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{task}: bad metrics {metrics}")
+
+    updates = {"il": timed_updates(agent, "teacher", 3, {"attention_fwd": per_batch,
+                                                         "attention_bwd": per_bwd},
+                                   f"{task} IL")}
+    agent.merged_sample_update = True
+    updates["merged"] = timed_updates(agent, "sample", 3,
+                                      {"attention_fwd": per_batch + boot,
+                                       "attention_bwd": per_bwd}, f"{task} merged")
+    if task == "reverie":
+        agent.enable_packed_il()
+        pmix = packed_il_mix(cfg, agent._packer.text_cap)
+        updates["packed_il"] = timed_updates(
+            agent, "teacher", 3, {"attention_fwd": sum(pmix[0].values()),
+                                  "attention_bwd": sum(pmix[1].values())}, f"{task} packed IL")
+        updates["packed_il"]["text_rows"] = agent._packer.text_cap
+    del agent
+
+    # card against CPU at batch 2, dropout off; then on the card the
+    # sampling device rollout's rewards against the host hooks' on the
+    # same batch and draws (the env's resampling generator and the action
+    # generator rewound before each side)
+    pcfg = cfg.replace(model=NO_DROPOUT, train={"batch_size": 2})
+    res = {}
+    for device in ("cuda", "cpu"):
+        pagent = slice_agent(pcfg, world, seed=0, device=device)
+        pagent.enable_feature_table()
+        greedy = greedy_batch(pagent)
+        res[device] = (greedy, *variant_il_grads(pagent, pagent._teacher_episode()))
+        if device == "cpu":
+            del pagent
+            continue
+        env, reward_err, stops = pagent.env, 0.0, 0
+        np_rng = getattr(env, "_np_rng", None)
+        for draw in range(3):
+            rec = {}
+            for side in ("host", "device"):
+                if side == "host" and np_rng is not None:
+                    state = np_rng.bit_generator.state
+                elif np_rng is not None:
+                    np_rng.bit_generator.state = state
+                pagent.action_rng.manual_seed(draw)
+                env.reset_epoch()
+                if side == "host":
+                    _, hx = pagent.interactive_rollout("sample", record_for_replay=True)
+                    rec[side] = (hx["ep"], hx)
+                else:
+                    ins = pagent._device_rollout_args()
+                    with torch.no_grad():
+                        rec[side] = pagent._rollout(ins, ins["txt_ids"], ins["txt_mask"],
+                                                    "sample")
+            (hep, hx), (dep, dx) = rec["host"], rec["device"]
+            for key in ("actions", "step_mask", "node_idx"):
+                if not torch.equal(hep[key], dep[key]):
+                    raise AssertionError(f"{task}: host and device rollouts differ in {key}")
+            if not torch.equal(hx["bootstrap_mask"], dx["bootstrap_mask"]):
+                raise AssertionError(f"{task}: host and device episode ends differ")
+            reward_err = max(reward_err, (hx["rewards"] - dx["rewards"]).abs().max().item())
+            stops += int((dep["actions"][dep["step_mask"]] == pagent.stop_action).sum())
+        if not reward_err <= VARIANT_REWARD_ATOL:
+            raise AssertionError(f"{task}: device rewards off the host hooks' by {reward_err}")
+        del pagent
+    (g_c, lg_c, ol_c, loss_c, grads_c), (g_p, lg_p, ol_p, loss_p, grads_p) = (res["cuda"],
+                                                                             res["cpu"])
+    logit_err = compare_rollouts(g_c, g_p, PARITY_LOGIT_ATOL, f"{task} card vs CPU")
+    il_errs = {}
+    for name, x, y in (("il_logits", lg_c, lg_p), ("il_obj_logits", ol_c, ol_p)):
+        if y is None:
+            continue
+        fin = torch.isfinite(y)
+        if not torch.equal(torch.isfinite(x), fin):
+            raise AssertionError(f"{task}: card and CPU {name} -inf at other places")
+        il_errs[name] = (x[fin] - y[fin]).abs().max().item()
+        if not il_errs[name] <= PARITY_LOGIT_ATOL:
+            raise AssertionError(f"{task}: card vs CPU {name} differ by {il_errs[name]}")
+    loss_err = abs(loss_c - loss_p) / abs(loss_p)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{task}: card vs CPU IL loss {loss_c} vs {loss_p}")
+    worst = check_grads(grads_c, grads_p, f"{task} IL update")
+    emit("variants", preset=task, hidden=mcfg.hidden_size, no_lang_ca=mcfg.no_lang_ca,
+         fix_lang_and_hist=[mcfg.fix_lang_embedding, mcfg.fix_hist_embedding],
+         objects=cfg.env.max_objects if mcfg.obj_feat_size > 0 else 0,
+         text_len=cfg.env.max_instr_len, t_max=t_max, batch=b,
+         shape_mix={f"{lq}x{lk}": n for (lq, lk), n in fwd_mix.items()},
+         bwd_shape_mix={f"{lq}x{lk}": n for (lq, lk), n in bwd_mix.items()},
+         greedy_episodes_per_s=eps, greedy_launches_per_batch=per_batch,
+         evaluators=evals, eval_items=VARIANT_EVAL_ITEMS, trajectories_identical=True,
+         extras_identical=list(extras), metrics=metrics, updates=updates,
+         rewards={"max_abs_err": reward_err, "atol": VARIANT_REWARD_ATOL, "draws": 3,
+                  "stops": stops},
+         parity={"batch": 2, "trajectories_identical": True, "max_abs_logit_err": logit_err,
+                 **{f"max_abs_{k}_err": v for k, v in il_errs.items()}, "tol": PARITY_LOGIT_ATOL,
+                 "loss_rel_err": loss_err, "tensors": len(grads_p),
+                 "max_grad_err_over_tol": worst},
+         seconds=time.perf_counter() - t_phase)
+    return {"greedy": per_batch, **{k: v["launches_per_update"] for k, v in updates.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1870,10 +2094,10 @@ def main() -> int:
     # 32, the backward at the training slice's 8
     (fwd_rows, _, fwd8_rows, bwd_rows, (f16_rows, b16_rows), (fpk_rows, bpk_rows), fwd_err,
      bwd_err) = phase_kernels(dev, mix, bwd_mix, cfg.env.max_instr_len)
-    # and at the family presets' shapes, each at its preset's batch and
-    # at the merged update's twice as many lanes
+    # and at the family presets' and the task variants' shapes, each at
+    # its preset's batch and at the merged update's twice as many lanes
     family_mixes, boot_mixes = {}, {}
-    for task in FAMILY:
+    for task in FAMILY + VARIANTS:
         fcfg, _ = slice_config(get_preset(task).train.batch_size, seed=0, task=task)
         family_mixes[task] = (fcfg.train.batch_size, *launch_mix(fcfg))
         boot_mixes[task] = bootstrap_mix(fcfg)
@@ -2145,6 +2369,9 @@ def main() -> int:
     # ------------------------------------------------------------ family
     family_runs = {task: phase_family(task, family_mixes) for task in FAMILY + ("r2r_last",)}
 
+    # ---------------------------------------------------------- variants
+    variant_runs = {task: phase_variants(task) for task in VARIANTS}
+
     # ------------------------------------------------------------- files
     with tempfile.TemporaryDirectory() as tmp:
         phase_files(tmp)
@@ -2172,17 +2399,27 @@ def main() -> int:
     # per family preset, times weighted by the merged update's launches:
     # the rollout's forward and the backward at 2 x batch lanes, the
     # bootstrap's forward at the batch; the forward at the greedy batch too
+    # (the variants' likewise, with their phase 17 launches per path)
     family = {"attention_fwd": {}, "attention_bwd": {}}
+    variants = {"attention_fwd": {}, "attention_bwd": {}}
     for task, (batch, fwd_mix, fam_bwd_mix) in family_mixes.items():
         (f1, _), (f2, b2) = family_kernels[task][batch], family_kernels[task][2 * batch]
+        out = variants if task in VARIANTS else family
         for name, parts in (("attention_fwd", ((f2, fwd_mix), (f1, boot_mixes[task]))),
                             ("attention_bwd", ((b2, fam_bwd_mix),))):
-            family[name][task] = {
-                "batch": batch, "lanes": 2 * batch,
-                "launches": family_runs[task]["launches"][name],
-                "launches_per_merged_update": family_runs[task]["launches_per_update"][name],
-                **kernel_times(*parts), "bf16": kernel_times(*parts, dtype="bfloat16")}
-        family["attention_fwd"][task]["greedy"] = {
+            if task in VARIANTS:  # phase 17's launches per greedy batch and update
+                launches = {"launches_per": {
+                    path: per if path == "greedy" else per[name]
+                    for path, per in variant_runs[task].items()
+                    if path != "greedy" or name == "attention_fwd"}}
+            else:
+                launches = {"launches": family_runs[task]["launches"][name],
+                            "launches_per_merged_update":
+                                family_runs[task]["launches_per_update"][name]}
+            out[name][task] = {"batch": batch, "lanes": 2 * batch, **launches,
+                               **kernel_times(*parts),
+                               "bf16": kernel_times(*parts, dtype="bfloat16")}
+        out["attention_fwd"][task]["greedy"] = {
             "batch": batch, **kernel_times((f1, fwd_mix)),
             "bf16": kernel_times((f1, fwd_mix), dtype="bfloat16")}
     # bf16: per path the bf16 phases' launches and the times weighted by
@@ -2219,6 +2456,7 @@ def main() -> int:
             "replay": {rollout: per[name] for rollout, per in replay_per_update.items()}}
         if name == "attention_fwd":
             extra[name]["hostloop"] = hostloop_launches
+        extra[name]["variants"] = variants[name]
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel

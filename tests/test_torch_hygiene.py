@@ -2,8 +2,10 @@
 package, and its entry points never fall back to the CPU on their own."""
 
 import ast
+import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,17 +62,13 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
 UNPORTED = {
     "sharded_feed": ([], "A13"),
     "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"), "orbax_ckpt": ([], "A13"),
-    "obj_ft_file": (["o.hdf5"], "A11"),
     "remat": ([], "A19"), "remat_policy": (["dots"], "A19"), "rng_impl": (["rbg"], "A20"),
 }
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--task", "r2r_back", "--valid_only", "--synthetic"], "A11"),
-    (["--task", "reverie", "--synthetic"], "A11"),
-    (["--task", "cvdn", "--valid_only", "--synthetic"], "A11"),
-] + [(["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in UNPORTED.items()],
-    ids=["task", "task_reverie", "task_cvdn"] + list(UNPORTED))
+    (["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in UNPORTED.items()],
+    ids=list(UNPORTED))
 def test_cli_names_the_roadmap_item_of_unported_paths(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
         finetune.main(argv + ["--cpu"])
@@ -115,13 +113,26 @@ def test_cli_real_data_needs_its_files():
         finetune.main(["--valid_only", "--cpu"])
 
 
-@pytest.mark.parametrize("task", ["r2r_back", "reverie", "cvdn"])
-def test_dataset_builders_refuse_other_task_families(task):
-    cfg = get_preset(task)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A11$"):
-        finetune.build_synthetic_dataset(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A11$"):
-        finetune.build_real_dataset(cfg, None)
+@pytest.mark.parametrize("mode", ["valid_only", "train"])
+@pytest.mark.parametrize("task", ["r2r_back", "cvdn", "reverie"])
+def test_cli_task_variants_on_cpu(tmp_path, task, mode):
+    """Each task variant through the CLI at a tiny size on the CPU: greedy
+    evaluation of the validation and test splits (--valid_only --submit:
+    the task's metrics, and its extras in the submission file), or 2
+    sample updates and an evaluation to the task's selection score."""
+    argv = ["--task", task, "--synthetic", "--tiny", "--cpu", "--output_dir", str(tmp_path)]
+    if mode == "valid_only":
+        out = _one_thread(lambda: finetune.main(argv + ["--valid_only", "--submit"]))
+        m = out["val_unseen"]
+        submitted = json.loads((tmp_path / "submit_test.json").read_text())
+        extra = {"r2r_back": "midstop", "reverie": "predObjId"}.get(task)
+        assert submitted and all(extra in p for p in submitted) if extra else submitted
+    else:
+        m = _one_thread(lambda: finetune.main(argv + ["--iters", "2", "--log_every", "2"]))
+        assert m["iter"] == 2
+        assert m["score"] == finetune.selection_score(task, m)
+    key = {"r2r_back": "nDTW", "cvdn": "gp", "reverie": "rgspl"}[task]
+    assert 0.0 <= m["sr"] <= 100.0 and np.isfinite(m[key])
 
 
 def test_cli_valid_only_on_cpu(tmp_path):

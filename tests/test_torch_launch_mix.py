@@ -4,7 +4,7 @@ merged and fused sample updates run: here each call of the plain
 forward and backward (the CPU's stand-ins for the kernels) is counted at
 a tiny size, for the ``r2r`` preset's frozen text and history stacks,
 for trained ones, and under ``no_lang_ca`` (the ``rxr`` and ``r4r``
-presets). On the card ``chip_smoke.py`` holds the kernels' launch
+presets); and for the task variants (R2R-Back, CVDN, REVERIE). On the card ``chip_smoke.py`` holds the kernels' launch
 counts to the same mixes."""
 
 import collections
@@ -103,3 +103,38 @@ def test_aug_env_paths_longer_than_the_train_split(counted):
         agent.merged_sample_update = merged
         out = agent.train_iteration("sample")
         assert all(np.isfinite(v) for v in out.values())
+
+
+@pytest.mark.parametrize("task,kw", [
+    ("r2r_back", {"fix": True}), ("cvdn", {"fix": False, "no_lang_ca": True}),
+    ("reverie", {"fix": False, "no_lang_ca": True}), ("reverie", {"fix": True})],
+    ids=["r2r_back", "cvdn", "reverie", "reverie_ob_txt"])
+def test_launch_mix_counts_the_variants(counted, task, kw):
+    """The task variants at their presets' layouts: R2R-Back's frozen
+    stacks, CVDN's and REVERIE's no_lang_ca with every stack trained
+    (REVERIE's visual stream with its object tokens and no precomputed
+    language half), through the greedy device rollout, the IL update
+    (REVERIE's dual CE: the object head adds no attention) and the
+    merged and fused sample updates."""
+    from test_torch_variants import port_agent
+
+    agent = port_agent(task, dropout=True, **kw)
+    fwd, bwd = launch_mix(agent.cfg)
+    boot = bootstrap_mix(agent.cfg)
+    if task == "reverie":
+        lk = agent.cfg.env.max_action_len + 1 + agent.num_ob_tokens + agent.cfg.env.max_objects
+        assert (lk, lk) in fwd
+    ins = agent._device_rollout_args(include_rewards=False)
+    with torch.no_grad():
+        agent._ensure_device_rollout_fn()(ins["txt_ids"], ins["txt_mask"], agent._feat_table,
+                                          agent._nav_tables, ins["start_node"],
+                                          ins["start_view"], obj_tables=agent._obj_tables)
+    assert _taken(counted) == {"fwd": fwd, "bwd": collections.Counter()}
+    agent.train_iteration("teacher")
+    assert _taken(counted) == {"fwd": fwd, "bwd": bwd}
+    agent.merged_sample_update = True
+    agent.train_iteration("sample")
+    assert _taken(counted) == {"fwd": fwd + boot, "bwd": bwd}
+    agent.merged_sample_update = False
+    agent.train_iteration("sample")
+    assert _taken(counted) == {"fwd": fwd + fwd + boot, "bwd": bwd + bwd}

@@ -33,6 +33,16 @@ and ``no_cand_backtrack``. The agent trains
   rollout's own dropout draws.
 
 Every update clips the navigator's gradient at 40 (agent_cmt.py:597-601).
+The task variants ride the same machinery through hooks: the device
+rollout's reward and termination (``device_rollout_task``, its cost
+slabs from :meth:`HAMTAgent._device_rollout_inputs`), the host loop's
+(``_episode_state_init``, ``_pre_env_step``, ``_step_rewards``,
+``_update_ended``, ``_env_actions``, ``_teacher_actions``), the packed
+evaluator's per-slot episode (``_packed_slot_*``) and the decoded
+predictions' extras (``_fetch_decode_extras``, ``_decode_device_extras``);
+REVERIE's object grounding (``object_grounding``) threads the object
+tables through every path and adds the object CE to the IL loss
+(``agents/variants.py``, ``agents/reverie.py``).
 Weights come from a seed, from a released reference checkpoint
 (:meth:`HAMTAgent.init_from_reference`), from the port's pretraining
 (:meth:`HAMTAgent.init_from_pretrain`) or from the agent's own
@@ -63,8 +73,9 @@ from ..models.layers import DropoutRNG, compute_dtype, drop_weight_cache, set_dr
 from .losses import IGNORE_ID, a2c_loss, il_loss
 from .optim import OptaxOptimizer
 from .packing import PackedILStream
-from .rollout import (build_device_rollout, build_episode_forward, build_packed_il_forward,
-                      build_policy_step, build_slot_reset, build_text_row_update)
+from .rollout import (OBJ_KEYS, build_device_rollout, build_episode_forward,
+                      build_packed_il_forward, build_policy_step, build_slot_reset,
+                      build_text_row_update)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -102,6 +113,13 @@ class HAMTAgent:
     #: the rollout-then-replay ``sample`` update samples on the device
     #: when the tables are resident (else on the host loop)
     device_rollout_rewards = True
+    #: the device rollout's reward and termination
+    #: (``rollout.py:build_device_rollout``); the variants override
+    device_rollout_task = "r2r"
+    #: REVERIE's object grounding: every path plans with ``plan_ref``
+    #: over the viewpoint's objects, and the action space appends the
+    #: object-stop slot
+    object_grounding = False
 
     def __init__(self, cfg: HAMTConfig, env: Optional[R2RNavEnv] = None,
                  seed: int = 0, device=None):
@@ -123,16 +141,22 @@ class HAMTAgent:
         self.step = 0
         self.logs: Dict[str, List[float]] = defaultdict(list)
         self.episode_forward = build_episode_forward(self.model, self.critic,
-                                                     ob_type=cfg.env.ob_type)
+                                                     ob_type=cfg.env.ob_type,
+                                                     objects=self.object_grounding)
         self._feat_table: Optional[torch.Tensor] = None  # (N, V, D)
         self._nav_tables: Optional[Dict[str, torch.Tensor]] = None
-        self._rollout_cache: Dict[int, Any] = {}
-        # observation slots: [C candidates | STOP | views]
+        self._obj_tables: Optional[Dict[str, torch.Tensor]] = None  # REVERIE
+        self._rollout_cache: Dict[Tuple, Any] = {}
+        # observation slots: [C candidates | STOP | views], then under
+        # object grounding the object-stop slot, the one stop action
         self.stop_slot = cfg.env.max_candidates
         self.num_ob_tokens = self.stop_slot + 1 + cfg.env.views
+        objects = self.object_grounding
+        self.stop_action = self.num_ob_tokens if objects else self.stop_slot
+        self.num_actions = self.num_ob_tokens + int(objects)
         # the host loop's step functions
         self._policy_step = build_policy_step(self.model, self.critic,
-                                              ob_type=cfg.env.ob_type)
+                                              ob_type=cfg.env.ob_type, objects=objects)
         self._slot_reset = build_slot_reset(self.model)
         self._text_row_update = build_text_row_update(self.model)
 
@@ -183,18 +207,17 @@ class HAMTAgent:
                             default=2)
 
     def _ensure_device_rollout_fn(self):
-        # keyed on the env's horizon and margin so an eval env with
-        # another max_action_len gets its own rollout
+        # keyed on the task and the env's horizon and margin, so an eval
+        # env with another max_action_len gets its own rollout (JAX
+        # agent.py:789-807)
         env = self.env
-        key = (env.max_action_len, float(env.error_margin))
+        key = (self.device_rollout_task, env.max_action_len, float(env.error_margin))
         fn = self._rollout_cache.get(key)
         if fn is None:
             fn = build_device_rollout(self.model, self.critic, env.max_action_len,
                                       ob_type=self.cfg.env.ob_type,
                                       error_margin=env.error_margin,
-                                      # the R2R family (r2r, r2r_last, r4r,
-                                      # rxr) shares the R2R reward
-                                      task="r2r")
+                                      task=self.device_rollout_task)
             self._rollout_cache[key] = fn
         return fn
 
@@ -221,10 +244,23 @@ class HAMTAgent:
                                   self._device_rollout_inputs(env, obs).items()}
         return ins
 
+    def _goal_cost_slab(self, env, goal_nodes_fn) -> np.ndarray:
+        """(B, N_scan_max): each node's distance to the nearest of the
+        item's goal nodes, ``goal_nodes_fn(graph, item)`` (JAX
+        agent.py:854-864), inf-padded; 0 for an item without one, which
+        the task envs observe as always at its goal."""
+        slab = np.full((len(env.batch), self._n_scan_max), np.inf, np.float32)
+        for i, item in enumerate(env.batch):
+            g = env.graphs[item["scan"]]
+            goals = goal_nodes_fn(g, item)
+            slab[i, : g.num_nodes] = g.dist[:, goals].min(axis=1) if goals else 0.0
+        return slab
+
     def _device_rollout_inputs(self, env, obs) -> Dict[str, np.ndarray]:
         """Per-item cost slabs of the in-loop R2R reward: ``ref_cost``
         (B, N_scan_max, R), each node's distance to each reference node,
-        inf-padded, and ``ref_len`` (B,)."""
+        inf-padded, and ``ref_len`` (B,). The variants add or replace
+        slabs as their reward reads them."""
         b = obs.batch_size
         # the split's longest path sizes the slab; an env that shares the
         # table (the aug env beside the train env) may hold longer ones
@@ -273,7 +309,7 @@ class HAMTAgent:
     def _forbid(self, obs: ObsBatch, visited: List[set], no_cand_backtrack: bool) -> np.ndarray:
         """(B, N) logit mask: with ``no_cand_backtrack`` the candidates
         whose node the episode has visited (agent_cmt.py:342-350)."""
-        forbid = np.zeros((obs.batch_size, self.num_ob_tokens), bool)
+        forbid = np.zeros((obs.batch_size, self.num_actions), bool)
         if no_cand_backtrack:
             for i in range(obs.batch_size):
                 for c in range(self.stop_slot):
@@ -287,7 +323,8 @@ class HAMTAgent:
         """One policy step's observation on the device, as keyword
         arguments of the policy step: node rows of the resident table
         when the env is in feature-table mode, else the panoramas in the
-        compute dtype."""
+        compute dtype; under object grounding the object tables, or the
+        objects the env observed."""
         ins = {"view_index": self._h2d(obs.view_index), "cand_point": self._h2d(obs.cand_point),
                "cand_ang": self._h2d(obs.cand_ang), "live": self._h2d(live),
                "forbid": self._h2d(forbid), "given_action": self._h2d(given_action)}
@@ -297,8 +334,13 @@ class HAMTAgent:
                                    "table (enable_feature_table)")
             offs = np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
             ins.update(node_idx=self._h2d(offs + obs.node), feat_table=self._feat_table)
+            if self.object_grounding:
+                ins["obj_tables"] = self._obj_tables
         else:
             ins["pano_feat"] = self._h2d(obs.pano_feat, self._feat_dtype)
+            if self.object_grounding:
+                ins["objs"] = (self._h2d(obs.obj_fts, self._feat_dtype), self._h2d(obs.obj_angs),
+                               self._h2d(obs.obj_pos), self._h2d(obs.obj_mask))
         return ins
 
     def interactive_rollout(self, mode: str, record_for_replay: bool = False,
@@ -317,9 +359,16 @@ class HAMTAgent:
         the episode forward's schema; time-major ``rewards`` and
         ``masks``; ``bootstrap_mask``; and ``rollout_logits`` (T_used, B,
         N) of the steps taken.
+
+        The task's rules come from the hooks: the teacher's actions
+        (``_teacher_actions``), the env's moves (``_env_actions``), the
+        reward (``_step_rewards``), the episode's end (``_update_ended``)
+        and per-step bookkeeping before the env moves (``_pre_env_step``;
+        under object grounding ``ep_state["obj_logits"]`` holds the
+        step's object logits on the device).
         """
         env = self.env
-        stop = self.stop_slot
+        stop = self.stop_action
         dev = self.device
         obs = env.reset()
         feat_offs = (np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
@@ -351,9 +400,9 @@ class HAMTAgent:
             for t in range(t_max):
                 obs_list.append(obs)
                 live = ~ended
-                given = (np.where(obs.teacher >= 0, obs.teacher, stop) if mode == "teacher"
+                given = (self._teacher_actions(env, obs) if mode == "teacher"
                          else np.zeros((b,), np.int32))
-                a_dev, logits, _, hist_cache, hist_len = self._policy_step(
+                a_dev, logits, _, hist_cache, hist_len, obj_logits = self._policy_step(
                     txt_embeds, txt_mask_d, hist_cache, hist_len, steps[t], mode=mode,
                     generator=self.action_rng,
                     **self._step_inputs(env, obs, live, self._forbid(obs, visited,
@@ -364,8 +413,9 @@ class HAMTAgent:
                 if record_for_replay:
                     logits_rec.append(logits)
 
+                ep_state["obj_logits"] = obj_logits
                 self._pre_env_step(t, a_t, live, ended, obs, ep_state, traj)
-                env_actions = np.where(live & (a_t != stop), a_t, -1)
+                env_actions = self._env_actions(a_t, live)
                 obs = env.step(env_actions, obs)
                 for i in range(b):
                     if env_actions[i] >= 0:
@@ -396,6 +446,10 @@ class HAMTAgent:
 
     # Rollout hooks: the R2R reward and termination (agent_cmt.py:407-447);
     # the task-variant agents override them.
+    def _teacher_actions(self, env: R2RNavEnv, obs: ObsBatch) -> np.ndarray:
+        """The teacher's action slots of a step (STOP off the path)."""
+        return np.where(obs.teacher >= 0, obs.teacher, self.stop_slot)
+
     def _episode_state_init(self, obs: ObsBatch, graphs, traj) -> Dict[str, Any]:
         b = obs.batch_size
         gt_idx = [graphs[i].indices(self.env.batch[i]["path"]) for i in range(b)]
@@ -450,18 +504,20 @@ class HAMTAgent:
     def _packed_slot_result(self, st: Dict[str, Any], pred: dict) -> None:
         """Attach per-slot extras (midstop, predObjId) to a prediction."""
 
-    def _packed_env_actions(self, a_t: np.ndarray, active: np.ndarray) -> np.ndarray:
-        """The env's action vector of a packed step (-1: no move)."""
+    def _env_actions(self, a_t: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """The env's action vector of a step (-1: no move), on the host
+        loop and the packed evaluator."""
         return np.where(active & (a_t != self.stop_slot), a_t, -1)
 
     def _packed_policy_step(self, g: "_PackedEvalGroup", step_ins: Dict[str, Any]):
         """Enqueue one packed policy step without waiting: each slot at its
         own step, clipped at ``t_max - 1`` (JAX agent.py:953-964). Updates
-        the group's history and returns (action, aux) on the device."""
+        the group's history and returns (action, aux) on the device, aux
+        the object logits under object grounding, else None."""
         t = self._h2d(np.minimum(g.t_vec, g.t_max - 1))
-        a_dev, _, _, g.hist_cache, g.hist_len = self._policy_step(
+        a_dev, _, _, g.hist_cache, g.hist_len, obj_logits = self._policy_step(
             g.txt_embeds, g.txt_mask, g.hist_cache, g.hist_len, t, mode="argmax", **step_ins)
-        return a_dev, None
+        return a_dev, obj_logits
 
     @staticmethod
     def _pose_tuple(env: R2RNavEnv, i: int) -> Tuple[str, float, float]:
@@ -470,18 +526,26 @@ class HAMTAgent:
 
     def _stack_obs_episode(self, obs_list: List[ObsBatch], txt_ids, txt_mask, actions,
                            step_mask, final_obs: Optional[ObsBatch] = None,
-                           feat_offs: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+                           feat_offs: Optional[np.ndarray] = None,
+                           targets: Optional[Dict[str, np.ndarray]] = None
+                           ) -> Dict[str, torch.Tensor]:
         """A host-loop episode as the episode forward's device inputs:
-        node rows in feature-table mode, else the panoramas; with
-        ``final_obs`` the pose after the last action (the bootstrap)."""
+        node rows in feature-table mode, else the panoramas (and the
+        objects the env observed); with ``final_obs`` the pose after the
+        last action (the bootstrap). ``targets`` replace the observed
+        ``teacher`` (REVERIE's teacher and object targets)."""
         stack = lambda attr: np.stack([getattr(o, attr) for o in obs_list], axis=1)  # noqa: E731
         d = {"txt_ids": txt_ids, "txt_mask": txt_mask, "view_index": stack("view_index"),
              "cand_point": stack("cand_point"), "cand_ang": stack("cand_ang"),
-             "actions": actions, "step_mask": step_mask, "teacher": stack("teacher")}
+             "actions": actions, "step_mask": step_mask, "teacher": stack("teacher"),
+             **(targets or {})}
+        objects = obs_list[0].obj_fts is not None
         if feat_offs is not None:
             d["node_idx"] = np.stack([feat_offs + o.node for o in obs_list], axis=1)
         else:
             d["pano_feat"] = stack("pano_feat")
+            if objects:
+                d.update({k: stack(k) for k in OBJ_KEYS})
         if final_obs is not None:
             d.update(final_view_index=final_obs.view_index,
                      final_cand_point=final_obs.cand_point, final_cand_ang=final_obs.cand_ang)
@@ -489,6 +553,8 @@ class HAMTAgent:
                 d["final_node_idx"] = feat_offs + final_obs.node
             else:
                 d["final_pano_feat"] = final_obs.pano_feat
+                if objects:
+                    d.update({"final_" + k: getattr(final_obs, k) for k in OBJ_KEYS})
         return self._arrays_to_device(d)
 
     # ------------------------------------------------------------- eval
@@ -607,7 +673,8 @@ class HAMTAgent:
                 ins = self._device_rollout_args(include_rewards=False)
                 with torch.no_grad():
                     ep, extras = fn(ins["txt_ids"], ins["txt_mask"], self._feat_table,
-                                    self._nav_tables, ins["start_node"], ins["start_view"])
+                                    self._nav_tables, ins["start_node"], ins["start_view"],
+                                    obj_tables=self._obj_tables)
                 for tr in self._decode_device_trajectories(env, ep, extras):
                     if tr["instr_id"] in results:
                         looped = True
@@ -618,13 +685,15 @@ class HAMTAgent:
         return list(results.values())
 
     def _decode_device_trajectories(self, env, ep, extras) -> List[dict]:
-        """Recorded rollout -> eval predictions (host-side)."""
+        """Recorded rollout -> eval predictions (host-side), with the
+        task's extras (:meth:`_decode_device_extras`)."""
         node = ep["node_idx"].cpu().numpy()
         view = ep["view_index"].cpu().numpy()
         actions = ep["actions"].cpu().numpy()
         mask = ep["step_mask"].cpu().numpy()
         fnode = ep["final_node_idx"].cpu().numpy()
         fview = ep["final_view_index"].cpu().numpy()
+        extras_np = self._fetch_decode_extras(extras)
         b, t_max = node.shape
         c = env.spec.max_candidates  # action < c is a nav move
         out = []
@@ -646,8 +715,19 @@ class HAMTAgent:
                     nn = node[i, t + 1] if t + 1 < t_max else fnode[i]
                     nv = view[i, t + 1] if t + 1 < t_max else fview[i]
                     path.append(pose(nn, nv))
-            out.append({"instr_id": item["instr_id"], "trajectory": path})
+            pred = {"instr_id": item["instr_id"], "trajectory": path}
+            self._decode_device_extras(pred, env, i, node, actions, mask, extras_np)
+            out.append(pred)
         return out
+
+    def _fetch_decode_extras(self, extras) -> Dict[str, np.ndarray]:
+        """The device extras the per-item decode needs, on the host,
+        batch-major, fetched once per batch (the variants override)."""
+        return {}
+
+    def _decode_device_extras(self, pred, env, i, node, actions, mask, extras_np) -> None:
+        """Per-task prediction extras (midstop, predObjId) from the
+        decoded batch's host arrays (the variants override)."""
 
     # ------------------------------------------------------------ train
     def enable_packed_il(self) -> None:
@@ -665,15 +745,19 @@ class HAMTAgent:
             raise ValueError("packed IL needs feature-table transport (enable_feature_table)")
         self._packers: Dict[int, PackedILStream] = {}
         self._packed_il_forward = build_packed_il_forward(self.model,
-                                                          ob_type=self.cfg.env.ob_type)
+                                                          ob_type=self.cfg.env.ob_type,
+                                                          objects=self.object_grounding)
         self.packed_il = True
+
+    def _make_packer(self, env) -> PackedILStream:
+        return PackedILStream(env)
 
     @property
     def _packer(self) -> PackedILStream:
         """The current env's packed-IL stream."""
         packer = self._packers.get(id(self.env))
         if packer is None:
-            packer = PackedILStream(self.env)
+            packer = self._make_packer(self.env)
             self._packers[id(self.env)] = packer
         return packer
 
@@ -693,9 +777,20 @@ class HAMTAgent:
         """The summed CE of the packed forward over the live cells, times
         ``weight / n_episodes``: the estimator of :meth:`_il_loss`, which
         divides by its batch, its episode count (JAX ``_packed_il_loss``,
-        agent.py:461-471)."""
-        logits = self._packed_il_forward(pack, self._feat_table)
-        return il_loss(logits, pack["teacher"].T, IGNORE_ID) * weight / n_episodes
+        agent.py:461-471; REVERIE's dual CE, reverie.py:347-360)."""
+        out = self._packed_il_forward(pack, self._feat_table, self._obj_tables)
+        logits, obj_logits = out if self.object_grounding else (out, None)
+        return self._ce(logits, obj_logits, pack) * weight / n_episodes
+
+    @staticmethod
+    def _ce(logits, obj_logits, targets) -> torch.Tensor:
+        """The summed CE of time-major logits against batch-major
+        ``teacher`` targets, plus under object grounding REVERIE's object
+        CE against ``ref_teacher`` (reverie/agent.py:271-275)."""
+        loss = il_loss(logits, targets["teacher"].T, IGNORE_ID)
+        if obj_logits is not None:
+            loss = loss + il_loss(obj_logits, targets["ref_teacher"].T, IGNORE_ID)
+        return loss
 
     @property
     def _feat_dtype(self) -> torch.dtype:
@@ -721,18 +816,19 @@ class HAMTAgent:
         out = {}
         for k, v in d.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if k in ("pano_feat", "final_pano_feat"):
+            if k in ("pano_feat", "final_pano_feat", "obj_fts", "final_obj_fts"):
                 t = t.to(self._feat_dtype)
             out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
         return out
 
     def _il_loss(self, ep: Dict[str, torch.Tensor], weight: float) -> torch.Tensor:
         """Summed CE of the teacher-forced episode times ``weight / B``
-        (``_il_loss``, agent_cmt.py:339,520-521); dropout as the modules'
+        (``_il_loss``, agent_cmt.py:339,520-521; under object grounding
+        REVERIE's dual CE, ``_ref_il_loss``); dropout as the modules'
         train/eval mode says."""
-        out = self.episode_forward(ep, self._feat_table)
+        out = self.episode_forward(ep, self._feat_table, self._obj_tables)
         b = ep["actions"].shape[0]
-        return il_loss(out.logits, ep["teacher"].T, IGNORE_ID) * weight / b
+        return self._ce(out.logits, out.obj_logits, ep) * weight / b
 
     def _a2c(self, logits, actions, values, rewards, masks, last_value,
              bootstrap_mask) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -752,7 +848,7 @@ class HAMTAgent:
         through the teacher-forced episode forward (``_rl_loss`` of the
         JAX package). The updates differentiate through the rollout
         instead; this replay is their reference."""
-        out = self.episode_forward(ep, self._feat_table)
+        out = self.episode_forward(ep, self._feat_table, self._obj_tables)
         return self._a2c(out.logits, ep["actions"], out.values, rewards, masks,
                          out.last_value, bootstrap_mask)
 
@@ -767,7 +863,8 @@ class HAMTAgent:
         return self._ensure_device_rollout_fn()(
             txt_ids, txt_mask, self._feat_table, self._nav_tables, ins["start_node"],
             ins["start_view"], ins["offs"], ins["task_inputs"], policy=policy,
-            compute_rewards=True, compute_bootstrap=True, il=il, generator=self.action_rng)
+            compute_rewards=True, compute_bootstrap=True, il=il, generator=self.action_rng,
+            obj_tables=self._obj_tables)
 
     def _fused_sample_loss(self, il_ep: Dict[str, torch.Tensor], ins: Dict[str, Any],
                            policy: str = "sample"
@@ -784,14 +881,14 @@ class HAMTAgent:
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss of the merged ``sample`` update: one sampling rollout
         over the RL lanes plus the teacher episode as teacher-forced
-        lanes; CE on those lanes' logits over B_il (``_merged_il_loss``)
-        plus A2C on the RL lanes."""
+        lanes; CE on those lanes' logits over B_il (``_merged_il_loss``;
+        REVERIE's dual CE) plus A2C on the RL lanes."""
         il = {k: il_ep[k] for k in ("node_idx", "view_index", "actions", "step_mask")}
         ep, extras = self._rollout(ins, torch.cat([ins["txt_ids"], il_ep["txt_ids"]]),
                                    torch.cat([ins["txt_mask"], il_ep["txt_mask"]]),
                                    "sample", il=il)
         b_il = il_ep["actions"].shape[0]
-        l1 = (il_loss(extras["il_logits"], il_ep["teacher"].T, IGNORE_ID)
+        l1 = (self._ce(extras["il_logits"], extras.get("il_obj_logits"), il_ep)
               * self.cfg.train.ml_weight / b_il)
         l2, aux = self._rollout_a2c(ep, extras)
         return l1 + l2, {**aux, "IL_loss": l1}
@@ -811,7 +908,8 @@ class HAMTAgent:
                 ep, extras = self._ensure_device_rollout_fn()(
                     ins["txt_ids"], ins["txt_mask"], self._feat_table, self._nav_tables,
                     ins["start_node"], ins["start_view"], ins["offs"], ins["task_inputs"],
-                    policy="sample", compute_rewards=True, generator=self.action_rng)
+                    policy="sample", compute_rewards=True, generator=self.action_rng,
+                    obj_tables=self._obj_tables)
             else:
                 _, extras = self.interactive_rollout("sample", record_for_replay=True)
                 ep = extras["ep"]
@@ -855,6 +953,11 @@ class HAMTAgent:
         self._weights_changed()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
+    def _teacher_episode(self) -> Dict[str, torch.Tensor]:
+        """The env's next teacher-forced episode on the device (REVERIE's
+        comes from its own host loop, ``agents/reverie.py``)."""
+        return self._ep_to_device(self.env.teacher_episode())
+
     def _il_update(self, ep: Dict[str, torch.Tensor], weight: float) -> torch.Tensor:
         """One IL update (``_il_update_fn``). Returns the loss (a device
         scalar)."""
@@ -891,11 +994,11 @@ class HAMTAgent:
                 dev_pack, float(pack["n_episodes"]), self.cfg.train.teacher_weight), {}))[0]
             aux = {"IL_loss": loss}
         elif feedback == "teacher":
-            ep = self._ep_to_device(self.env.teacher_episode())
+            ep = self._teacher_episode()
             loss = self._il_update(ep, self.cfg.train.teacher_weight)
             aux = {"IL_loss": loss}
         elif feedback == "sample":
-            il_ep = self._ep_to_device(self.env.teacher_episode())
+            il_ep = self._teacher_episode()
             use_device = (self.device_rollout_rewards and self._nav_tables is not None
                           and self.env.feat_offsets is not None)
             if use_device and self.merged_sample_update:
@@ -1018,23 +1121,31 @@ class _PackedEvalGroup:
         self.slot_state = [agent._packed_slot_init(env, i) for i in range(b)]
         self.results: Dict[str, dict] = {}
         self.obs = env._observe()
-        self._pending_action = None
-        self._aux_dev = None
+        self._pending_action = self._pending_aux = self._aux = None
 
     def dispatch(self) -> None:
         a, obs, b = self.a, self.obs, self.b
         step_ins = a._step_inputs(self.env, obs, self.active.copy(),
                                   a._forbid(obs, self.visited, self.no_cand_backtrack),
                                   np.zeros((b,), np.int32))
-        a_dev, self._aux_dev = a._packed_policy_step(self, step_ins)
+        a_dev, aux_dev = a._packed_policy_step(self, step_ins)
         self._pending_action = a._start_fetch(a_dev)
+        # the step's aux (object logits) comes back beside the action
+        self._pending_aux = None if aux_dev is None else a._start_fetch(aux_dev)
+        self._aux = None
+
+    def aux_np(self) -> np.ndarray:
+        """The dispatched step's aux on the host (read once, on demand)."""
+        if self._aux is None:
+            self._aux = self.a._finish_fetch(self._pending_aux)
+        return self._aux
 
     def consume(self) -> None:
         a, env, b = self.a, self.env, self.b
         a_t = a._finish_fetch(self._pending_action)  # waits for this group's step
         self._pending_action = None
 
-        env_actions = a._packed_env_actions(a_t, self.active)
+        env_actions = a._env_actions(a_t, self.active)
         obs_after = env.step(env_actions, self.obs)
         reset_mask = np.zeros((b,), bool)
         for i in range(b):

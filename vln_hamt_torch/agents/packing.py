@@ -15,7 +15,9 @@ gradient-equivalent to the unpacked updates over the same episodes
 (``tests/test_torch_packed_il.py``).
 
 Feature-table transport only: cells carry node rows of the device table;
-packing never touches features on the host.
+packing never touches features on the host. REVERIE's stream
+(:class:`ReveriePackedILStream`) adds a per-cell object target and draws
+its episodes from the agent's teacher loop.
 """
 
 from __future__ import annotations
@@ -47,8 +49,12 @@ class PackedILStream:
       actions / teacher (S, T) int32 (teacher = IGNORE_ID on dead cells,
         so the packed CE sums exactly the live (episode, step) cells);
       live / is_start (S, T) bool, ep_id / local_t (S, T) int32;
-      n_episodes () float32: the loss's normalizer.
+      n_episodes () float32: the loss's normalizer;
+    plus per cell the subclass's ``extra_step_fields``.
     """
+
+    #: further per-cell (S, T) fields: name -> (fill value, dtype)
+    extra_step_fields: Dict[str, tuple] = {}
 
     def __init__(self, env):
         if env.feat_offsets is None:
@@ -107,6 +113,8 @@ class PackedILStream:
             ep_id=np.zeros((s, t), np.int32),
             local_t=np.zeros((s, t), np.int32),
         )
+        for k, (fill, dtype) in self.extra_step_fields.items():
+            pack[k] = np.full((s, t), fill, dtype)
         # padding rows keep one live token: an all-masked row would
         # softmax over a uniform -10000 field (finite but meaningless)
         pack["txt_mask"][:, 0] = True
@@ -132,7 +140,7 @@ class PackedILStream:
             t0 = t - room
             sl = np.s_[slot, t0:t0 + n]
             for k in ("node_idx", "view_index", "cand_point", "cand_ang", "actions",
-                      "teacher"):
+                      "teacher", *self.extra_step_fields):
                 pack[k][sl] = e[k]
             pack["live"][sl] = True
             pack["is_start"][slot, t0] = True
@@ -152,18 +160,55 @@ class PackedILStream:
         return pack
 
 
+class ReveriePackedILStream(PackedILStream):
+    """Packed REVERIE teacher episodes (JAX ``packing.py:
+    ReveriePackedILStream``): the base packing plus the per-cell
+    ``ref_teacher``, the target object's slot among the viewpoint's
+    objects (IGNORE_ID elsewhere), so the packed update applies the dual
+    act + object CE over exactly the live cells. Episodes come from the
+    agent's teacher loop (``ReverieAgent.ref_teacher_rollout``, STOP as
+    the object-stop slot) on this stream's own env, which it passes in.
+    Object features stay in the device object tables (node-aligned with
+    the panorama table)."""
+
+    extra_step_fields = {"ref_teacher": (IGNORE_ID, np.int32)}
+
+    def __init__(self, env, agent):
+        super().__init__(env)
+        self.agent = agent
+
+    def _draw(self) -> List[Dict[str, np.ndarray]]:
+        r = self.agent.ref_teacher_rollout(self.env)
+        stack = lambda attr: np.stack([getattr(o, attr) for o in r["obs"]], axis=1)  # noqa: E731
+        cells = {"node_idx": np.stack([r["feat_offs"] + o.node for o in r["obs"]],
+                                      axis=1).astype(np.int32),
+                 "view_index": stack("view_index"), "cand_point": stack("cand_point"),
+                 "cand_ang": stack("cand_ang"), "actions": r["actions"],
+                 "teacher": r["teacher"], "ref_teacher": r["ref_teacher"]}
+        out = []
+        for i, n in enumerate(r["step_mask"].sum(axis=1)):
+            if n == 0:  # step 0 is always live; guard
+                continue
+            ep = {k: np.asarray(v[i, :n]) for k, v in cells.items()}
+            ep.update(txt_ids=np.asarray(r["txt_ids"][i]), txt_mask=np.asarray(r["txt_mask"][i]))
+            out.append(ep)
+        return out
+
+
 def unpack_episodes(pack: Dict[str, np.ndarray], t_max: int,
                     stop_slot: int) -> Dict[str, np.ndarray]:
     """The packed episodes as an unpacked (E, T) teacher batch in the
     episode forward's schema, the packed forward's oracle (as
     ``tests/test_packed_il.py:unpack_to_episode_batch``): each episode's
     live cells from step 0, its tail padded with its last cell, STOP and
-    IGNORE_ID."""
+    IGNORE_ID (REVERIE's ``ref_teacher`` too; ``stop_slot`` its object
+    stop)."""
     n_eps = int(pack["n_episodes"])
+    targets = [k for k in ("teacher", "ref_teacher") if k in pack]
     out = {"txt_ids": pack["txt_ids"][:n_eps], "txt_mask": pack["txt_mask"][:n_eps],
            "actions": np.full((n_eps, t_max), stop_slot, np.int32),
-           "teacher": np.full((n_eps, t_max), IGNORE_ID, np.int32),
-           "step_mask": np.zeros((n_eps, t_max), bool)}
+           "step_mask": np.zeros((n_eps, t_max), bool),
+           **{k: np.full((n_eps, t_max), IGNORE_ID, np.int32) for k in targets}}
     cells = ("node_idx", "view_index", "cand_point", "cand_ang")
     for k in cells:
         out[k] = np.zeros((n_eps, t_max) + pack[k].shape[2:], pack[k].dtype)
@@ -174,7 +219,7 @@ def unpack_episodes(pack: Dict[str, np.ndarray], t_max: int,
         for k in cells:
             out[k][e, :n] = pack[k][s][sl]
             out[k][e, n:] = out[k][e, n - 1:n]
-        out["actions"][e, :n] = pack["actions"][s][sl]
-        out["teacher"][e, :n] = pack["teacher"][s][sl]
+        for k in ("actions", *targets):
+            out[k][e, :n] = pack[k][s][sl]
         out["step_mask"][e, :n] = True
     return out

@@ -1,8 +1,9 @@
 """Device-resident episode computation (torch), the port of
 ``vln_hamt_tpu/agents/rollout.py``: the device rollout
 (:func:`build_device_rollout`), greedy for evaluation or sampled with
-the in-loop R2R reward for the ``sample`` update, optionally with
-teacher-forced IL lanes in the same loop; the teacher-forced episode
+the task's in-loop reward (R2R, R2R-Back, CVDN, REVERIE) for the
+``sample`` update, optionally with teacher-forced IL lanes in the same
+loop; the teacher-forced episode
 of IL training and of the A2C replay (:func:`build_episode_forward`);
 its packed twin, several episodes back to back per slot
 (:func:`build_packed_il_forward`, ``agents/packing.py``); and the step
@@ -45,6 +46,11 @@ def hist_mask(hist_len: torch.Tensor, h: int) -> torch.Tensor:
     return torch.arange(h, device=hist_len.device)[None, :] < hist_len[:, None]
 
 
+def angle_table(angle_feat_size: int, device=None) -> torch.Tensor:
+    """(36, 36, A): the angle feature of view j seen from view i."""
+    return torch.as_tensor(all_point_angle_feature(angle_feat_size), device=device)
+
+
 def make_expand_obs(views: int, angle_feat_size: int, ob_type: str = "pano",
                     device=None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Device-side expansion of compact observations.
@@ -54,8 +60,7 @@ def make_expand_obs(views: int, angle_feat_size: int, ob_type: str = "pano",
     layout [candidates | STOP | panorama]. Must match
     ``env/observation.py:expand_obs_np`` exactly (tested).
     """
-    table = torch.as_tensor(all_point_angle_feature(angle_feat_size),
-                            device=device)  # (36, 36, A)
+    table = angle_table(angle_feat_size, device)
     view_ids = torch.arange(views, device=device)
 
     def expand_obs(pano_feat, view_index, cand_point, cand_ang):
@@ -119,20 +124,54 @@ def gumbel_max(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
-def make_policy_core(model: HAMT, critic: Critic, expand_obs):
+def full_logits(act_logits: torch.Tensor, obj_logits: torch.Tensor,
+                stop_slot: int) -> torch.Tensor:
+    """REVERIE's action space (reverie/agent.py:251-254): the observation
+    slots with the layout's own STOP masked to -inf (the JAX package's
+    documented deviation: the reference leaves it selectable, though its
+    candidate lookup would fail on it), then the largest object logit
+    as the one stop action; 0 where the viewpoint has no object, so
+    stopping stays possible."""
+    act = act_logits.clone()
+    act[:, stop_slot] = -math.inf
+    max_obj = obj_logits.max(dim=-1, keepdim=True).values
+    max_obj = torch.where(torch.isfinite(max_obj), max_obj, 0.0)
+    return torch.cat([act, max_obj], dim=1)
+
+
+def object_rows(obj_tables: Dict[str, torch.Tensor], node_idx: torch.Tensor,
+                view_index: torch.Tensor, ang_tab: torch.Tensor):
+    """The objects of the viewpoints ``node_idx`` (any leading shape) from
+    the node-aligned object tables (``data/feature_db.py:
+    build_object_table``): (fts, angs, pos, mask), the angles relative to
+    the agent's ``view_index`` from the (36, 36, A) table, as the JAX
+    package gathers them (reverie.py:61-70)."""
+    node_idx = node_idx.long()
+    mask = obj_tables["mask"][node_idx]
+    angs = ang_tab[view_index.long()[..., None], obj_tables["view"][node_idx].long()]
+    angs = torch.where(mask[..., None], angs, 0.0)
+    return obj_tables["fts"][node_idx], angs, obj_tables["pos"][node_idx], mask
+
+
+def make_policy_core(model: HAMT, critic: Critic, expand_obs, objects: bool = False):
     """One interactive policy step (``_make_policy_core`` of the JAX
-    package).
+    package; with ``objects``, ``_make_ref_policy_core``).
 
     core(txt_embeds, txt_mask, hist_cache, hist_len, t, pano_feat,
          view_index, cand_point, cand_ang, live, forbid, given_action, mode,
-         generator=None)
+         generator=None, objs=None)
       -> action (B,), logits (B, N), state (B, D), value (B,), hist_cache,
-         hist_len
+         hist_len, obj_logits (B, K) or None
 
     Modes: ``argmax`` and ``sample`` (Gumbel-max from ``generator``) over
     the logits with ``forbid`` (B, N) masked; ``teacher`` takes
     ``given_action``; ``mixed`` takes ``given_action`` where it is >= 0
     (teacher-forced lanes) and samples elsewhere.
+
+    With ``objects`` the step plans with ``HAMT.plan_ref`` over ``objs``
+    = (obj_fts, obj_angs, obj_pos, obj_mask) and the logits are
+    :func:`full_logits`' N + 1; the appended stop slot, like the
+    layout's STOP, has a zero angle for the history token.
 
     ``t`` is a step id on the device: 0-d (lock-step rollout) or (B,)
     (per-sample positions); the new history token goes to slot ``t+1``
@@ -145,12 +184,21 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs):
     def core(txt_embeds, txt_mask, hist_cache, hist_len, t,
              pano_feat, view_index, cand_point, cand_ang,
              live, forbid, given_action, mode: str,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, objs=None):
         h_max = hist_cache.shape[1]
         ob = expand_obs(pano_feat, view_index, cand_point, cand_ang)
-        logits, state = model.plan(
-            txt_embeds, txt_mask, hist_cache, hist_mask(hist_len, h_max),
-            ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
+        n_ob = ob["ob_ang"].shape[1]
+        stop_slot = n_ob - 1 - 36  # [C cands | STOP | 36 views]
+        obj_logits = None
+        if objects:
+            act_logits, obj_logits, state = model.plan_ref(
+                txt_embeds, txt_mask, hist_cache, hist_mask(hist_len, h_max),
+                ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"], *objs)
+            logits = full_logits(act_logits, obj_logits, stop_slot)
+        else:
+            logits, state = model.plan(
+                txt_embeds, txt_mask, hist_cache, hist_mask(hist_len, h_max),
+                ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
         if mode == "teacher":
             action = given_action
         elif mode in ("argmax", "sample", "mixed"):
@@ -169,8 +217,9 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs):
 
         value = critic(state)
 
+        gather_a = torch.where(action >= n_ob, stop_slot, action) if objects else action
         act_ang = torch.gather(
-            ob["ob_ang"], 1, action[:, None, None].expand(-1, 1, ob["ob_ang"].shape[-1])
+            ob["ob_ang"], 1, gather_a[:, None, None].expand(-1, 1, ob["ob_ang"].shape[-1])
         ).squeeze(1)
         new_tok = model.encode_history(ob["hist_img"], act_ang, t,
                                        ob["pano_img"], ob["pano_ang"])
@@ -178,7 +227,7 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs):
         index = (torch.arange(b, device=hist_cache.device), t.expand(b) + 1)
         hist_cache = hist_cache.index_put(index, new_tok.to(hist_cache.dtype))
         hist_len = hist_len + live.to(hist_len.dtype)
-        return action, logits, state, value, hist_cache, hist_len
+        return action, logits, state, value, hist_cache, hist_len, obj_logits
 
     return core
 
@@ -213,19 +262,44 @@ def _dp_extend(dp: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+TASKS = ("r2r", "r2r_back", "cvdn", "reverie")
+
+
 def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
                          ob_type: str = "pano", error_margin: float = 3.0,
                          task: str = "r2r"):
-    """The JAX ``build_device_rollout`` for R2R: a whole rollout of a
-    batch on the device, greedy (evaluation) or sampled (the ``sample``
-    update), with the in-loop R2R reward (``_step_rewards``,
-    agent_cmt.py:407-445): nDTW by one DP row extension per step
-    (:func:`_dp_extend`) and the goal distance by a cost-slab read.
+    """The JAX ``build_device_rollout``: a whole rollout of a batch on the
+    device, greedy (evaluation) or sampled (the ``sample`` update), with
+    the task's in-loop reward and termination, the host hooks' rules
+    (tested against them):
+
+    - ``r2r`` (the R2R family; ``_step_rewards``, agent_cmt.py:407-445):
+      nDTW by one DP row extension per step (:func:`_dp_extend`) and the
+      goal distance by a cost-slab read; ``task_inputs`` ``ref_cost``
+      (B, N_scan_max, R), the distance of each node of the item's scan to
+      each reference node (inf-padded), and ``ref_len`` (B,);
+    - ``r2r_back`` (agent_r2rback.py:233-277): the distance to the
+      midstop until the first STOP, to the final goal after it (read
+      with the phase before this step's update); the second STOP ends
+      the episode; under rewards a failed (mid)stop ends it at once,
+      greedy evaluation has no forced end; inputs ``ref_cost`` /
+      ``ref_len`` plus ``mid_cost`` and ``goal_cost`` (B, N_scan_max);
+    - ``cvdn`` (cvdn/agent.py:173-203): no nDTW, +2 for a stop on an end
+      pano, a unit move reward by the distance's sign (0 when level), no
+      miss penalty; input ``goal_cost`` (B, N_scan_max), the distance to
+      the nearest end pano;
+    - ``reverie`` (reverie/agent.py:251-304): the policy plans with
+      ``plan_ref`` over each viewpoint's objects, gathered per step from
+      ``obj_tables``; the action space appends the object-stop slot;
+      nDTW grows on candidate moves only; R2R's shaping over
+      ``goal_cost``, the distance to the nearest viewpoint that sees the
+      target object, with ``ref_cost`` / ``ref_len``.
 
     Returns rollout(txt_ids, txt_mask, feat_table, nav, start_node,
     start_view, offs=None, task_inputs=None, *, policy="argmax",
     compute_rewards=False, compute_bootstrap=False, il=None,
-    generator=None) -> (ep, extras) with the JAX package's keys:
+    generator=None, obj_tables=None) -> (ep, extras) with the JAX
+    package's keys:
 
     - ``ep``: batch-major (B, T) records of nodes, views, candidate
       tables, actions and live masks plus the final pose;
@@ -234,13 +308,12 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
       ``compute_rewards``) and ``bootstrap_mask``; ``last_value`` (B,)
       with ``compute_bootstrap``, the critic on the final observation
       (RL lanes only, no gradient); ``il_logits`` (T, B_il, N) with
-      ``il``.
+      ``il`` (REVERIE: also ``il_obj_logits``); REVERIE's greedy rollout
+      also ``obj_pred`` (T, B), each step's best object slot.
 
     ``policy`` is ``argmax`` or ``sample`` (from ``generator``).
     ``compute_rewards`` needs ``offs`` (B,), each item's scan offset in
-    the feature table, and ``task_inputs`` with ``ref_cost``
-    (B, N_scan_max, R), the distance of each node of the item's scan to
-    each reference node (inf-padded), and ``ref_len`` (B,).
+    the feature table, and the task's ``task_inputs``.
 
     ``il``: teacher-forced lanes run in the same loop (the merged
     ``sample`` update): batch-major (B_il, T) ``node_idx``,
@@ -254,29 +327,34 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
     carry none), evaluation calls it under ``torch.no_grad()``. The loop
     over ``t_max`` only enqueues work: nothing is read back to the host.
     """
-    if task != "r2r":
-        raise NotImplementedError(f"device rollout for task {task!r}: task variants "
-                                  "are ROADMAP item A11")
+    if task not in TASKS:
+        raise ValueError(f"device rollout task {task!r}; one of {TASKS}")
     cfg = model.config
     if t_max > cfg.max_action_steps:
         raise ValueError(f"t_max {t_max} exceeds the history position table "
                          f"({cfg.max_action_steps})")
     device = next(model.parameters()).device
     expand_obs = make_expand_obs(36, cfg.angle_feat_size, ob_type, device=device)
-    core = make_policy_core(model, critic, expand_obs)
+    reverie, back, cvdn = task == "reverie", task == "r2r_back", task == "cvdn"
+    core = make_policy_core(model, critic, expand_obs, objects=reverie)
+    ang_tab = angle_table(cfg.angle_feat_size, device) if reverie else None
+    use_ndtw = not cvdn
     steps = torch.arange(t_max, device=device)
 
     def rollout(txt_ids, txt_mask, feat_table, nav, start_node, start_view,
                 offs=None, task_inputs=None, *, policy: str = "argmax",
                 compute_rewards: bool = False, compute_bootstrap: bool = False,
                 il: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                obj_tables: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         if policy not in ("argmax", "sample"):
             raise ValueError(f"rollout policy {policy!r}")
         if il is not None and policy != "sample":
             raise ValueError("teacher-forced il lanes ride a sampling rollout "
                              "(policy='sample')")
+        if reverie and obj_tables is None:
+            raise ValueError("the reverie rollout reads the object tables (obj_tables)")
         b = start_node.shape[0]
         b_il = 0 if il is None else il["actions"].shape[0]
         bt = b + b_il
@@ -284,6 +362,8 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             raise ValueError(f"{txt_ids.shape[0]} text rows for {b} RL + {b_il} IL lanes")
         stop = nav["nbr_global"].shape[1]  # slot layout: [C cands | STOP | pano]
         n_ob = stop + 1 + 36
+        # REVERIE appends the object-stop slot to the action space
+        stop_action = n_ob if reverie else stop
 
         txt_embeds = model.encode_text(txt_ids, txt_mask)
         hist0 = model.init_history(bt)
@@ -302,26 +382,39 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             return cg, valid, cp, ang
 
         node, view = start_node.long(), start_view.long()
+        # R2R-Back's phase, kept in greedy evaluation too
+        first_ended = torch.zeros(b, dtype=torch.bool, device=device)
         if compute_rewards:
             bi = torch.arange(b, device=device)
             offs = offs.long()
-            ref_cost = task_inputs["ref_cost"]
-            rl = task_inputs["ref_len"].long()
 
-            def ref_cost_at(node):  # (B, R) dist(node, ref_j)
-                return ref_cost[bi, node - offs]
+            def slab_at(name, node):  # (B,) a per-node slab's value at node
+                return task_inputs[name][bi, node - offs]
 
-            def ndtw_val(dp):
-                return torch.exp(-dp[bi, rl] / (error_margin * rl.float()))
+            if use_ndtw:
+                ref_cost = task_inputs["ref_cost"]
+                rl = task_inputs["ref_len"].long()
 
-            def goal_dist(node):  # dist to the last reference node
-                return ref_cost_at(node)[bi, rl - 1]
+                def ref_cost_at(node):  # (B, R) dist(node, ref_j)
+                    return ref_cost[bi, node - offs]
 
-            # the nDTW DP row: closed column 0, then the start node
-            dp = torch.full((b, ref_cost.shape[2] + 1), math.inf, device=device)
-            dp[:, 0] = 0.0
-            dp = _dp_extend(dp, ref_cost_at(node))
-            last_ndtw, last_dist = ndtw_val(dp), goal_dist(node)
+                def ndtw_val(dp):
+                    return torch.exp(-dp[bi, rl] / (error_margin * rl.float()))
+
+                # the nDTW DP row: closed column 0, then the start node
+                dp = torch.full((b, ref_cost.shape[2] + 1), math.inf, device=device)
+                dp[:, 0] = 0.0
+                dp = _dp_extend(dp, ref_cost_at(node))
+                last_ndtw = ndtw_val(dp)
+
+            def goal_dist(node):
+                if task == "r2r":  # dist to the last reference node
+                    return ref_cost_at(node)[bi, rl - 1]
+                return slab_at("goal_cost", node)
+
+            # R2R-Back's first goal is the midstop (agent_r2rback.py:234-237)
+            last_dist = slab_at("mid_cost", node) if back else goal_dist(node)
+            force_ended = torch.zeros(b, dtype=torch.bool, device=device)
 
         if il is not None:
             il_node, il_view = il["node_idx"].long(), il["view_index"].long()
@@ -329,9 +422,9 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             rl_given = torch.full((b,), -1, dtype=torch.long, device=device)
         mode = policy if il is None else "mixed"
         ended = torch.zeros(b, dtype=torch.bool, device=device)
-        forbid = torch.zeros((bt, n_ob), dtype=torch.bool, device=device)
+        forbid = torch.zeros((bt, n_ob + int(reverie)), dtype=torch.bool, device=device)
         given = torch.zeros(b, dtype=torch.long, device=device)
-        ys, il_logits = [], []
+        ys, il_logits, il_obj_logits, obj_pred = [], [], [], []
         for t in range(t_max):
             live = ~ended
             node_all, view_all, live_all = node, view, live
@@ -342,16 +435,24 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
                 given = torch.cat([rl_given, il_act[:, t]])
             cg, valid, cand_point, cand_ang = cand_tables(node_all, view_all)
             pano = feat_table[node_all]
-            action, logits, _, value, hist_cache, hist_len = core(
+            objs = object_rows(obj_tables, node_all, view_all, ang_tab) if reverie else None
+            action, logits, _, value, hist_cache, hist_len, obj_logits = core(
                 txt_embeds, txt_mask, hist_cache, hist_len, steps[t], pano,
-                view_all, cand_point, cand_ang, live_all, forbid, given, mode, generator)
+                view_all, cand_point, cand_ang, live_all, forbid, given, mode, generator,
+                objs=objs)
             if il is not None:
                 il_logits.append(logits[b:])
+                if reverie:
+                    il_obj_logits.append(obj_logits[b:])
                 action, logits, value = action[:b], logits[:b], value[:b]
                 cg, valid = cg[:b], valid[:b]
                 cand_point, cand_ang = cand_point[:b], cand_ang[:b]
+            elif reverie and policy == "argmax":
+                # greedy evaluation records each step's grounded object;
+                # the host reads it at each lane's stop step
+                obj_pred.append(torch.argmax(obj_logits, dim=-1))
 
-            rec_action = torch.where(live, action, stop)
+            rec_action = torch.where(live, action, stop_action)
             slot = action.clamp(0, stop - 1)[:, None]
             tgt = torch.gather(cg, 1, slot)[:, 0]
             tgt_ok = torch.gather(valid, 1, slot)[:, 0]
@@ -359,26 +460,52 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             new_node = torch.where(moved, tgt, node)
             new_view = torch.where(moved, torch.gather(cand_point, 1, slot)[:, 0].long(),
                                    view)
-            stopped = action == stop
+            stopped = action == stop_action
             if compute_rewards:
-                # the prediction path grows on every live move
-                extend = live & ~stopped
-                dp = torch.where(extend[:, None], _dp_extend(dp, ref_cost_at(new_node)), dp)
-                cur_ndtw = ndtw_val(dp)
-                nr = cur_ndtw - last_ndtw
-                dist = goal_dist(new_node)
+                if use_ndtw:
+                    # the prediction path grows on every live move (the
+                    # env's moves: candidate slots only under REVERIE)
+                    extend = live & (action < stop) if reverie else live & ~stopped
+                    dp = torch.where(extend[:, None], _dp_extend(dp, ref_cost_at(new_node)),
+                                     dp)
+                    cur_ndtw = ndtw_val(dp)
+                    nr = cur_ndtw - last_ndtw
+                    last_ndtw = cur_ndtw
+                if back:  # the phase before this step's update
+                    dist = torch.where(first_ended, goal_dist(new_node),
+                                       slab_at("mid_cost", new_node))
+                else:
+                    dist = goal_dist(new_node)
                 delta = -(dist - last_dist)
-                stop_r = torch.where(dist < error_margin, 2.0 + cur_ndtw * 2.0, -2.0)
-                move_r = torch.where(delta > 0.0, 1.0 + nr, -1.0 + nr)
-                miss = (last_dist <= 1.0) & (dist - last_dist > 0.0)
-                move_r = move_r - torch.where(miss, (1.0 - last_dist) * 2.0, 0.0)
+                if cvdn:
+                    stop_r = torch.where(dist == 0.0, 2.0, -2.0)
+                    move_r = torch.where(delta > 0.0, 1.0, torch.where(delta < 0.0, -1.0, 0.0))
+                else:
+                    stop_r = torch.where(dist < error_margin, 2.0 + cur_ndtw * 2.0, -2.0)
+                    move_r = torch.where(delta > 0.0, 1.0 + nr, -1.0 + nr)
+                    miss = (last_dist <= 1.0) & (dist - last_dist > 0.0)
+                    move_r = move_r - torch.where(miss, (1.0 - last_dist) * 2.0, 0.0)
                 reward = torch.where(live, torch.where(stopped, stop_r, move_r), 0.0)
-                last_ndtw, last_dist = cur_ndtw, dist
+                if back:
+                    # a failed (mid)stop ends the episode (agent_r2rback.py:
+                    # 254-256); after the midstop the tracked distance is
+                    # the final goal's (:270-273)
+                    force_ended = force_ended | (live & stopped & (dist >= error_margin))
+                    last_dist = torch.where(live & stopped & ~first_ended,
+                                            goal_dist(new_node), dist)
+                else:
+                    last_dist = dist
             else:
                 reward = torch.zeros(b, device=device)
             ys.append((rec_action, logits, value, reward, live, node, view, cand_point,
                        cand_ang))
-            ended = ended | stopped
+            if back:  # the second STOP ends the episode
+                ended = ended | (first_ended & stopped)
+                if compute_rewards:
+                    ended = ended | force_ended
+                first_ended = first_ended | stopped
+            else:
+                ended = ended | stopped
             node, view = new_node, new_view
 
         actions, logits, values, rewards, lives, nodes, views, cpoints, cangs = (
@@ -407,6 +534,10 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
         }
         if il is not None:
             extras["il_logits"] = torch.stack(il_logits)  # (T, B_il, N)
+            if reverie:
+                extras["il_obj_logits"] = torch.stack(il_obj_logits)  # (T, B_il, K)
+        if obj_pred:
+            extras["obj_pred"] = torch.stack(obj_pred)  # (T, B)
         if compute_bootstrap:
             # the critic on the final observation (agent_cmt.py:481-484),
             # RL lanes only; under no_lang_ca the text states are
@@ -414,10 +545,14 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             with torch.no_grad():
                 fob = expand_obs(feat_table[node], view, final_cp, final_ca)
                 txt_f = txt_embeds[:, :b] if txt_embeds.dim() == 4 else txt_embeds[:b]
-                _, last_state = model.plan(
-                    txt_f, txt_mask[:b], hist_cache[:b],
-                    hist_mask(hist_len[:b], hist_cache.shape[1]),
-                    fob["ob_img"], fob["ob_ang"], fob["ob_nav"], fob["ob_mask"])
+                plan_in = (txt_f, txt_mask[:b], hist_cache[:b],
+                           hist_mask(hist_len[:b], hist_cache.shape[1]),
+                           fob["ob_img"], fob["ob_ang"], fob["ob_nav"], fob["ob_mask"])
+                if reverie:
+                    last_state = model.plan_ref(
+                        *plan_in, *object_rows(obj_tables, node, view, ang_tab))[2]
+                else:
+                    last_state = model.plan(*plan_in)[1]
                 extras["last_value"] = critic(last_state)
         return ep, extras
 
@@ -431,21 +566,39 @@ class EpisodeOutputs:
     values: torch.Tensor  # (T, B)
     last_value: torch.Tensor  # (B,) bootstrap value of the final obs
     hist_cache: torch.Tensor  # (B, T+1, D) final history cache
+    obj_logits: Optional[torch.Tensor] = None  # (T, B, K) REVERIE's object logits
 
 
-def build_episode_forward(model: HAMT, critic: Critic, ob_type: str = "pano"
-                          ) -> Callable[..., EpisodeOutputs]:
+#: the per-step object arrays of an episode without the object tables
+OBJ_KEYS = ("obj_fts", "obj_angs", "obj_pos", "obj_mask")
+
+
+def _episode_objects(ep, obj_tables, ang_tab, final: bool = False):
+    """An episode's object arrays: gathered from the tables at its node
+    rows, or the arrays the host shipped; ``final``: the final pose's."""
+    pre = "final_" if final else ""
+    if pre + "node_idx" in ep:
+        return object_rows(obj_tables, ep[pre + "node_idx"], ep[pre + "view_index"], ang_tab)
+    return tuple(ep[pre + k] for k in OBJ_KEYS)
+
+
+def build_episode_forward(model: HAMT, critic: Critic, ob_type: str = "pano",
+                          objects: bool = False) -> Callable[..., EpisodeOutputs]:
     """The teacher-forced episode of ``vln_hamt_tpu/agents/rollout.py:
-    build_episode_forward`` (:147-262): the whole recorded episode through
-    the model, differentiable end to end.
+    build_episode_forward`` (:147-262; with ``objects`` REVERIE's
+    ``build_ref_episode_forward``, reverie.py:79-192): the whole recorded
+    episode through the model, differentiable end to end.
 
-    Returns episode_forward(ep, feat_table=None) -> EpisodeOutputs, where
-    ``ep`` holds device tensors in the compact observation schema:
-    txt_ids (B, L), txt_mask (B, L), view_index (B, T), cand_point
-    (B, T, C), cand_ang (B, T, C, A), actions (B, T) (the slots taken;
-    STOP once ended), step_mask (B, T), and either pano_feat
-    (B, T, V, D) or node_idx (B, T) rows of ``feat_table`` (N, V, D).
-    Optional final_{pano_feat | node_idx}, final_view_index,
+    Returns episode_forward(ep, feat_table=None, obj_tables=None) ->
+    EpisodeOutputs, where ``ep`` holds device tensors in the compact
+    observation schema: txt_ids (B, L), txt_mask (B, L), view_index
+    (B, T), cand_point (B, T, C), cand_ang (B, T, C, A), actions (B, T)
+    (the slots taken; STOP once ended), step_mask (B, T), and either
+    pano_feat (B, T, V, D) or node_idx (B, T) rows of ``feat_table``
+    (N, V, D). With ``objects`` the objects come from ``obj_tables`` at
+    the node rows, or from the episode's obj_fts / obj_angs / obj_pos /
+    obj_mask (B, T, K, ...), and ``obj_logits`` is set. Optional
+    final_{pano_feat | node_idx} (and final_obj_*), final_view_index,
     final_cand_point and final_cand_ang give the observation after the
     last action, for the bootstrap value (no gradient); without them
     ``last_value`` is zero. Dropout follows the modules' train/eval
@@ -454,16 +607,19 @@ def build_episode_forward(model: HAMT, critic: Critic, ob_type: str = "pano"
     cfg = model.config
     device = next(model.parameters()).device
     expand_obs = make_expand_obs(36, cfg.angle_feat_size, ob_type, device=device)
-    core = make_policy_core(model, critic, expand_obs)
+    core = make_policy_core(model, critic, expand_obs, objects=objects)
+    ang_tab = angle_table(cfg.angle_feat_size, device) if objects else None
 
-    def episode_forward(ep: Dict[str, torch.Tensor],
-                        feat_table: Optional[torch.Tensor] = None) -> EpisodeOutputs:
+    def episode_forward(ep: Dict[str, torch.Tensor], feat_table: Optional[torch.Tensor] = None,
+                        obj_tables: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> EpisodeOutputs:
         if "node_idx" in ep:
             pano_feat = feat_table[ep["node_idx"].long()]  # one gather, (B, T, V, D)
             final_pano = (feat_table[ep["final_node_idx"].long()]
                           if "final_node_idx" in ep else None)
         else:
             pano_feat, final_pano = ep["pano_feat"], ep.get("final_pano_feat")
+        objs = _episode_objects(ep, obj_tables, ang_tab) if objects else None
         txt_mask = ep["txt_mask"]
         b, t_steps = ep["actions"].shape
         if t_steps > cfg.max_action_steps:
@@ -477,62 +633,76 @@ def build_episode_forward(model: HAMT, critic: Critic, ob_type: str = "pano"
                                dim=1)
         hist_len = torch.ones(b, dtype=torch.int32, device=device)
         steps = torch.arange(t_steps, device=device)
-        logits, states, values = [], [], []
+        logits, states, values, obj_logits = [], [], [], []
         for t in range(t_steps):
-            _, lg, state, value, hist_cache, hist_len = core(
+            _, lg, state, value, hist_cache, hist_len, olg = core(
                 txt_embeds, txt_mask, hist_cache, hist_len, steps[t], pano_feat[:, t],
                 ep["view_index"][:, t], ep["cand_point"][:, t], ep["cand_ang"][:, t],
-                ep["step_mask"][:, t], None, ep["actions"][:, t], "teacher")
+                ep["step_mask"][:, t], None, ep["actions"][:, t], "teacher",
+                objs=None if objs is None else tuple(x[:, t] for x in objs))
             logits.append(lg)
             states.append(state)
             values.append(value)
+            obj_logits.append(olg)
 
         if final_pano is not None:
             with torch.no_grad():
                 ob = expand_obs(final_pano, ep["final_view_index"], ep["final_cand_point"],
                                 ep["final_cand_ang"])
-                _, last_state = model.plan(
-                    txt_embeds, txt_mask, hist_cache, hist_mask(hist_len, h_max),
-                    ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
+                plan_in = (txt_embeds, txt_mask, hist_cache, hist_mask(hist_len, h_max),
+                           ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
+                if objects:
+                    last_state = model.plan_ref(
+                        *plan_in, *_episode_objects(ep, obj_tables, ang_tab, final=True))[2]
+                else:
+                    last_state = model.plan(*plan_in)[1]
                 last_value = critic(last_state)
         else:
             last_value = torch.zeros(b, device=device)
         return EpisodeOutputs(logits=torch.stack(logits), states=torch.stack(states),
                               values=torch.stack(values), last_value=last_value,
-                              hist_cache=hist_cache)
+                              hist_cache=hist_cache,
+                              obj_logits=torch.stack(obj_logits) if objects else None)
 
     return episode_forward
 
 
-def build_packed_il_forward(model: HAMT, ob_type: str = "pano"
+def build_packed_il_forward(model: HAMT, ob_type: str = "pano", objects: bool = False
                             ) -> Callable[..., torch.Tensor]:
     """The teacher-forced forward over a packed episode grid
     (``vln_hamt_tpu/agents/rollout.py:build_packed_il_forward``,
-    :266-359): the per-step model of :func:`build_episode_forward`, but
-    each slot carries several episodes back to back
-    (``agents/packing.py``). One text encoding covers every packed
-    instruction; each cell's ``ep_id`` picks its episode's text (under
-    ``no_lang_ca`` from the (X+1, E, L, D) stack of per-layer states);
-    ``is_start`` cells reset the slot's history cache to ``[hist0]`` and
-    its length to 1; the new history token goes to the episode-local
-    slot ``local_t + 1`` of live cells only. Every episode sees at each
-    of its steps the text, history and observation the unpacked forward
-    shows it, so its logits are the unpacked ones (tested).
+    :266-359; with ``objects`` REVERIE's ``build_packed_ref_il_forward``,
+    reverie.py:195-298): the per-step model of
+    :func:`build_episode_forward`, but each slot carries several episodes
+    back to back (``agents/packing.py``). One text encoding covers every
+    packed instruction; each cell's ``ep_id`` picks its episode's text
+    (under ``no_lang_ca`` from the (X+1, E, L, D) stack of per-layer
+    states); ``is_start`` cells reset the slot's history cache to
+    ``[hist0]`` and its length to 1; the new history token goes to the
+    episode-local slot ``local_t + 1`` of live cells only. Every episode
+    sees at each of its steps the text, history and observation the
+    unpacked forward shows it, so its logits are the unpacked ones
+    (tested).
 
-    Returns packed_forward(pack, feat_table=None) -> logits (T, S, N)
-    float32, where ``pack`` holds device tensors of the pack schema
-    (``node_idx`` rows of ``feat_table``, or ``pano_feat``). IL only: no
-    critic, no bootstrap. The loop over T only enqueues work: nothing is
-    read back to the host.
+    Returns packed_forward(pack, feat_table=None, obj_tables=None) ->
+    logits (T, S, N) float32, or with ``objects`` (logits (T, S, N + 1),
+    obj_logits (T, S, K)), the objects gathered from ``obj_tables`` at
+    the cells' node rows; ``pack`` holds device tensors of the pack
+    schema (``node_idx`` rows of ``feat_table``, or ``pano_feat``). IL
+    only: no critic, no bootstrap. The loop over T only enqueues work:
+    nothing is read back to the host.
     """
     cfg = model.config
     device = next(model.parameters()).device
     expand_obs = make_expand_obs(36, cfg.angle_feat_size, ob_type, device=device)
+    ang_tab = angle_table(cfg.angle_feat_size, device) if objects else None
 
-    def packed_forward(pack: Dict[str, torch.Tensor],
-                       feat_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def packed_forward(pack: Dict[str, torch.Tensor], feat_table: Optional[torch.Tensor] = None,
+                       obj_tables: Optional[Dict[str, torch.Tensor]] = None):
         pano_feat = (feat_table[pack["node_idx"].long()] if "node_idx" in pack
                      else pack["pano_feat"])  # (S, T, V, D)
+        objs = (object_rows(obj_tables, pack["node_idx"], pack["view_index"], ang_tab)
+                if objects else None)
         s, t_steps = pack["actions"].shape
         if t_steps > cfg.max_action_steps:
             raise ValueError(f"pack of {t_steps} steps exceeds the history position "
@@ -546,7 +716,7 @@ def build_packed_il_forward(model: HAMT, ob_type: str = "pano"
         hist_cache = reset_cache
         hist_len = torch.ones(s, dtype=torch.int32, device=device)
         positions = torch.arange(h_max, device=device)
-        logits = []
+        logits, obj_logits = [], []
         for t in range(t_steps):
             start, live = pack["is_start"][:, t], pack["live"][:, t]
             hist_cache = torch.where(start[:, None, None], reset_cache, hist_cache)
@@ -555,10 +725,17 @@ def build_packed_il_forward(model: HAMT, ob_type: str = "pano"
             txt_e = txt_all[:, ep_id] if txt_all.dim() == 4 else txt_all[ep_id]
             ob = expand_obs(pano_feat[:, t], pack["view_index"][:, t],
                             pack["cand_point"][:, t], pack["cand_ang"][:, t])
-            lg, _ = model.plan(txt_e, pack["txt_mask"][ep_id], hist_cache,
-                               hist_mask(hist_len, h_max), ob["ob_img"], ob["ob_ang"],
-                               ob["ob_nav"], ob["ob_mask"])
+            plan_in = (txt_e, pack["txt_mask"][ep_id], hist_cache, hist_mask(hist_len, h_max),
+                       ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
             action = pack["actions"][:, t].long()
+            if objects:
+                act_lg, obj_lg, _ = model.plan_ref(*plan_in, *(x[:, t] for x in objs))
+                stop_slot = ob["ob_ang"].shape[1] - 1 - 36
+                lg = full_logits(act_lg, obj_lg, stop_slot)
+                obj_logits.append(obj_lg)
+                action = torch.where(action >= ob["ob_ang"].shape[1], stop_slot, action)
+            else:
+                lg, _ = model.plan(*plan_in)
             act_ang = torch.gather(
                 ob["ob_ang"], 1, action[:, None, None].expand(-1, 1, ob["ob_ang"].shape[-1])
             ).squeeze(1)
@@ -570,25 +747,32 @@ def build_packed_il_forward(model: HAMT, ob_type: str = "pano"
                                      hist_cache)
             hist_len = hist_len + live.to(hist_len.dtype)
             logits.append(lg)
+        if objects:
+            return torch.stack(logits), torch.stack(obj_logits)
         return torch.stack(logits)
 
     return packed_forward
 
 
 # ----------------------------------------------------------------------
-def build_policy_step(model: HAMT, critic: Critic, ob_type: str = "pano"):
+def build_policy_step(model: HAMT, critic: Critic, ob_type: str = "pano",
+                      objects: bool = False):
     """One interactive step of the host loop (JAX ``build_policy_step``,
-    rollout.py:363-400): :func:`make_policy_core` on one step's compact
-    observation.
+    rollout.py:363-400; with ``objects`` REVERIE's
+    ``build_ref_policy_step``, reverie.py:45-76): :func:`make_policy_core`
+    on one step's compact observation.
 
     policy_step(txt_embeds, txt_mask, hist_cache, hist_len, t, view_index,
                 cand_point, cand_ang, live, forbid, given_action, mode, *,
                 pano_feat=None, node_idx=None, feat_table=None,
-                generator=None)
-      -> action (B,), logits (B, N), value (B,), hist_cache, hist_len
+                obj_tables=None, objs=None, generator=None)
+      -> action (B,), logits (B, N), value (B,), hist_cache, hist_len,
+         obj_logits (B, K) or None
 
     The panoramas are ``pano_feat`` (B, V, D), shipped per step, or with
-    ``node_idx`` (B,) rows gathered from the resident ``feat_table``.
+    ``node_idx`` (B,) rows gathered from the resident ``feat_table``;
+    with ``objects`` the objects likewise ``objs`` (obj_fts, obj_angs,
+    obj_pos, obj_mask), or rows of ``obj_tables`` at ``node_idx``.
     ``t`` is a 0-d step (the lock-step rollout) or a (B,) per-slot step
     (the packed evaluator); ``forbid`` (B, N) masks candidates for
     ``no_cand_backtrack``. Nothing is read back to the host.
@@ -596,18 +780,21 @@ def build_policy_step(model: HAMT, critic: Critic, ob_type: str = "pano"):
     cfg = model.config
     device = next(model.parameters()).device
     expand_obs = make_expand_obs(36, cfg.angle_feat_size, ob_type, device=device)
-    core = make_policy_core(model, critic, expand_obs)
+    core = make_policy_core(model, critic, expand_obs, objects=objects)
+    ang_tab = angle_table(cfg.angle_feat_size, device) if objects else None
 
     def policy_step(txt_embeds, txt_mask, hist_cache, hist_len, t, view_index, cand_point,
                     cand_ang, live, forbid, given_action, mode: str, *, pano_feat=None,
-                    node_idx=None, feat_table=None,
+                    node_idx=None, feat_table=None, obj_tables=None, objs=None,
                     generator: Optional[torch.Generator] = None):
         if node_idx is not None:
             pano_feat = feat_table[node_idx]
-        action, logits, _, value, hist_cache, hist_len = core(
+            if objects:
+                objs = object_rows(obj_tables, node_idx, view_index, ang_tab)
+        action, logits, _, value, hist_cache, hist_len, obj_logits = core(
             txt_embeds, txt_mask, hist_cache, hist_len, t, pano_feat, view_index,
-            cand_point, cand_ang, live, forbid, given_action, mode, generator)
-        return action, logits, value, hist_cache, hist_len
+            cand_point, cand_ang, live, forbid, given_action, mode, generator, objs=objs)
+        return action, logits, value, hist_cache, hist_len, obj_logits
 
     return policy_step
 

@@ -5,11 +5,14 @@ reads HDF5 keyed ``{scan}_{viewpoint}`` -> (36, feat_dim) float32 with an
 unbounded in-RAM memo cache. The port carries, as
 ``vln_hamt_tpu/data/feature_db.py`` does, the HDF5 reader with the same
 key scheme and a bounded LRU cache, the deterministic synthetic DB
-(tests and hermetic runs) and the feature-table builder.
+(tests and hermetic runs), the feature-table builder, and REVERIE's
+object loaders and node-aligned object table.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import zlib
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
@@ -93,6 +96,48 @@ class SyntheticFeatureDB(FeatureDB):
         return ft
 
 
+def load_object_db(obj_ft_file: str, obj_feat_size: int) -> Dict[Tuple[str, str], dict]:
+    """REVERIE object-feature HDF5 -> {(scan, viewpoint): entry}.
+
+    Reference: ``load_obj_database`` (reverie/data_utils.py:33-43) —
+    one dataset per ``{scan}_{viewpoint}`` key with ``obj_ids``,
+    ``bboxes`` (xywh) and ``viewindexs`` attrs; features clipped to
+    ``obj_feat_size``; keyed by tuple (the env's ``obj_db`` schema).
+    ``h5py`` is imported here, not with the module.
+    """
+    import h5py
+
+    out: Dict[Tuple[str, str], dict] = {}
+    with h5py.File(obj_ft_file, "r") as f:
+        for key in f:
+            scan, vp = key.split("_", 1)  # scan ids hold no "_"
+            out[(scan, vp)] = {
+                "obj_ids": [str(x) for x in f[key].attrs["obj_ids"]],
+                "fts": f[key][...].astype(np.float32)[:, :obj_feat_size],
+                "bboxes": np.asarray(f[key].attrs["bboxes"]),
+                "viewindexs": np.asarray(f[key].attrs["viewindexs"]),
+            }
+    return out
+
+
+def load_obj2viewpoint(anno_dir: str) -> Dict[str, list]:
+    """``BBoxes.json`` -> {f"{scan}_{objid}": [viewpoints where visible]}.
+
+    Reference: ``ReverieNavRefBatch.__init__``
+    (reverie/env.py:149-159): an object is attributed to every
+    viewpoint whose bbox entry has a non-empty ``visible_pos``.
+    """
+    with open(os.path.join(anno_dir, "BBoxes.json")) as f:
+        bbox_data = json.load(f)
+    obj2vp: Dict[str, list] = {}
+    for scanvp, value in bbox_data.items():
+        scan, vp = scanvp.split("_", 1)
+        for objid, objinfo in value.items():
+            if objinfo["visible_pos"]:
+                obj2vp.setdefault(f"{scan}_{objid}", []).append(vp)
+    return obj2vp
+
+
 def build_feature_table(graphs, feat_db) -> Tuple[np.ndarray, Dict[str, int]]:
     """Materialize the whole split's pano features as one (N, V, D)
     table plus scan -> row-offset map.
@@ -113,3 +158,43 @@ def build_feature_table(graphs, feat_db) -> Tuple[np.ndarray, Dict[str, int]]:
             rows.append(feat_db.get(scan, vid))
         n += g.num_nodes
     return np.stack(rows), offsets
+
+
+def build_object_table(graphs, obj_db, max_objects: int, obj_feat_size: int,
+                       obj_local_pos) -> Tuple[Dict[str, np.ndarray],
+                                               Dict[str, int]]:
+    """Device-resident REVERIE object tables in the feature-table layout.
+
+    Same sorted-scan row layout (and therefore the same offsets) as
+    :func:`build_feature_table`, so one ``(B, T)`` node-index stream
+    addresses BOTH tables. Per global node row: padded object features,
+    view indexes, normalized bbox positions and a validity mask —
+    everything the obs assembly gathered per step on the host
+    (``env/task_envs.py:ReverieNavEnv._observe``) except the relative
+    object angles, which depend on the agent's current view and are
+    computed on device from the (36, 36, A) angle table.
+
+    ``obj_local_pos``: bbox (K, 4) xywh -> (K, 5) normalized, i.e.
+    ``ReverieNavEnv._obj_local_pos`` (reverie/data_utils.py:31-43).
+    """
+    offsets: Dict[str, int] = {}
+    n = sum(g.num_nodes for g in graphs.values())
+    k = max_objects
+    fts = np.zeros((n, k, obj_feat_size), np.float32)
+    view = np.zeros((n, k), np.int32)
+    pos = np.zeros((n, k, 5), np.float32)
+    mask = np.zeros((n, k), bool)
+    row = 0
+    for scan in sorted(graphs):
+        g = graphs[scan]
+        offsets[scan] = row
+        for vid in g.node_ids:
+            entry = obj_db.get((scan, vid))
+            if entry is not None:
+                m = min(len(entry["obj_ids"]), k)
+                fts[row, :m] = entry["fts"][:m]
+                view[row, :m] = np.asarray(entry["viewindexs"][:m], np.int32)
+                pos[row, :m] = obj_local_pos(entry["bboxes"][:m])
+                mask[row, :m] = True
+            row += 1
+    return {"fts": fts, "view": view, "pos": pos, "mask": mask}, offsets

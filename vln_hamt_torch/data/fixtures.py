@@ -4,8 +4,8 @@ The reference has no test fixtures at all (SURVEY §4); everything needs
 Matterport scan data and the MatterSim binary. We generate deterministic
 random navigation graphs + instruction data + features so the full
 pipeline (env -> model -> agent -> metrics) runs anywhere. For the same
-seed this builds the same world as ``vln_hamt_tpu/data/fixtures.py``
-(tested); the task-variant fixtures are not part of the port yet.
+seed this builds the same world, and the same task-variant items and
+object database, as ``vln_hamt_tpu/data/fixtures.py`` (tested).
 :func:`export_real_format` writes a world as the reference's files.
 """
 
@@ -142,6 +142,97 @@ def make_synthetic_world(
         instr_data=instr_data,
         feat_db=SyntheticFeatureDB(feat_dim=feat_dim),
     )
+
+
+# ----------------------------------------------------------------------
+# Task-variant fixtures
+
+
+def add_synthetic_objects(
+    world: SyntheticWorld,
+    objects_per_vp: int = 2,
+    obj_feat_size: int = 768,
+    seed: int = 0,
+):
+    """Synthesize a REVERIE-style object database.
+
+    Returns (obj_db, obj2viewpoint) and rewrites the world's items with
+    an ``objId`` visible from the path's last viewpoint. Object ids are
+    strings as in BBoxes.json; each object is visible from its home
+    viewpoint and that viewpoint's graph neighbors.
+    """
+    rng = np.random.default_rng(seed)
+    obj_db: Dict[tuple, dict] = {}
+    obj2viewpoint: Dict[str, List[str]] = {}
+    for scan, g in world.graphs.items():
+        for node in range(g.num_nodes):
+            vp = g.node_ids[node]
+            n = objects_per_vp
+            obj_ids = [f"{node * 10 + k}" for k in range(n)]
+            obj_db[(scan, vp)] = {
+                "fts": rng.standard_normal((n, obj_feat_size)).astype(np.float32),
+                "viewindexs": rng.integers(0, 36, n).astype(np.int64),
+                "bboxes": np.stack(
+                    [
+                        rng.uniform(0, 600, n),
+                        rng.uniform(0, 440, n),
+                        rng.uniform(10, 40, n),
+                        rng.uniform(10, 40, n),
+                    ],
+                    axis=1,
+                ).astype(np.float32),
+                "obj_ids": obj_ids,
+            }
+            visible_from = [vp] + [
+                g.node_ids[int(x)] for x in g.nbr_index[node] if x >= 0
+            ]
+            for oid in obj_ids:
+                obj2viewpoint[f"{scan}_{oid}"] = visible_from
+    # annotate items with a target object at the goal viewpoint
+    for item in world.instr_data:
+        item["objId"] = obj_db[(item["scan"], item["path"][-1])]["obj_ids"][0]
+        item["id"] = item["instr_id"]
+    return obj_db, obj2viewpoint
+
+
+def make_synthetic_cvdn_items(world: SyntheticWorld) -> List[dict]:
+    """NDH-style items: start pano + multiple acceptable end panos."""
+    items = []
+    for item in world.instr_data:
+        g = world.graphs[item["scan"]]
+        goal = g.index(item["path"][-1])
+        end_panos = [item["path"][-1]] + [
+            g.node_ids[int(x)] for x in g.nbr_index[goal][:2] if x >= 0
+        ]
+        items.append(
+            {
+                "instr_id": item["instr_id"],
+                "scan": item["scan"],
+                "start_pano": item["path"][0],
+                "start_heading": item["heading"],
+                "end_panos": end_panos,
+                "nav_steps": list(item["path"]),
+                "nav_idx": 0,
+                "instr_encoding": item["instr_encoding"],
+            }
+        )
+    return items
+
+
+def make_synthetic_r2rback_items(world: SyntheticWorld) -> List[dict]:
+    """Return-to-start items: go out, midstop at the far end, come back."""
+    items = []
+    for item in world.instr_data:
+        out = list(item["path"])
+        back = list(reversed(out))[1:]
+        items.append(
+            {
+                **item,
+                "path": out + back,
+                "midstop": out[-1],
+            }
+        )
+    return items
 
 
 # ----------------------------------------------------------------------

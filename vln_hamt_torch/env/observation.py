@@ -101,6 +101,13 @@ class ObsBatch:
     teacher: np.ndarray  # (B,) int32 action slot (stop_slot / IGNORE_ID)
     node: np.ndarray  # (B,) int32
     dist_to_goal: np.ndarray  # (B,) float32
+    # task-variant extras (host-side), filled by the task envs
+    dist_to_mid: Optional[np.ndarray] = None  # R2R-Back (B,)
+    obj_fts: Optional[np.ndarray] = None  # REVERIE (B, K, Do)
+    obj_angs: Optional[np.ndarray] = None  # (B, K, A)
+    obj_pos: Optional[np.ndarray] = None  # (B, K, 5)
+    obj_mask: Optional[np.ndarray] = None  # (B, K)
+    obj_ids: Optional[list] = None  # per-sample object id strings
     _full: Optional[FullObs] = dataclasses.field(default=None, repr=False)
 
     @property

@@ -122,6 +122,12 @@ def params_from_flax(params: Tree, cfg: ModelConfig) -> Dict[str, np.ndarray]:
 
     if "act_dense1" in p:  # a pretraining trunk has no action head
         _mlp_head(sd, "next_action", p["act_dense1"], p["act_ln"], p["act_dense2"], 4)
+    if "obj_img_linear" in p:  # REVERIE's object embeddings and head (NavRefCMT)
+        for part in ("img", "ang", "pos"):
+            _linear(sd, f"obj_embeddings.{part}_linear", p[f"obj_{part}_linear"])
+            _layernorm(sd, f"obj_embeddings.{part}_layer_norm", p[f"obj_{part}_ln"])
+        _layernorm(sd, "obj_embeddings.layer_norm", p["obj_ln"])
+        _mlp_head(sd, "ref_object", p["ref_dense1"], p["ref_ln"], p["ref_dense2"], 4)
     return sd
 
 
@@ -301,9 +307,11 @@ def load_reference_checkpoint(path: str
     Handles both released formats:
 
     - agent checkpoints of ``Seq2SeqCMTAgent.save`` (agent_cmt.py:607-622:
-      ``{'vln_bert': {'state_dict': ...}, 'critic': {'state_dict': ...}}``):
-      the wrapper's ``vln_bert.`` prefix and a DDP ``module.`` prefix
-      are stripped;
+      ``{'vln_bert': {'state_dict': ...}, 'critic': {'state_dict': ...}}``),
+      REVERIE's ``NavRefCMTAgent`` among them (the ``NavRefModel``
+      wrapper, its NavRefCMT under ``vln_bert.``, model_navref.py:79,
+      with ``obj_embeddings.*`` and ``ref_object.*``): the wrapper's
+      ``vln_bert.`` prefix and a DDP ``module.`` prefix are stripped;
     - pretrain ``ModelSaver`` state dicts (the ``--bert_ckpt_file``
       files): ``module.`` is stripped, ``bert.*`` re-rooted onto NavCMT,
       the top-level ``next_action.*`` kept and the other pretraining

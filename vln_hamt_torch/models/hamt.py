@@ -15,6 +15,12 @@ methods:
 - :meth:`HAMT.plan`            — cross-modal step -> action logits + state
                                  (mode='visual'); history arrives as a fixed
                                  (B, T_max+1, D) cache with a length mask.
+- :meth:`HAMT.plan_ref`        — REVERIE's step (NavRefCMT,
+                                 ``reverie/vlnbert_navref.py``): the objects
+                                 join the visual stream, and an object head
+                                 scores them beside the action logits; the
+                                 model has ``obj_embeddings`` and
+                                 ``ref_object`` when ``obj_feat_size > 0``.
 
 Pretraining (``pretrain/model.py``) reads the whole history at once
 through :meth:`HAMT.encode_history_seq`, :meth:`HAMT.apply_hist_pos`,
@@ -34,7 +40,6 @@ dropout; see ``models/layers.py`` for where the random draws come
 from), ``.eval()`` turns them off. The ``fix_*`` flags stop gradients as
 the JAX package's ``stop_gradient`` calls do, by running the frozen part
 under ``torch.no_grad()`` (same gradients, no saved activations).
-``plan_ref`` waits for a later slice (ROADMAP item A11).
 """
 
 from __future__ import annotations
@@ -140,6 +145,21 @@ class HistoryEmbeddings(nn.Module):
             self.pano_encoder = TransformerStack(cfg, cfg.num_h_pano_layers)
 
 
+class ObjectEmbeddings(nn.Module):
+    """REVERIE's object embeddings (reverie/vlnbert_navref.py:12-42)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.img_linear = Linear(cfg.obj_feat_size, d)
+        self.img_layer_norm = _ln(d)
+        self.ang_linear = Linear(cfg.angle_feat_size, d)
+        self.ang_layer_norm = _ln(d)
+        self.pos_linear = Linear(cfg.obj_loc_size, d)
+        self.pos_layer_norm = _ln(d)
+        self.layer_norm = _ln(d)
+
+
 class MLP2Head(nn.Module):
     """dense -> ReLU -> LN -> [dropout ->] dense, as ``net``: the action
     head (NextActionPrediction, vilmodel_cmt.py:597-607) and the
@@ -168,6 +188,12 @@ class HAMT(nn.Module):
         self.hist_embeddings = HistoryEmbeddings(cfg)
         d = cfg.hidden_size
         self.next_action = MLP2Head(d, d, 1, cfg.pred_head_dropout_prob) if action_head else None
+        # REVERIE's object grounding (reverie/vlnbert_navref.py:12-56)
+        if cfg.obj_feat_size > 0:
+            self.obj_embeddings = ObjectEmbeddings(cfg)
+            self.ref_object = MLP2Head(d, d, 1, cfg.pred_head_dropout_prob)
+        else:
+            self.obj_embeddings = self.ref_object = None
         self.hidden_dropout = Dropout(cfg.hidden_dropout_prob)
         self.feat_drop = Dropout(cfg.feat_dropout)  # visual features (model_HAMT.py:18)
         set_compute_dtype(self, self.compute_dtype)
@@ -177,13 +203,20 @@ class HAMT(nn.Module):
         """mode='language' (vilmodel_cmt.py:632-653).
 
         Returns (B, L, D), or (X+1, B, L, D) stacked per-x-layer language
-        states when ``no_lang_ca`` (precomputed lang stream).
+        states when ``no_lang_ca`` (precomputed lang stream). A REVERIE
+        model (``obj_feat_size > 0``) returns (1, B, L, D) under
+        ``no_lang_ca``: NavRefCMT's language mode has no per-layer states
+        (reverie/vlnbert_navref.py:69-84) and :meth:`plan_ref` reads the
+        initial encoding only, so the per-layer stack the JAX package
+        computes and drops is not computed here.
         """
         cfg = self.config
         ext = extend_mask(txt_mask, self.compute_dtype)
         with _frozen(cfg.fix_lang_embedding or not cfg.update_lang_bert):
             x = self.embeddings(txt_ids)
             x = run_layers(self.encoder.layer, x, ext)
+        if cfg.no_lang_ca and self.ref_object is not None:
+            return x[None]
         if cfg.no_lang_ca:
             all_states = [x]
             for layer in self.encoder.x_layers:
@@ -368,6 +401,67 @@ class HAMT(nn.Module):
         else:
             state = lang[:, 0] * hist_out[:, 0]
         return logits, state.float()
+
+
+    # ------------------------------------------------------------------
+    def embed_objects(self, obj_fts, obj_angs, obj_pos) -> torch.Tensor:
+        """ObjectEmbeddings (reverie/vlnbert_navref.py:31-42): objects carry
+        token type 1 (visual) and nav type 2 (stop-like)."""
+        oe = self.obj_embeddings
+        b, k = obj_fts.shape[:2]
+        ones = torch.ones((b, k), dtype=torch.long, device=obj_fts.device)
+        emb = (oe.img_layer_norm(oe.img_linear(self.feat_drop(obj_fts)))
+               + oe.ang_layer_norm(oe.ang_linear(obj_angs))
+               + oe.pos_layer_norm(oe.pos_linear(obj_pos))
+               + self.img_embeddings.nav_type_embedding(2 * ones)
+               + self.embeddings.token_type_embeddings(ones))
+        return self.hidden_dropout(oe.layer_norm(emb))
+
+    def plan_ref(self, txt_embeds, txt_mask, hist_tokens, hist_mask, ob_img, ob_ang, ob_nav,
+                 ob_mask, obj_fts, obj_angs, obj_pos, obj_mask
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """REVERIE's planning step (reverie/vlnbert_navref.py:90-158): the
+        cross-modal stack over [history; observation; objects], the
+        action head over the observation tokens (ob * hist[CLS]) and the
+        object head over the object tokens (obj * txt[CLS]).
+
+        Returns (act_logits (B, N), obj_logits (B, K), state (B, D));
+        invalid actions and absent objects get -inf. The caller appends
+        the largest object logit as the STOP action (reverie/agent.py:
+        251-254). Under ``no_lang_ca`` every cross-modal layer and the
+        object head see the initial text encoding ``txt_embeds[0]``: the
+        layers pass the text stream through unchanged, as NavRefCMT does.
+        """
+        cfg = self.config
+        enc = self.encoder
+        dt = self.compute_dtype
+        ext_hist = extend_mask(hist_mask, dt)
+        ext_ob = extend_mask(ob_mask, dt)
+        ext_obj = extend_mask(obj_mask, dt)
+        ext_txt = extend_mask(txt_mask, dt)
+
+        hist = hist_tokens
+        if enc.h_layers is not None:
+            hist = run_layers(enc.h_layers, hist, ext_hist)
+        ob = self.embed_obs(ob_img, ob_ang, ob_nav)
+        if enc.r_layers is not None:
+            ob = run_layers(enc.r_layers, ob, ext_ob)
+        obj = self.embed_objects(obj_fts, obj_angs, obj_pos)
+
+        h, n = hist.shape[1], ob.shape[1]
+        visn = torch.cat([hist, ob, obj], dim=1)
+        visn_mask = torch.cat([ext_hist, ext_ob, ext_obj], dim=-1)
+        lang = txt_embeds[0] if cfg.no_lang_ca else txt_embeds
+        for layer in enc.x_layers:
+            lang, visn = layer(lang, ext_txt, visn, visn_mask)
+
+        hist_out, ob_out, obj_out = visn[:, :h], visn[:, h:h + n], visn[:, h + n:]
+        act_logits = self.next_action(ob_out * hist_out[:, :1]).squeeze(-1).float()
+        act_logits = act_logits.masked_fill(ob_nav == 0, -math.inf)
+        obj_logits = self.ref_object(obj_out * lang[:, :1]).squeeze(-1).float()
+        obj_logits = obj_logits.masked_fill(~obj_mask, -math.inf)
+        state = hist_out[:, 0] if cfg.no_lang_ca else lang[:, 0] * hist_out[:, 0]
+        return act_logits, obj_logits, state.float()
 
 
 class Critic(nn.Module):

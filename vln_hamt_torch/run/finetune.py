@@ -1,18 +1,23 @@
-"""Fine-tuning and evaluation entry point for the R2R family (torch), the
-port of ``vln_hamt_tpu/run/finetune.py``.
+"""Fine-tuning and evaluation entry point (torch), the port of
+``vln_hamt_tpu/run/finetune.py``.
 
-    python -m vln_hamt_torch.run.finetune --task r2r|r2r_last|r4r|rxr \\
+    python -m vln_hamt_torch.run.finetune \\
+        --task r2r|r2r_last|r4r|rxr|r2r_back|cvdn|reverie \\
         --anno_dir DIR --connectivity_dir DIR --img_ft_file FILE.hdf5 \\
+        [--obj_ft_file OBJ.hdf5] \\
         [--aug AUG.json] [--init_pretrain P.pt | --init_ref_ckpt REF.pt] \\
         [--resume_file latest.pt] \\
         [--eval_first] [--feedback teacher [--packed_il]] [--no_merged_sample] [--bf16] \\
         [--no_feat_table] [--no_cand_backtrack] [--iters N --log_every K]
     python -m vln_hamt_torch.run.finetune --task rxr --synthetic [--valid_only] ...
 
-runs the task's preset at full width on the GPU (``--cpu`` runs on the
+runs the task's preset (the R2R family, R2R-Back, CVDN, or REVERIE with
+its object grounding) at full width on the GPU (``--cpu`` runs on the
 CPU through the plain attention; ``--tiny`` shrinks the model and
 episodes), over the reference's files (Matterport connectivity, the
-task's annotation files, HDF5 panorama features) or, with
+task's annotation files, HDF5 panorama features; for REVERIE also
+``BBoxes.json`` in the annotation directory and ``--obj_ft_file``'s object
+features) or, with
 ``--synthetic``, over a hermetic fixture world with the preset's feature
 width. Weights start from a seed, from a port pretraining checkpoint
 (``--init_pretrain``, ``run/pretrain.py``'s ``model_step_N.pt``) or a
@@ -36,11 +41,13 @@ Every ``--log_every`` it appends the interval's loss,
 episodes/s and MFU to ``metrics.jsonl`` (and its mean losses to
 ``train.txt``), evaluates the validation splits greedily, and writes
 ``latest.pt`` and, on a better selection score, ``best_val_unseen.pt``;
-it prints ``{"best": {...}}``. ``--valid_only`` evaluates instead
-(``--resume_file`` and/or ``--init_ref_ckpt`` give the weights), prints
-``{"valid": {split: metrics}}`` and writes ``valid.txt`` (and
-``submit_{split}.json`` with ``--submit``). The JAX CLI's other flags
-are accepted and raise, naming their ROADMAP item.
+it prints ``{"best": {...}}``; the selection score is the task's
+(SR + SPL, REVERIE's SPL + RGSPL, CVDN's GP). ``--valid_only`` evaluates
+instead (``--resume_file`` and/or ``--init_ref_ckpt`` give the weights),
+prints ``{"valid": {split: metrics}}`` and writes ``valid.txt`` (and
+``submit_{split}.json`` with ``--submit``, with R2R-Back's ``midstop``
+and REVERIE's ``predObjId``). The JAX CLI's other flags are accepted and
+raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,37 +61,42 @@ import numpy as np
 import torch
 
 from ..agents.agent import HAMTAgent, resolve_device
+from ..agents.reverie import ReverieAgent
+from ..agents.variants import CVDNAgent, R2RBackAgent
 from ..configs import HAMTConfig, get_preset
 from ..configs.config import PRESETS
-from ..data.feature_db import FeatureDB, HDF5FeatureDB
-from ..data.fixtures import make_synthetic_world
+from ..data.feature_db import (FeatureDB, HDF5FeatureDB, load_obj2viewpoint,
+                               load_object_db)
+from ..data.fixtures import (add_synthetic_objects, make_synthetic_cvdn_items,
+                             make_synthetic_r2rback_items, make_synthetic_world)
 from ..data.instructions import construct_instrs
 from ..data.nav_graph import load_nav_graphs
-from ..env import ObsSpec, R2RNavEnv
+from ..env import CVDNNavEnv, ObsSpec, R2RBackNavEnv, R2RNavEnv, ReverieNavEnv
 from ..utils.flops import analytic_update_flops, chip_peak_flops
 from ..utils.logging import MetricsLogger, write_record
 
-#: the tasks of the R2R family: one env, one agent, the R2R reward
-_ENV_CLS = {task: R2RNavEnv for task in ("r2r", "r2r_last", "r4r", "rxr")}
-_AGENT_CLS = {task: HAMTAgent for task in _ENV_CLS}
-
-
-def _check_task(task: str) -> None:
-    if task not in _ENV_CLS:
-        raise NotImplementedError(f"--task {task}: task variants are ROADMAP item A11")
+#: each task's env and agent; the R2R family shares R2R's
+_ENV_CLS = {**{task: R2RNavEnv for task in ("r2r", "r2r_last", "r4r", "rxr")},
+            "r2r_back": R2RBackNavEnv, "reverie": ReverieNavEnv, "cvdn": CVDNNavEnv}
+_AGENT_CLS = {**{task: HAMTAgent for task in ("r2r", "r2r_last", "r4r", "rxr")},
+              "r2r_back": R2RBackAgent, "reverie": ReverieAgent, "cvdn": CVDNAgent}
 
 #: flags of the JAX CLI that the port does not run yet, with their
 #: ROADMAP item
 _UNPORTED_FLAGS = {
     "sharded_feed": "A13", "data_shards": "A13", "model_shards": "A13",
-    "orbax_ckpt": "A13", "obj_ft_file": "A11",
-    "remat": "A19", "remat_policy": "A19", "rng_impl": "A20",
+    "orbax_ckpt": "A13", "remat": "A19", "remat_policy": "A19", "rng_impl": "A20",
 }
 
 
 def selection_score(dataset: str, metrics: Dict[str, float]) -> float:
-    """Model-selection metric (main.py:204-210): SR + SPL for the R2R
-    family (REVERIE's and CVDN's come with ROADMAP item A11)."""
+    """Model-selection metric per task: SR + SPL for the R2R family and
+    R2R-Back (main.py:204-210), SPL + RGSPL for REVERIE
+    (reverie/main_navref.py:197-203), GP for CVDN (cvdn/main.py:196-201)."""
+    if dataset == "reverie":
+        return metrics.get("spl", 0.0) + metrics.get("rgspl", 0.0)
+    if dataset == "cvdn":
+        return metrics.get("gp", 0.0)
     return metrics.get("spl", 0.0) + metrics.get("sr", 0.0)
 
 
@@ -95,9 +107,12 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
 
     ``aug=True`` builds a synthetic aug env over the train items
     (differently seeded episode stream), so the GT/aug interval
-    alternation (main.py:146-161) runs hermetically.
+    alternation (main.py:146-161) runs hermetically. The variants take
+    the world's items as their fixtures make them (R2R-Back's out-and-back
+    paths, CVDN's dialog items with end panos, REVERIE's target objects
+    and object database), as the JAX CLI wires them.
     """
-    _check_task(cfg.env.dataset)
+    dataset = cfg.env.dataset
     world = make_synthetic_world(
         num_scans=2, nodes_per_scan=24, num_items=48,
         feat_dim=cfg.env.image_feat_size, seed=seed,
@@ -107,9 +122,23 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
     spec = ObsSpec(max_candidates=max_deg,
                    image_feat_size=cfg.env.image_feat_size,
                    ob_type=cfg.env.ob_type)
-    items = world.instr_data
+    env_kwargs = {}
+    if dataset == "r2r_back":
+        items = make_synthetic_r2rback_items(world)
+    elif dataset == "cvdn":
+        items = make_synthetic_cvdn_items(world)
+        env_kwargs["use_player_path"] = cfg.env.use_player_path
+    elif dataset == "reverie":
+        obj_db, obj2vp = add_synthetic_objects(world, obj_feat_size=cfg.model.obj_feat_size)
+        items = world.instr_data
+        env_kwargs.update(obj_db=obj_db, obj2viewpoint=obj2vp,
+                          max_objects=cfg.env.max_objects,
+                          obj_feat_size=cfg.model.obj_feat_size,
+                          multi_endpoints=cfg.env.multi_endpoints)
+    else:
+        items = world.instr_data
     n_train = int(len(items) * 0.75)
-    env_cls = _ENV_CLS[cfg.env.dataset]
+    env_cls = _ENV_CLS[dataset]
 
     def make_env(data, name, seed_shift=0):
         return env_cls(
@@ -119,6 +148,7 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
             max_action_len=cfg.env.max_action_len,
             seed=cfg.train.seed + seed_shift, name=name,
             reuse_episode_buffers=(name in ("train", "aug")),
+            **env_kwargs,
         )
 
     train_env = make_env(items[:n_train], "train")
@@ -127,24 +157,33 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
     val_envs = {"val_unseen": make_env(items[n_train:], "val_unseen")}
     if test_split:
         # GT-less test items: path truncated to the start viewpoint,
-        # mirroring the official test annotations (r2r/main.py:66-69)
-        test_items = [{**it, "path": it["path"][:1]} for it in items[n_train:]]
+        # mirroring the official test annotations (r2r/main.py:66-69);
+        # CVDN's dialog items carry their goal as end panos instead
+        test_items = [{k: v for k, v in it.items() if k != "end_panos"} if "path" not in it
+                      else {**it, "path": it["path"][:1]} for it in items[n_train:]]
         val_envs["test"] = make_env(test_items, "test")
     return cfg, train_env, val_envs
 
 
 def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
-                       feat_db: Optional[FeatureDB] = None) -> Tuple:
+                       feat_db: Optional[FeatureDB] = None,
+                       obj_db: Optional[dict] = None) -> Tuple:
     """Envs over the reference's files (main.py:26-83), one process.
 
     ``valid_only`` builds only the evaluation envs: the reference's
     ``valid()`` never touches the train split (r2r/main.py:225-269), so a
     checkpoint can be evaluated with only val/test annotation files
     present. ``feat_db`` stands in for ``HDF5FeatureDB(args.img_ft_file)``
-    (a caller holding the features in memory).
+    (a caller holding the features in memory); ``obj_db`` for
+    ``load_object_db(args.obj_ft_file)`` (REVERIE).
+
+    The task's wiring (reverie/main_navref.py:26-80, cvdn/main.py:43-60):
+    REVERIE's envs take the object database and ``BBoxes.json``'s
+    object-to-viewpoint map, endpoint resampling in the train and aug
+    envs only, start resampling in the aug env only; CVDN's take
+    ``use_player_path``.
     """
     dataset = cfg.env.dataset
-    _check_task(dataset)
     if feat_db is None:
         feat_db = HDF5FeatureDB(args.img_ft_file, cfg.env.image_feat_size)
     splits = {} if valid_only else {"train": ["train"]}
@@ -182,16 +221,30 @@ def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
                    image_feat_size=cfg.env.image_feat_size,
                    ob_type=cfg.env.ob_type)
     env_cls = _ENV_CLS[dataset]
+    env_kwargs: Dict[str, object] = {}
+    if dataset == "reverie":
+        if obj_db is None:
+            obj_db = (load_object_db(args.obj_ft_file, cfg.model.obj_feat_size)
+                      if args.obj_ft_file else {})
+        env_kwargs.update(obj_db=obj_db, obj2viewpoint=load_obj2viewpoint(args.anno_dir),
+                          max_objects=cfg.env.max_objects,
+                          obj_feat_size=cfg.model.obj_feat_size)
+    elif dataset == "cvdn":
+        env_kwargs["use_player_path"] = cfg.env.use_player_path
 
     def make_env(data, name):
         is_train = name in ("train", "aug")
+        kwargs = dict(env_kwargs)
+        if dataset == "reverie":
+            kwargs.update(multi_endpoints=cfg.env.multi_endpoints and is_train,
+                          multi_startpoints=name == "aug")
         return env_cls(
             graphs, feat_db, data, spec,
             batch_size=cfg.train.batch_size,
             max_instr_len=cfg.env.max_instr_len,
             max_action_len=cfg.env.max_action_len,
             seed=cfg.train.seed, name=name,
-            reuse_episode_buffers=is_train,
+            reuse_episode_buffers=is_train, **kwargs,
         )
 
     train_env = None
@@ -366,8 +419,11 @@ def valid(cfg: HAMTConfig, ckpt: Optional[str], val_envs: Dict[str, R2RNavEnv],
         if submit:
             path = os.path.join(output_dir, f"submit_{name}.json")
             with open(path, "w") as f:
+                # the task's extras ride along, as in the reference's
+                # get_results dumps (main_navref.py:252-256)
                 json.dump([{"instr_id": p["instr_id"],
-                            "trajectory": [[vp, h, e] for vp, h, e in p["trajectory"]]}
+                            "trajectory": [[vp, h, e] for vp, h, e in p["trajectory"]],
+                            **{k: p[k] for k in ("predObjId", "midstop") if k in p}}
                            for p in merged], f, sort_keys=True, indent=2)
     return results
 
@@ -378,8 +434,7 @@ def parse_args(argv=None):
     :func:`main`."""
     p = argparse.ArgumentParser(description="HAMT fine-tuning and evaluation (PyTorch/CUDA)")
     p.add_argument("--task", default="r2r", choices=sorted(PRESETS),
-                   help="r2r | r2r_last | r4r | rxr (r2r_back, reverie and cvdn are "
-                        "ROADMAP item A11)")
+                   help="r2r | r2r_last | r4r | rxr | r2r_back | cvdn | reverie")
     p.add_argument("--output_dir", default="runs/finetune_torch")
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--log_every", type=int, default=None)
@@ -394,7 +449,9 @@ def parse_args(argv=None):
     p.add_argument("--anno_dir", default=None)
     p.add_argument("--connectivity_dir", default=None)
     p.add_argument("--img_ft_file", default=None)
-    p.add_argument("--obj_ft_file", default=None, help="REVERIE object features")
+    p.add_argument("--obj_ft_file", default=None,
+                   help="REVERIE object features (HDF5, one {scan}_{viewpoint} dataset "
+                        "with obj_ids, bboxes and viewindexs attributes)")
     p.add_argument("--aug", default=None,
                    help="augmented-instruction annotation file (prevalent_aug); "
                         "training then alternates GT/aug batches (main.py:146-161). "
@@ -454,7 +511,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_task(args.task)
     if args.packed_il and args.no_feat_table:
         raise ValueError("--packed_il requires the feature table")
     for flag, item in _UNPORTED_FLAGS.items():
@@ -483,7 +539,8 @@ def main(argv=None):
                    "intermediate_size": 128, "num_l_layers": 2,
                    "num_x_layers": 1, "num_h_pano_layers": 1,
                    "image_feat_size": 32, "max_position_embeddings": 128,
-                   "max_action_steps": 32},
+                   "max_action_steps": 32,
+                   **({"obj_feat_size": 32} if cfg.model.obj_feat_size > 0 else {})},
             env={"max_action_len": 8, "max_instr_len": 32, "image_feat_size": 32},
             # explicit CLI flags win over the tiny defaults
             train={"batch_size": args.batch_size or 4,

@@ -127,10 +127,14 @@ def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
     ``update_lang_bert`` off) keeps it out of the graph, and the
     precomputed language half always; the panorama encoder's unless
     ``fix_hist_embedding``, except at the last step, whose history token
-    no later step reads."""
+    no later step reads.
+
+    Any task preset: R2R-Back's and CVDN's shapes are the family's at
+    their lengths; REVERIE's visual stream carries the viewpoint's
+    ``max_objects`` object tokens too, and its text (``plan_ref``) has no
+    precomputed language half (:func:`text_launches`)."""
     mcfg, t_max = cfg.model, cfg.env.max_action_len
-    n_ob = cfg.env.max_candidates + 1 + 36
-    l_txt, l_pano, l_visn = cfg.env.max_instr_len, 36, t_max + 1 + n_ob
+    l_txt, l_pano, l_visn = cfg.env.max_instr_len, 36, visual_tokens(cfg)
     n_x, n_p = mcfg.num_x_layers, mcfg.num_h_pano_layers
     per_step = [(l_visn, l_txt), (l_visn, l_visn)]
     if not mcfg.no_lang_ca:
@@ -146,14 +150,25 @@ def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
     return fwd, +bwd
 
 
+def visual_tokens(cfg) -> int:
+    """The cross-modal layers' visual stream: the history cache (T + 1),
+    the observation [C candidates | STOP | 36 views] and, for REVERIE,
+    the viewpoint's object tokens."""
+    n_ob = cfg.env.max_candidates + 1 + 36
+    objects = cfg.env.max_objects if cfg.model.obj_feat_size > 0 else 0
+    return cfg.env.max_action_len + 1 + n_ob + objects
+
+
 def text_launches(mcfg) -> Tuple[int, int]:
     """Attention launches of one text encoding (the text stack, and under
     ``no_lang_ca`` the cross-modal layers' language half, precomputed),
     forward and backward: the text stack runs backward unless
     ``fix_lang_embedding`` (or ``update_lang_bert`` off) keeps it out of
-    the graph, the precomputed language half always."""
+    the graph, the precomputed language half always. A REVERIE model
+    (``obj_feat_size > 0``) has no language half: ``plan_ref`` reads the
+    initial encoding only (``models/hamt.py:HAMT.encode_text``)."""
     text_frozen = mcfg.fix_lang_embedding or not mcfg.update_lang_bert
-    lang_once = mcfg.num_x_layers if mcfg.no_lang_ca else 0
+    lang_once = mcfg.num_x_layers if mcfg.no_lang_ca and mcfg.obj_feat_size <= 0 else 0
     return (mcfg.num_l_layers + lang_once,
             (0 if text_frozen else mcfg.num_l_layers) + lang_once)
 
@@ -251,8 +266,7 @@ def bootstrap_mix(cfg) -> collections.Counter:
     """Forward launches of the sample updates' bootstrap value by
     (Lq, Lk): one planning step over the final observation, no
     backward."""
-    n_ob = cfg.env.max_candidates + 1 + 36
-    l_txt, l_visn = cfg.env.max_instr_len, cfg.env.max_action_len + 1 + n_ob
+    l_txt, l_visn = cfg.env.max_instr_len, visual_tokens(cfg)
     shapes = [(l_visn, l_txt), (l_visn, l_visn)]
     if not cfg.model.no_lang_ca:
         shapes += [(l_txt, l_visn), (l_txt, l_txt)]

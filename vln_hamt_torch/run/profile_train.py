@@ -1,6 +1,7 @@
 """Where the time of one full-width training update goes on the card.
 
-    python -m vln_hamt_torch.run.profile_train [--task r2r|r2r_last|r4r|rxr]
+    python -m vln_hamt_torch.run.profile_train
+        [--task r2r|r2r_last|r4r|rxr|r2r_back|cvdn|reverie]
         [--feedback teacher|sample] [--no_merged_sample | --replay [--no_feat_table]]
         [--packed_il] [--bf16] [--batch_size B] [--out DIR]
 
@@ -37,14 +38,14 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..agents.agent import HAMTAgent, resolve_device
+from ..agents.agent import resolve_device
 from ..configs import get_preset
-from .profile_eval import kernel_table, slice_config, slice_env
+from .profile_eval import TASKS, kernel_table, slice_agent, slice_config
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--task", default="r2r", choices=("r2r", "r2r_last", "r4r", "rxr"))
+    p.add_argument("--task", default="r2r", choices=TASKS)
     p.add_argument("--feedback", default="teacher", choices=("teacher", "sample"))
     p.add_argument("--no_merged_sample", action="store_true",
                    help="profile the fused sample update instead of the merged one")
@@ -72,7 +73,7 @@ def main(argv=None):
         raise ValueError("--packed_il profiles the teacher update")
     cfg = cfg.replace(train={"feedback": args.feedback},
                       model={"dtype": "bfloat16" if args.bf16 else "float32"})
-    agent = HAMTAgent(cfg, slice_env(cfg, world, args.seed), seed=args.seed, device=device)
+    agent = slice_agent(cfg, world, args.seed, device)
     agent.merged_sample_update = not (args.no_merged_sample or args.replay)
     agent.fused_sample_update = not args.replay
     if not args.no_feat_table:
