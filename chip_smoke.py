@@ -60,7 +60,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 6. train    -- the training path: full-width R2R imitation learning
                (HAMTAgent.train_iteration("teacher"), `r2r` preset, fp32,
                production dropout, adamw lr 1e-5, clip 40, batch 8,
-               T = 15) over the same world; 3 warm-up and 20 timed
+               T = 15) over the same world; 3 warm-up and 10 timed
                updates: IL episodes/s, the losses, and 279 forward and
                240 backward launches per update. Then 15 updates on one
                repeated batch (lr 1e-4, dropout off): the loss must fall.
@@ -73,7 +73,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                (HAMTAgent.train_iteration("sample"), the same optimizer,
                production dropout, batch 8, T = 15), merged (8 sampling
                lanes and 8 teacher-forced lanes in one rollout); 3
-               warm-up and 20 timed updates: sample episodes/s, the
+               warm-up and 10 timed updates: sample episodes/s, the
                losses, peak memory, and 295 forward (279 at 16 lanes, the
                bootstrap's 16 at 8) and 240 backward launches per update.
                Then 3 fused updates (the teacher episode forward, then
@@ -144,8 +144,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. bf16    -- bfloat16 compute at full `r2r` width (ModelConfig.dtype,
                the CLI's --bf16; parameters, optimizers and losses fp32):
                greedy evaluation at batch 32 (exactly 279 forward launches
-               per batch), 3 warm-up and 10 timed IL updates at batch 8
-               (279 / 240), 3 warm-up and 10 timed merged sample updates
+               per batch), 3 warm-up and 5 timed IL updates at batch 8
+               (279 / 240), 3 warm-up and 5 timed merged sample updates
                (295 / 240), episodes/s and peak memory of each beside the
                fp32 phases' of this run; 15 updates on one repeated batch
                (dropout off): the loss must fall; card against CPU, both
@@ -157,7 +157,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                bf16_close of the card's fp32 answer, as in the pretrain
                phase (tests/test_torch_bf16.py's yardstick).
 14. packed_il -- packed IL (--packed_il) at full `r2r` width, 8 slots, T
-               15, 30 text rows, fp32 and bf16: 3 warm-up and 10 timed
+               15, 30 text rows, fp32 and bf16: 3 warm-up and 5 timed
                packed updates, episodes per update and episodes/s beside
                the unpacked IL update's of this run, and exactly
                packed_il_mix's launches (279 forward, the text stack's 9
@@ -185,7 +185,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 16. replay  -- the rollout-then-replay sample update at full `r2r` width,
                fp32, production dropout, batch 8, T 15: with the device
                rollout (merged and fused off) and with the host-loop
-               rollout (no feature table), one warm-up and 10 timed
+               rollout (no feature table), one warm-up and 5 timed
                updates each (sample episodes/s, peak memory, and exactly
                the rollout's launches, 279 on the device or 9 + 18 per
                policy step on the host loop, plus 279 + 279 + 16 forward
@@ -210,14 +210,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                eval_split_device over 24 items give identical
                trajectories, midstops and predicted objects, with exactly
                their launch formulas, and the task's metrics; one warm-up
-               and 3 timed updates each of IL and the merged sample update
-               (exact launches, episodes/s, peak memory), for REVERIE 3
+               and 2 timed updates each of IL and the merged sample update
+               (exact launches, episodes/s, peak memory), for REVERIE 2
                packed IL updates too; the sampling device rollout's
                rewards against the host hooks' on the same draws (within
                1e-6); card against CPU at batch 2, dropout off: identical
                greedy trajectories with logits within 1e-3, the IL loss
                and every gradient within check_grads (REVERIE's object
                logits within 1e-3 too).
+18. vision  -- the vision pipeline at full width: the native navsim
+               library built with g++ from this checkout (its tables
+               against the numpy NavGraph's on the slice's world, every
+               successor walk reaching its goal over the shortest
+               distance, the sampler's direction bands); both kernels at
+               the ViT's 197 x 197 (Dh 64, an all-zero mask) on its lanes,
+               against their plain twins in fp32 and bf16, timed with the
+               library and the bound: the forward at 36 (one panorama, the
+               observation), 144 (the featurizer's 4 panoramas) and 900
+               (the history's 25 x 36 images), the backward at 36; the
+               featurizer (ViT-B/16 at 224, 1000 classes, 4 panoramas per
+               call, run/profile_vision.py's set-up) over panoramas
+               rendered by the native sampler from seeded equirects
+               through the eval transform, fp32 and bf16: exactly 12
+               forward launches per call, images/s through extract and
+               with the batch resident on the card, idle share, peak
+               memory, and card against CPU on one panorama (features and
+               logits within 2e-4 in fp32, bf16 by bf16_close); e2e image
+               pretraining (run/image_pretrain.py --synthetic: the r2r
+               trunk with ViT-B/16 in the loop, batch 1, 80 tokens, 25
+               steps, rangerlars), fp32 and bf16: one update per task with
+               exactly image_pretrain_launch_mix's launches, then per task
+               the host's batch building and 3 timed updates (1 in
+               bf16; exact launches, examples/s, idle share from one
+               traced update, peak memory); card against CPU at 2 history
+               steps, dropout off, for MRC and SAP (the history's route
+               through the ViT and the observation's): the loss and every
+               gradient within train_parity's tolerances.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -238,7 +266,9 @@ its launches per batch of each host-loop evaluator (``hostloop``, the
 forward) and per replay update (``replay``, by rollout); and per task
 variant (``variants``) its launches per greedy batch, IL, merged and
 packed update, the launches of phase 17, and its times weighted as the
-family's. The family
+family's; and its ``vision`` fields: launches per featurize call and per
+e2e update of each task, and its times at the ViT's lanes (the
+featurizer's 144, the e2e update's 900 and 36), fp32 and bf16. The family
 times and the `rxr` pretraining mix's come in fp32 and bf16 (``bf16``
 under each preset). The bf16
 phases' lines carry the fp32 peak memory beside the bf16 one and the
@@ -260,6 +290,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -268,14 +299,21 @@ from vln_hamt_torch.agents.losses import IGNORE_ID, il_loss
 from vln_hamt_torch.agents.packing import unpack_episodes
 from vln_hamt_torch.configs import get_preset
 from vln_hamt_torch.data.fixtures import export_nav_and_annotations
+from vln_hamt_torch.native import navsim
 from vln_hamt_torch.ops import attention as attn
+from vln_hamt_torch.pretrain.image_model import init_image_pretrain
 from vln_hamt_torch.pretrain.model import batch_to_device, init_pretrain
 from vln_hamt_torch.run import finetune
 from vln_hamt_torch.run.profile_attention import (
-    bootstrap_mix, build_all, kernel_inputs, launch_mix, nvidia_smi, packed_il_mix, rel_err,
+    bootstrap_mix, build_all, image_pretrain_launch_mix, kernel_inputs, launch_mix, nvidia_smi,
+    packed_il_mix, rel_err,
     text_launches, time_backward, time_forward, weighted)
 from vln_hamt_torch.run.profile_eval import kernel_table, slice_agent, slice_config, slice_env
 from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
+from vln_hamt_torch.run.profile_vision import (
+    PANOS_PER_BATCH, e2e_args, e2e_batcher, e2e_mixes, pipelined_images_per_s, render_panoramas,
+    resident_call_ms, slice_e2e_trainer, slice_featurizer, timed_build_and_updates, traced)
+from vln_hamt_torch.vision.vit import ViTConfig
 
 B, H, DH = 32, 12, 64
 TRAIN_B = 8  # the r2r preset's training batch
@@ -349,11 +387,39 @@ BF16 = {"dtype": "bfloat16"}
 # host-loop evaluators: poses of identical trajectories (headings and
 # elevations are functions of the view index on every path)
 POSE_ATOL = 1e-6
+# timed updates of the fp32 IL and sample paths, and of the bf16 and
+# packed ones (depths cut to keep the script near half its time limit)
+TIMED_UPDATES = 10
+TIMED_UPDATES_BF16 = 5
+VARIANT_TIMED_UPDATES = 2
 # the replay update: timed updates per rollout, and replayed against
 # recorded logits with dropout on (the JAX package's
 # test_rl_replay_matches_rollout_logits bound)
-REPLAY_UPDATES = 10
+REPLAY_UPDATES = 5
 REPLAY_LOGIT_ATOL = 2e-4
+
+
+# phase 18, the vision pipeline: the ViT's attention lanes (one panorama
+# and the observation ViT; the featurizer's 4 panoramas; the history
+# ViT's 25 x 36 images at batch 1), forward and, for the observation,
+# backward; viewpoints through the pipelined extract (4 calls); resident
+# calls timed; card against CPU features and logits in fp32 (the
+# repository's parity bar); timed e2e updates per task (bf16's depth cut
+# for the script's time limit); the history length of the e2e
+# card-against-CPU check and its tasks (bound the CPU's time)
+VIT_FWD_LANES = (36, 36 * PANOS_PER_BATCH, 25 * 36)
+VIT_BWD_LANES = (36,)
+VISION_PANOS = 16
+VISION_RESIDENT_ITERS = 10
+FEAT_ATOL = 2e-4
+E2E_UPDATES = {"float32": 3, "bfloat16": 1}
+E2E_PARITY_HIST = 2
+# the e2e card-against-CPU check's tasks: one per route through the ViT
+# (MRC: the history without gradient, masked after the ViT; SAP: the
+# observation with gradient, ob_v_exists and the STOP row); the trunk's
+# tasks are held card against CPU in phase 12, all six e2e tasks against
+# the JAX package on the CPU (tests/test_torch_image_pretrain.py)
+E2E_PARITY_TASKS = ("mrc", "sap")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1341,7 +1407,7 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
         agent.train_iteration("teacher", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    iters = 10  # 20 in the fp32 phases; the script's time limit
+    iters = TIMED_UPDATES_BF16
     reset_counts()
     t0 = time.perf_counter()
     losses = torch.stack([agent.train_iteration("teacher", sync=False)["loss"]
@@ -1456,7 +1522,7 @@ def phase_packed(cfg, world, pmix, unpacked):
     t_phase = time.perf_counter()
     per = {"attention_fwd": sum(pmix[0].values()), "attention_bwd": sum(pmix[1].values())}
     runs, launches = {}, {}
-    iters = 10  # 20 in the fp32 phases; the script's time limit
+    iters = TIMED_UPDATES_BF16
     for dtype in ("float32", "bfloat16"):
         pcfg = cfg.replace(model={"dtype": dtype},
                            train={"batch_size": TRAIN_B, "feedback": "teacher"})
@@ -1962,19 +2028,20 @@ def phase_variants(task):
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"{task}: bad metrics {metrics}")
 
-    updates = {"il": timed_updates(agent, "teacher", 3, {"attention_fwd": per_batch,
-                                                         "attention_bwd": per_bwd},
+    updates = {"il": timed_updates(agent, "teacher", VARIANT_TIMED_UPDATES,
+                                   {"attention_fwd": per_batch, "attention_bwd": per_bwd},
                                    f"{task} IL")}
     agent.merged_sample_update = True
-    updates["merged"] = timed_updates(agent, "sample", 3,
+    updates["merged"] = timed_updates(agent, "sample", VARIANT_TIMED_UPDATES,
                                       {"attention_fwd": per_batch + boot,
                                        "attention_bwd": per_bwd}, f"{task} merged")
     if task == "reverie":
         agent.enable_packed_il()
         pmix = packed_il_mix(cfg, agent._packer.text_cap)
         updates["packed_il"] = timed_updates(
-            agent, "teacher", 3, {"attention_fwd": sum(pmix[0].values()),
-                                  "attention_bwd": sum(pmix[1].values())}, f"{task} packed IL")
+            agent, "teacher", VARIANT_TIMED_UPDATES,
+            {"attention_fwd": sum(pmix[0].values()), "attention_bwd": sum(pmix[1].values())},
+            f"{task} packed IL")
         updates["packed_il"]["text_rows"] = agent._packer.text_cap
     del agent
 
@@ -2058,15 +2125,314 @@ def phase_variants(task):
     return {"greedy": per_batch, **{k: v["launches_per_update"] for k, v in updates.items()}}
 
 
+def phase_vit_kernels(dev, vit_cfg):
+    """Both kernels at the ViT's shape ((1 + patches) x (1 + patches), its
+    heads and Dh) and lanes, against their plain twins with dropout off
+    and an all-zero mask, as the ViT calls them; timed in fp32 and bf16
+    with the library and the bound. Returns the timed rows by kernel,
+    dtype and (lanes, Lq, Lk), and the largest forward and backward
+    errors."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, h = vit_cfg.num_patches + 1, vit_cfg.num_heads
+    dh = vit_cfg.hidden_size // h
+    timed = {name: {"float32": {}, "bfloat16": {}} for name in ("attention_fwd",
+                                                               "attention_bwd")}
+    ferr = berr = 0.0
+    for lanes in VIT_FWD_LANES:
+        frows, brows = [], []
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, g = kernel_inputs(lanes, h, n, n, dh, dtype, gen, dev)
+            m = torch.zeros_like(m)
+            where = f"ViT lanes {lanes} ({n},{n})"
+            case = {"lanes": lanes, "lq": n, "lk": n, "dtype": dtype_name(dtype), "rate": 0.0}
+            err = check_fwd(q, k, v, m, 0, 0.0, where)
+            ferr = max(ferr, err)
+            row = {**case, "max_abs_err": err, **time_forward(q, k, v, m)}
+            row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]))
+            frows.append(row)
+            timed["attention_fwd"][case["dtype"]][(lanes, n, n)] = row
+            if lanes in VIT_BWD_LANES:
+                errs, err = check_bwd(q, k, v, m, g, 0, 0.0, where)
+                berr = max(berr, err)
+                row = {**case, "rel_err": errs, "max_abs_err": err,
+                       **time_backward(q, k, v, m, g)}
+                row.update(bound_ms=max(row["bytes_ms"], row["flops_ms"]))
+                brows.append(row)
+                timed["attention_bwd"][case["dtype"]][(lanes, n, n)] = row
+            del q, k, v, m, g
+        for name, rows in (("attention_fwd", frows), ("attention_bwd", brows)):
+            if rows:
+                emit("kernels", kernel=name, vit_shape=[lanes, n, n], heads=h, head_dim=dh,
+                     results=rows)
+    torch.cuda.empty_cache()
+    return timed, ferr, berr
+
+
+def check_native(world):
+    """The port's navsim build, its tables against the numpy NavGraph's on
+    the slice's world (distances, neighbour tables, every successor walk
+    reaching its goal over the shortest distance), and the sampler's
+    direction bands (tests/test_native.py's geometry)."""
+    t0 = time.perf_counter()
+    lib = navsim.build_library()
+    build_s = time.perf_counter() - t0
+    walks = 0
+    for scan, g in world.graphs.items():
+        ng = navsim.NativeNavGraph(g.positions, g.adj)
+        if not (torch.allclose(torch.from_numpy(ng.dist), torch.from_numpy(g.dist), rtol=1e-6)
+                and (ng.nbr_index == g.nbr_index).all()
+                and (ng.nbr_point_id == g.nbr_point_id).all()
+                and abs(ng.nbr_heading - g.nbr_heading).max() <= 1e-6
+                and abs(ng.nbr_elevation - g.nbr_elevation).max() <= 1e-6):
+            raise AssertionError(f"native tables of {scan} differ from the numpy NavGraph's")
+        for src in range(g.num_nodes):
+            for dst in range(g.num_nodes):
+                cur, total = src, 0.0
+                for _ in range(g.num_nodes):
+                    if cur == dst:
+                        break
+                    nxt = int(ng.next_hop[cur, dst])
+                    total += float(g.dist[cur, nxt]) if g.adj[cur, nxt] else math.inf
+                    cur = nxt
+                if cur != dst or not math.isclose(total, float(g.dist[src, dst]),
+                                                  rel_tol=1e-5, abs_tol=1e-6):
+                    raise AssertionError(f"native next_hop of {scan}: {src} -> {dst} walks "
+                                         f"{total} to {cur}, shortest {g.dist[src, dst]}")
+                walks += 1
+    eq = np.full((64, 128, 3), 10, np.uint8)
+    eq[:16, :, 2] = 255
+    eq[21:42, 60:68, 0] = 255
+    eq[21:42, 92:100, 1] = 255
+    views = navsim.sample_panorama(eq, math.pi / 3, 32, 24)
+    bands = {"north_red": float(views[12, 10:14, 14:18, 0].mean()),
+             "east_green": float(views[15, 10:14, 14:18, 1].mean()),
+             "up_blue": float(views[24:, :, :, 2].mean()),
+             "horizon_blue": float(views[12:24, :, :, 2].mean())}
+    if not (bands["north_red"] > 150 and bands["east_green"] > 150
+            and bands["up_blue"] > bands["horizon_blue"]):
+        raise AssertionError(f"panorama sampler's direction bands: {bands}")
+    emit("vision", part="native", library=os.path.basename(lib), build_seconds=build_s,
+         scans=len(world.graphs), nodes=sum(g.num_nodes for g in world.graphs.values()),
+         successor_walks=walks, bands=bands)
+
+
+def phase_featurizer():
+    """ViT-B/16 feature extraction at full width, fp32 and bf16 (see the
+    module docstring, phase 18). Returns its fields for the summary."""
+    panos = render_panoramas(PANOS_PER_BATCH, seed=0)
+    card, runs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        feat = slice_featurizer(dtype, seed=0)
+        vcfg = feat.vit.config
+        d, width = vcfg.hidden_size, vcfg.hidden_size + vcfg.num_classes
+        per_call = {"attention_fwd": vcfg.num_layers, "attention_bwd": 0}
+        feat.featurize_images(panos[0])[0].cpu()  # warm-up: cuBLAS handles, allocator
+        torch.cuda.synchronize()
+        reset_counts()
+        out = feat.extract(("synth", f"vp{i}", p) for i, p in enumerate(panos))
+        launches = dict(attn.launch_counts)
+        if launches != per_call:
+            raise AssertionError(f"featurizer {dtype}: launches {launches} for one call of "
+                                 f"{PANOS_PER_BATCH} panoramas, expected {per_call}")
+        if sorted(out) != [f"synth_vp{i}" for i in range(PANOS_PER_BATCH)] or not all(
+                m.shape == (36, width) and math.isfinite(float(m.sum()))
+                for m in out.values()):
+            raise AssertionError(f"featurizer {dtype}: output {[m.shape for m in out.values()]}")
+        card[dtype] = out["synth_vp0"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ips, _ = pipelined_images_per_s(feat, panos, VISION_PANOS)
+        launches = dict(attn.launch_counts)
+        want = {"attention_fwd": vcfg.num_layers * VISION_PANOS // PANOS_PER_BATCH,
+                "attention_bwd": 0}
+        if launches != want:
+            raise AssertionError(f"featurizer {dtype} pipelined: launches {launches}, "
+                                 f"expected {want}")
+        resident = feat.to_device(np.concatenate(panos))
+        call_ms = resident_call_ms(feat, resident, VISION_RESIDENT_ITERS)
+        kernels, groups, whole = traced(lambda: feat.featurize_device(resident)[0].cpu(),
+                                        {"attention_fwd": vcfg.num_layers})
+        kernel_ms = sum(ms for _, ms, _ in kernels)
+        runs[dtype] = {"images_per_s_pipelined": ips,
+                       "images_per_s_resident": 36 * PANOS_PER_BATCH / call_ms * 1e3,
+                       "call_ms_resident": call_ms, "kernel_ms_per_call": kernel_ms,
+                       "idle_share_resident": 1.0 - kernel_ms / call_ms, "groups": groups,
+                       "trace_whole": whole, "kernels_per_call": sum(n for *_, n in kernels),
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches": launches}
+        del feat, resident
+        torch.cuda.empty_cache()
+    # card against CPU on one panorama: the same seeded weights
+    t0 = time.perf_counter()
+    cpu = {}
+    for dtype in ("float32", "bfloat16"):
+        feat = slice_featurizer(dtype, seed=0, device="cpu")
+        f, logits = feat.featurize_images(panos[0])
+        cpu[dtype] = torch.cat([f, logits], dim=1).numpy()
+        del feat
+    c32, g32 = torch.from_numpy(cpu["float32"]), torch.from_numpy(card["float32"])
+    errs = {"features": (g32[:, :d] - c32[:, :d]).abs().max().item(),
+            "logits": (g32[:, d:] - c32[:, d:]).abs().max().item()}
+    if not max(errs.values()) <= FEAT_ATOL:
+        raise AssertionError(f"featurizer fp32 card vs CPU: {errs} > {FEAT_ATOL}")
+    bf16 = {part: bf16_close(card["bfloat16"][:, sl], cpu["bfloat16"][:, sl],
+                             card["float32"][:, sl], f"featurizer bf16 {part}")
+            for part, sl in (("features", slice(0, d)), ("logits", slice(d, None)))}
+    emit("vision", part="featurizer", image=list(vcfg.img_size), hidden=d,
+         layers=vcfg.num_layers, heads=vcfg.num_heads, classes=vcfg.num_classes,
+         panos_per_call=PANOS_PER_BATCH, viewpoints=VISION_PANOS, launches_per_call=per_call,
+         runs=runs, parity={"fp32_max_abs_err": errs, "atol": FEAT_ATOL, "bf16": bf16,
+                            "cpu_seconds": time.perf_counter() - t0})
+    return {"launches_per_call": vcfg.num_layers, "lanes": 36 * PANOS_PER_BATCH, "runs": runs}
+
+
+def e2e_gradients(model, batch, task, device):
+    """Loss and named gradients of one e2e task forward on a host batch,
+    dropout off, no step; the gradients left cleared."""
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    loss, _ = model(batch_to_device(batch, device), task)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def e2e_parity(trainer):
+    """Card against CPU at E2E_PARITY_HIST history steps, fp32, dropout off:
+    ``trainer``'s model and a copy of its weights on the CPU, over the
+    CLI's batcher at that length; for each of E2E_PARITY_TASKS the loss
+    and every gradient, and its exact launches on the card."""
+    t0 = time.perf_counter()
+    batcher, pargs = e2e_batcher(("--max_hist_len", str(E2E_PARITY_HIST)))
+    cfg, vit_cfg = trainer.cfg, trainer.model.vit_config
+    cpu_model = init_image_pretrain(cfg, vit_cfg, seed=1)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    parity = {}
+    for task in E2E_PARITY_TASKS:
+        batch = batcher.batch(task, pargs.batch_size)
+        reset_counts()
+        loss_g, grads_g = e2e_gradients(trainer.model, batch, task, trainer.device)
+        launches = dict(attn.launch_counts)
+        mix = image_pretrain_launch_mix(cfg, vit_cfg, task, pargs.batch_size, pargs.max_txt_len,
+                                        E2E_PARITY_HIST)
+        want = {name: sum(m.values()) for name, m in zip(("attention_fwd", "attention_bwd"), mix)}
+        if launches != want:
+            raise AssertionError(f"e2e parity {task}: launches {launches}, expected {want}")
+        loss_c, grads_c = e2e_gradients(cpu_model, batch, task, "cpu")
+        loss_err = abs(loss_g - loss_c) / abs(loss_c)
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"e2e {task}: card vs CPU loss {loss_g} vs {loss_c}")
+        parity[task] = {"loss_cuda": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_err,
+                        "tensors": len(grads_c), "vit_tensors": sum(
+                            k.startswith("vit.") for k in grads_c),
+                        "max_grad_err_over_tol": check_grads(grads_g, grads_c, f"e2e {task}")}
+    return {"hist_len": E2E_PARITY_HIST, "loss_rtol": TRAIN_LOSS_RTOL,
+            "grad_rel_tol": TRAIN_GRAD_REL, "grad_floor": TRAIN_GRAD_FLOOR,
+            "seconds": time.perf_counter() - t0, **parity}
+
+
+def phase_e2e():
+    """End-to-end image pretraining at full width (see the module
+    docstring, phase 18). Returns its launches per task for the summary."""
+    args = e2e_args()
+    runs, parity = {}, None
+    for dtype, extra in (("float32", ()), ("bfloat16", ("--bf16",))):
+        trainer, _ = slice_e2e_trainer(extra)
+        mixes = e2e_mixes(trainer, args)
+        tasks = trainer.scheduler.tasks
+        warm = {t: counted_update(trainer, t, trainer.batcher.batch(t, args.batch_size),
+                                  mixes[t], f"e2e {dtype}") for t in tasks}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_task, n = {}, E2E_UPDATES[dtype]
+        for task in tasks:
+            reset_counts()
+            t = timed_build_and_updates(trainer, task, n, args.batch_size)
+            launches = dict(attn.launch_counts)
+            want = {name: n * sum(m.values())
+                    for name, m in zip(("attention_fwd", "attention_bwd"), mixes[task])}
+            if launches != want:
+                raise AssertionError(f"e2e {dtype} {task}: launches {launches} over {n} "
+                                     f"updates, expected {want}")
+            batch = trainer.batcher.batch(task, args.batch_size)
+            kernels, groups, whole = traced(
+                lambda: float(trainer.update(task, batch)[0]),
+                {name: sum(m.values()) for name, m in zip(("attention_fwd", "attention_bwd"),
+                                                          mixes[task])})
+            kernel_ms = sum(ms for _, ms, _ in kernels)
+            per_task[task] = {**t, "examples_per_s_update": 1e3 / t["update_ms"],
+                              "examples_per_s_in_series": 1e3 / (t["update_ms"]
+                                                                 + t["build_ms"]),
+                              "kernel_ms": kernel_ms,
+                              "idle_share": 1.0 - kernel_ms / t["update_ms"], "groups": groups,
+                              "trace_whole": whole,
+                              "kernels_per_update": sum(c for *_, c in kernels),
+                              "launches_per_update": {k: v // n for k, v in launches.items()}}
+        runs[dtype] = {"updates_per_task": n, "warmup_losses": warm, "tasks": per_task,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        cfg, vit_cfg = trainer.cfg, trainer.model.vit_config
+        if dtype == "float32":
+            parity = e2e_parity(trainer)
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    emit("vision", part="e2e", preset="r2r", hidden=cfg.hidden_size,
+         vit=[vit_cfg.hidden_size, vit_cfg.num_layers, vit_cfg.num_heads],
+         vit_image=list(vit_cfg.img_size), store_image=list(args.image_size),
+         batch=args.batch_size, grad_accum=args.grad_accum, optim=args.optim,
+         text_len=args.max_txt_len, hist_len=args.max_hist_len, runs=runs,
+         launches_per_update={t: {"attention_fwd": sum(f.values()),
+                                  "attention_bwd": sum(b.values())}
+                              for t, (f, b) in mixes.items()}, parity=parity)
+    return {"launches_per_update": {t: [sum(f.values()), sum(b.values())]
+                                    for t, (f, b) in mixes.items()}, "runs": runs}
+
+
+def phase_vision(world):
+    """Phase 18: the native library, both kernels at the ViT's shapes, the
+    featurizer and e2e image pretraining. Returns the summary's vision
+    field per kernel."""
+    t_phase = time.perf_counter()
+    check_native(world)
+    vit_cfg = ViTConfig()  # ViT-B/16 at 224, both paths' ViT
+    timed, ferr, berr = phase_vit_kernels(torch.device("cuda"), vit_cfg)
+    feat = phase_featurizer()
+    e2e = phase_e2e()
+    n, layers = vit_cfg.num_patches + 1, vit_cfg.num_layers
+    hist, ob = (25 * 36, n, n), (36, n, n)
+    fmix = {(feat["lanes"], n, n): layers}
+    out = {}
+    for name in ("attention_fwd", "attention_bwd"):
+        rows = timed[name]
+        e2e_mix = {hist: layers, ob: layers} if name == "attention_fwd" else {ob: layers}
+        out[name] = {
+            "max_abs_err": ferr if name == "attention_fwd" else berr,
+            "e2e": {"launches_per_update": {t: lb[0 if name == "attention_fwd" else 1]
+                                            for t, lb in e2e["launches_per_update"].items()},
+                    "vit_lanes": sorted(s[0] for s in e2e_mix),
+                    **lane_times(rows["float32"], e2e_mix),
+                    "bf16": lane_times(rows["bfloat16"], e2e_mix, "bfloat16")}}
+        if name == "attention_fwd":
+            out[name]["featurizer"] = {"launches_per_call": feat["launches_per_call"],
+                                       "launches": feat["runs"]["float32"]["launches"][name],
+                                       "lanes": feat["lanes"], **lane_times(rows["float32"], fmix),
+                                       "bf16": lane_times(rows["bfloat16"], fmix, "bfloat16")}
+    emit("vision", seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    marks = []  # (phase, start): the seconds of each phase go on the timing line
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     # ------------------------------------------------------------ device
+    marks.append(("device", time.perf_counter()))
     smi = nvidia_smi()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -2074,6 +2440,7 @@ def main() -> int:
          cuda=torch.version.cuda, nvidia_smi=smi)
 
     # ------------------------------------------------------------- build
+    marks.append(("build", time.perf_counter()))
     t0 = time.perf_counter()
     for name, built in build_all().items():  # registers and spills per instantiation
         emit("build", kernel=name, **built)
@@ -2090,6 +2457,7 @@ def main() -> int:
         raise AssertionError(f"launch mix {mix} / {bwd_mix}: expected 279 and 240")
 
     # ----------------------------------------------------------- kernels
+    marks.append(("kernels", time.perf_counter()))
     # timed at each main path's batch: the forward at the serving slice's
     # 32, the backward at the training slice's 8
     (fwd_rows, _, fwd8_rows, bwd_rows, (f16_rows, b16_rows), (fpk_rows, bpk_rows), fwd_err,
@@ -2109,6 +2477,7 @@ def main() -> int:
     fwd_err, bwd_err = max(fwd_err, ferr), max(bwd_err, berr)
 
     # ------------------------------------------------------------- slice
+    marks.append(("slice", time.perf_counter()))
     env = slice_env(cfg, world, seed=0)
     agent = HAMTAgent(cfg, env, seed=0)  # the card, by default
     agent.enable_feature_table()
@@ -2148,6 +2517,7 @@ def main() -> int:
     del agent
 
     # ------------------------------------------------------------ parity
+    marks.append(("parity", time.perf_counter()))
     small = cfg.replace(train={"batch_size": 4})
     runs = []
     for device in ("cuda", "cpu"):
@@ -2161,6 +2531,7 @@ def main() -> int:
     del runs
 
     # ------------------------------------------------------------- train
+    marks.append(("train", time.perf_counter()))
     tcfg = cfg.replace(train={"batch_size": TRAIN_B, "feedback": "teacher"})
     tr = tcfg.train
     if (tr.optim, tr.lr, tr.grad_clip, tr.weight_decay) != ("adamw", 1e-5, 40.0, 0.0):
@@ -2171,7 +2542,7 @@ def main() -> int:
         agent.train_iteration("teacher", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    iters = 20
+    iters = TIMED_UPDATES
     reset_counts()
     t0 = time.perf_counter()
     losses = [agent.train_iteration("teacher", sync=False)["loss"] for _ in range(iters)]
@@ -2212,6 +2583,7 @@ def main() -> int:
     del agent
 
     # ------------------------------------------------------ train_parity
+    marks.append(("train_parity", time.perf_counter()))
     pcfg = cfg.replace(model=NO_DROPOUT, train={"batch_size": 4, "feedback": "teacher"})
     for fix in (True, False):
         fcfg = pcfg.replace(model={"fix_lang_embedding": fix, "fix_hist_embedding": fix})
@@ -2244,6 +2616,7 @@ def main() -> int:
              grad_floor=TRAIN_GRAD_FLOOR, launches=counts)
 
     # ------------------------------------------------------------ sample
+    marks.append(("sample", time.perf_counter()))
     # IL + A2C on the same optimizer and dropout as `train`; merged first
     # (the CLI's default), then fused
     scfg = cfg.replace(train={"batch_size": TRAIN_B, "feedback": "sample"})
@@ -2254,7 +2627,7 @@ def main() -> int:
         agent.train_iteration("sample", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    iters = 20
+    iters = TIMED_UPDATES
     losses, seconds, merged_launches = timed_sample_updates(agent, iters)
     # the rollout at 16 lanes (279) and the bootstrap at the 8 RL lanes
     # (4 cross-modal layers x 4 attentions); the backward of the
@@ -2295,6 +2668,7 @@ def main() -> int:
     del agent
 
     # ----------------------------------------------------- sample_parity
+    marks.append(("sample_parity", time.perf_counter()))
     # one rewarded argmax rollout, then the fused loss on the next batch
     # (the update's host order: teacher episode, then the rollout's reset)
     spcfg = cfg.replace(model=NO_DROPOUT, train={"batch_size": 4, "feedback": "sample"})
@@ -2348,10 +2722,12 @@ def main() -> int:
          max_grad_err_over_tol=worst, launches=counts)
 
     # -------------------------------------------------------------- bf16
+    marks.append(("bf16", time.perf_counter()))
     bf16_launches, bf16_runs, bf16_tol = phase_bf16(cfg, world, per_batch, per_update_bwd,
                                                     merged_per, fp32)
 
     # --------------------------------------------------------- packed_il
+    marks.append(("packed_il", time.perf_counter()))
     packed_mix = packed_il_mix(tcfg, PACKED_TEXT_CAP)
     if (sum(packed_mix[0].values()), sum(packed_mix[1].values())) != (per_batch,
                                                                      per_update_bwd):
@@ -2361,24 +2737,35 @@ def main() -> int:
         "bfloat16": bf16_runs["il"]["episodes_per_s"]})
 
     # ---------------------------------------------------------- hostloop
+    marks.append(("hostloop", time.perf_counter()))
     hostloop_launches = phase_hostloop(cfg, world, per_batch, bf16_tol)
 
     # ------------------------------------------------------------ replay
+    marks.append(("replay", time.perf_counter()))
     replay_per_update = phase_replay(cfg, world, per_batch, per_update_bwd, boot)
 
     # ------------------------------------------------------------ family
+    marks.append(("family", time.perf_counter()))
     family_runs = {task: phase_family(task, family_mixes) for task in FAMILY + ("r2r_last",)}
 
     # ---------------------------------------------------------- variants
+    marks.append(("variants", time.perf_counter()))
     variant_runs = {task: phase_variants(task) for task in VARIANTS}
 
     # ------------------------------------------------------------- files
+    marks.append(("files", time.perf_counter()))
     with tempfile.TemporaryDirectory() as tmp:
         phase_files(tmp)
 
     # ---------------------------------------------------------- pretrain
+    marks.append(("pretrain", time.perf_counter()))
     with tempfile.TemporaryDirectory() as tmp:
         pretrain_runs = phase_pretrain(pretrain_mixes, tmp)
+    # ------------------------------------------------------------ vision
+    marks.append(("vision", time.perf_counter()))
+    vision = phase_vision(world)
+    marks.append(("summary", time.perf_counter()))
+
     pretrain = {}
     for name, run in pretrain_runs.items():
         rxr_mixes, rxr_shares = pretrain_mixes["rxr"]
@@ -2457,6 +2844,7 @@ def main() -> int:
         if name == "attention_fwd":
             extra[name]["hostloop"] = hostloop_launches
         extra[name]["variants"] = variants[name]
+        extra[name]["vision"] = vision[name]
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel
@@ -2469,6 +2857,9 @@ def main() -> int:
                     sample["attention_bwd"], family["attention_bwd"], pretrain["attention_bwd"],
                     **extra["attention_bwd"]),
     ]}
+    marks.append(("end", time.perf_counter()))
+    emit("timing", seconds={a: t1 - t0 for (a, t0), (_, t1) in zip(marks, marks[1:])},
+         total_seconds=marks[-1][1] - marks[0][1])
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

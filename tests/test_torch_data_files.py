@@ -67,20 +67,24 @@ def test_export_writes_the_jax_files(exported):
 
 def test_load_nav_graphs_matches_jax(exported):
     """Node ids, distances, adjacency, successors and neighbour tables
-    equal the JAX loader's numpy path; the native builder raises."""
+    equal the JAX loader's, on the numpy path and on the native one (the
+    default of both loaders)."""
     _, files = exported
     scans = sorted(make_synthetic_world(**WORLD).graphs)
-    got = load_nav_graphs(files["connectivity_dir"], scans)
-    want = jax_load_nav_graphs(files["connectivity_dir"], scans, use_native=False)
-    assert sorted(got) == sorted(want) == scans
-    for scan in scans:
-        g, w = got[scan], want[scan]
-        assert g.node_ids == w.node_ids
-        for name in ("positions", "adj", "dist", "next_hop", "nbr_index", "nbr_heading",
-                     "nbr_elevation", "nbr_point_id", "nbr_mask"):
-            np.testing.assert_array_equal(getattr(g, name), getattr(w, name), err_msg=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A12"):
-        load_nav_graph(files["connectivity_dir"], scans[0], use_native=True)
+    for native in (False, True):
+        got = load_nav_graphs(files["connectivity_dir"], scans, use_native=native)
+        want = jax_load_nav_graphs(files["connectivity_dir"], scans, use_native=native)
+        assert sorted(got) == sorted(want) == scans
+        for scan in scans:
+            g, w = got[scan], want[scan]
+            assert g.node_ids == w.node_ids
+            for name in ("positions", "adj", "dist", "next_hop", "nbr_index", "nbr_heading",
+                         "nbr_elevation", "nbr_point_id", "nbr_mask"):
+                np.testing.assert_array_equal(getattr(g, name), getattr(w, name),
+                                              err_msg=f"{name} native={native}")
+    default = load_nav_graph(files["connectivity_dir"], scans[0])
+    native = load_nav_graph(files["connectivity_dir"], scans[0], use_native=True)
+    np.testing.assert_array_equal(default.next_hop, native.next_hop)
 
 
 def test_load_nav_graphs_drops_excluded_and_refuses_one_sided_edges(tmp_path):

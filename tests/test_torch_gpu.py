@@ -292,3 +292,30 @@ def test_packed_il_update_launches_on_the_card(cuda):
         assert {k: tops.launch_counts[k] - n0[k] for k in n0} == {
             "attention_fwd": sum(fwd.values()), "attention_bwd": sum(bwd.values())}, dtype
         assert out["episodes"] >= 4 and torch.isfinite(torch.tensor(out["loss"]))
+
+
+def test_vit_runs_its_attention_through_both_kernels(cuda):
+    """A ViT at Dh 64 (2 heads of 64, 197 tokens) on the card against the
+    same weights on the CPU: features and logits within 2e-4, one forward
+    launch per block, and with gradient one backward launch per block;
+    the tiny CLI's Dh 12 raises on the card."""
+    from vln_hamt_torch.vision.vit import ViTConfig, init_vit
+
+    cfg = ViTConfig(hidden_size=128, num_layers=2, num_heads=2, num_classes=10)
+    vit_cpu = init_vit(cfg, seed=0).eval()
+    vit = init_vit(cfg, seed=0).to(cuda).eval()
+    x = torch.randn(3, 224, 224, 3, generator=torch.Generator().manual_seed(0))
+    n0 = dict(tops.launch_counts)
+    f, logits = vit(x.to(cuda))
+    with torch.no_grad():
+        fc, lc = vit_cpu(x)
+    torch.testing.assert_close(f.detach().cpu(), fc, rtol=0, atol=2e-4)
+    torch.testing.assert_close(logits.detach().cpu(), lc, rtol=0, atol=2e-4)
+    (f.sum() + logits.sum()).backward()
+    torch.cuda.synchronize()
+    assert tops.launch_counts["attention_fwd"] == n0["attention_fwd"] + 2
+    assert tops.launch_counts["attention_bwd"] == n0["attention_bwd"] + 2
+    tiny = init_vit(ViTConfig(img_size=(32, 32), hidden_size=48, num_layers=1, num_heads=4),
+                    seed=0).to(cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        tiny(torch.zeros(1, 32, 32, 3, device=cuda))

@@ -11,7 +11,7 @@ import torch
 
 from vln_hamt_torch.agents.agent import HAMTAgent, resolve_device
 from vln_hamt_torch.configs import get_preset
-from vln_hamt_torch.run import finetune
+from vln_hamt_torch.run import finetune, image_pretrain, precompute_features
 from vln_hamt_torch.run import pretrain
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -22,9 +22,17 @@ def _port_sources():
     return sorted((ROOT / "vln_hamt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# the vision slice's modules, each a port of a JAX package module
+VISION_MODULES = ("native/navsim.py", "vision/transforms.py", "vision/vit.py",
+                  "vision/featurizer.py", "models/convert.py", "run/precompute_features.py",
+                  "run/build_image_store.py", "pretrain/image_data.py",
+                  "pretrain/image_model.py", "pretrain/trainer.py", "run/image_pretrain.py")
+
+
 def test_port_imports_no_jax():
     files = _port_sources()
     assert len(files) > 20
+    assert {ROOT / "vln_hamt_torch" / m for m in VISION_MODULES} <= set(files)
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -52,6 +60,11 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
                        "--output_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pretrain.main(["--synthetic", "--tiny", "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        image_pretrain.main(["--synthetic", "--tiny", "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        precompute_features.main(["--synthetic", "1", "--output_file",
+                                  str(tmp_path / "f.hdf5")])
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -95,6 +108,33 @@ PRETRAIN_UNPORTED = {
 def test_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
         pretrain.main(argv + ["--cpu", "--tiny"])
+
+
+# every flag of the JAX image pretraining CLI that the port does not run yet
+IMAGE_PRETRAIN_UNPORTED = {
+    "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"),
+    "sharded_feed": ([], "A13"), "rng_impl": (["rbg"], "A20"),
+}
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in
+    IMAGE_PRETRAIN_UNPORTED.items()], ids=list(IMAGE_PRETRAIN_UNPORTED))
+def test_image_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
+        image_pretrain.main(argv + ["--cpu", "--tiny"])
+
+
+def test_image_pretrain_cli_flags_cover_the_jax_cli():
+    """The port's image pretraining parser takes every flag of the JAX
+    CLI's, and --cpu; file-backed runs need their files and a store."""
+    from vln_hamt_tpu.run import image_pretrain as jax_image_pretrain
+
+    assert (vars(image_pretrain.parse_args([])).keys()
+            == vars(jax_image_pretrain.parse_args([])).keys() | {"cpu"})
+    assert set(IMAGE_PRETRAIN_UNPORTED) == set(image_pretrain._UNPORTED_FLAGS)
+    with pytest.raises(ValueError, match="--lmdb_path or --npy_dir"):
+        image_pretrain.main(["--cpu"])
 
 
 def test_pretrain_cli_flags_cover_the_jax_cli():

@@ -14,9 +14,12 @@ scan, entries with ``included``, ``unobstructed`` adjacency rows, 4x4
 row-major ``pose`` with translation at indices 3/7/11, and ``image_id``
 (``finetune_src/r2r/data_utils.py:86-111``).
 
-This is the numpy path of ``vln_hamt_tpu/data/nav_graph.py``; its C++
-table builder (``use_native``) is not part of the port yet (ROADMAP
-item A12).
+The port of ``vln_hamt_tpu/data/nav_graph.py``: the tables come from
+numpy or, with ``use_native`` (the default of the file loaders, as in
+the JAX package), from the port's C++ core (``native/navsim.py``). The
+two may break ``next_hop`` ties differently; the same choice as the JAX
+package's gives the same teacher. Where the JAX package falls back to
+numpy when its library cannot be built, the port raises.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ class NavGraph:
     """
 
     def __init__(self, scan: str, node_ids: Sequence[str], positions: np.ndarray,
-                 adj: np.ndarray):
+                 adj: np.ndarray, use_native: bool = False):
         self.scan = scan
         self.node_ids: List[str] = list(node_ids)
         self.node_index: Dict[str, int] = {v: i for i, v in enumerate(self.node_ids)}
@@ -62,8 +65,22 @@ class NavGraph:
         np.fill_diagonal(self.adj, False)
         assert (self.adj == self.adj.T).all(), "graph must be undirected"
 
-        self._build_shortest_paths()
-        self._build_neighbor_tables()
+        if use_native:
+            self._build_native()
+        else:
+            self._build_shortest_paths()
+            self._build_neighbor_tables()
+
+    def _build_native(self) -> None:
+        """The dense tables from the C++ core; raises when its library
+        cannot be built."""
+        from ..native import NativeNavGraph
+
+        ng = NativeNavGraph(self.positions, self.adj)
+        self.dist, self.next_hop, self.max_degree = ng.dist, ng.next_hop, ng.max_degree
+        self.nbr_index, self.nbr_heading = ng.nbr_index, ng.nbr_heading
+        self.nbr_elevation, self.nbr_point_id = ng.nbr_elevation, ng.nbr_point_id
+        self.nbr_mask = self.nbr_index >= 0
 
     # ------------------------------------------------------------------
     @property
@@ -148,7 +165,7 @@ class NavGraph:
 
 
 # ----------------------------------------------------------------------
-def _parse_connectivity(scan: str, raw: list) -> NavGraph:
+def _parse_connectivity(scan: str, raw: list, use_native: bool = False) -> NavGraph:
     included = [item["included"] for item in raw]
     ids = [item["image_id"] for item in raw]
     n = len(raw)
@@ -171,27 +188,20 @@ def _parse_connectivity(scan: str, raw: list) -> NavGraph:
     # nodes only, so the others are isolated there)
     kept_idx = np.nonzero(np.array(included, dtype=bool))[0]
     return NavGraph(scan, [ids[i] for i in kept_idx], pos_full[kept_idx],
-                    adj_full[np.ix_(kept_idx, kept_idx)])
+                    adj_full[np.ix_(kept_idx, kept_idx)], use_native=use_native)
 
 
-def _no_native(use_native: bool) -> None:
-    if use_native:
-        raise NotImplementedError("the native navsim table builder is ROADMAP item A12; "
-                                  "the port builds its tables in numpy (use_native=False)")
-
-
-def load_nav_graph(connectivity_dir: str, scan: str, use_native: bool = False) -> NavGraph:
-    _no_native(use_native)
+def load_nav_graph(connectivity_dir: str, scan: str, use_native: bool = True) -> NavGraph:
     with open(os.path.join(connectivity_dir, f"{scan}_connectivity.json")) as f:
-        return _parse_connectivity(scan, json.load(f))
+        return _parse_connectivity(scan, json.load(f), use_native)
 
 
 def load_nav_graphs(connectivity_dir: str, scans: Iterable[str],
-                    use_native: bool = False) -> Dict[str, NavGraph]:
+                    use_native: bool = True) -> Dict[str, NavGraph]:
     """One :class:`NavGraph` per scan from the reference's connectivity
-    files (``finetune_src/r2r/data_utils.py:86-111``)."""
-    _no_native(use_native)
-    return {scan: load_nav_graph(connectivity_dir, scan) for scan in scans}
+    files (``finetune_src/r2r/data_utils.py:86-111``); the tables from
+    the C++ core unless ``use_native`` is False."""
+    return {scan: load_nav_graph(connectivity_dir, scan, use_native) for scan in scans}
 
 
 def build_nav_tables(graphs: Dict[str, "NavGraph"], max_candidates: int):

@@ -18,6 +18,12 @@ Released reference checkpoints need no mapping at all, only their
 prefixes stripped (:func:`load_reference_checkpoint`, the port's form of
 the JAX package's loader of the same name), and load by name and shape
 (:func:`merge_matching_params`).
+
+The ViT keeps timm's names: :func:`vit_params_from_flax` is the exact
+inverse of the JAX package's ``convert_vit_state_dict``,
+:func:`load_vit_checkpoint` reads timm files with the JAX loader's
+filtering, and :func:`image_pretrain_params_from_flax` converts the
+end-to-end model (the trunk's names plus the ViT's under ``vit.``).
 """
 
 from __future__ import annotations
@@ -169,6 +175,99 @@ def pretrain_params_from_flax(params: Tree, cfg: ModelConfig) -> Dict[str, np.nd
             h = params[name]
             _mlp_head(sd, name, h["dense1"], h["ln"], h["dense2"], last)
     return sd
+
+
+def vit_params_from_flax(params: Tree) -> Dict[str, np.ndarray]:
+    """flax ``vision/vit.py`` ViT params -> the port's ViT state dict, in
+    timm's names; the exact inverse of ``vln_hamt_tpu/models/convert.py:
+    convert_vit_state_dict``: the conv kernel (kh, kw, I, O) becomes
+    (O, I, kh, kw), the per-head query / key / value kernels (D, H, Dh)
+    the fused ``attn.qkv`` (3D, D), the output kernel (H, Dh, D)
+    ``attn.proj`` (D, D). ``head`` when the params have one."""
+    sd: Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": _arr(np.asarray(params["patch_embed"]["kernel"])
+                                        .transpose(3, 2, 0, 1)),
+        "patch_embed.proj.bias": _arr(params["patch_embed"]["bias"]),
+        "cls_token": _arr(params["cls_token"]),
+        "pos_embed": _arr(params["pos_embed"]),
+    }
+    i = 0
+    while f"block_{i}" in params:
+        node, tp = params[f"block_{i}"], f"blocks.{i}"
+        _layernorm(sd, f"{tp}.norm1", node["norm1"])
+        _layernorm(sd, f"{tp}.norm2", node["norm2"])
+        att = node["attn"]
+        d = np.asarray(att["query"]["kernel"]).shape[0]
+        sd[f"{tp}.attn.qkv.weight"] = _arr(np.concatenate(
+            [np.asarray(att[n]["kernel"]).reshape(d, d).T for n in ("query", "key", "value")]))
+        sd[f"{tp}.attn.qkv.bias"] = _arr(np.concatenate(
+            [np.asarray(att[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
+        sd[f"{tp}.attn.proj.weight"] = _arr(np.asarray(att["out"]["kernel"]).reshape(d, d).T)
+        sd[f"{tp}.attn.proj.bias"] = _arr(att["out"]["bias"])
+        _linear(sd, f"{tp}.mlp.fc1", node["mlp_fc1"])
+        _linear(sd, f"{tp}.mlp.fc2", node["mlp_fc2"])
+        i += 1
+    _layernorm(sd, "norm", params["norm"])
+    if "head" in params:
+        _linear(sd, "head", params["head"])
+    return sd
+
+
+def image_pretrain_params_from_flax(params: Tree, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """flax ``HAMTImagePretrain`` params (``vit`` and ``trunk``) -> the
+    port's ``HAMTImagePretrain`` state dict: the trunk's
+    :func:`pretrain_params_from_flax` names and the ViT's under
+    ``vit.``."""
+    sd = pretrain_params_from_flax(params["trunk"], cfg)
+    sd.update({"vit." + k: v for k, v in vit_params_from_flax(params["vit"]).items()})
+    return sd
+
+
+def _vit_names(num_layers: int, head: bool) -> List[str]:
+    names = ["patch_embed.proj.weight", "patch_embed.proj.bias", "cls_token", "pos_embed",
+             "norm.weight", "norm.bias"]
+    for i in range(num_layers):
+        names += [f"blocks.{i}.{m}.{w}" for m in ("norm1", "attn.qkv", "attn.proj", "norm2",
+                                                   "mlp.fc1", "mlp.fc2")
+                  for w in ("weight", "bias")]
+    return names + (["head.weight", "head.bias"] if head else [])
+
+
+def load_vit_checkpoint(path: str, cfg) -> Dict[str, np.ndarray]:
+    """A torch/timm ViT checkpoint (``.pth`` / ``.pt``, read with
+    ``weights_only=True``) or an ``.npz`` archive of its state dict, as
+    the state dict of a ``vision.vit.ViT`` of config ``cfg`` (float32
+    numpy arrays in timm's names, ``head`` when ``cfg`` has classes).
+    The JAX loader's filtering (``vision_transformer.py:399-434``
+    ``checkpoint_filter_fn``): ``model`` / ``state_dict`` wrappers
+    unwrapped, ``module.`` prefixes stripped, pre-conv patchify weights
+    reshaped to the conv's (D, 3, p, p), and the position embeddings
+    resized bilinearly when the checkpoint's patch grid is not
+    ``cfg.grid``. Raises KeyError on a missing weight."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            sd: Mapping[str, Any] = dict(z)
+    else:
+        import torch
+
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("model", "state_dict"):  # DeiT and trainer checkpoints
+        if wrapper in sd and not hasattr(sd[wrapper], "shape"):
+            sd = sd[wrapper]
+    sd = {_strip(k, "module."): np.asarray(v, dtype=np.float32) for k, v in sd.items()}
+    p, grid = cfg.patch_size, tuple(cfg.grid)
+    w = sd["patch_embed.proj.weight"]
+    if w.ndim < 4:  # pre-conv patchify checkpoints
+        sd["patch_embed.proj.weight"] = w.reshape(w.shape[0], -1, p, p)
+    pos = sd["pos_embed"]
+    if pos.shape[1] != grid[0] * grid[1] + 1:
+        import torch
+
+        from ..vision.vit import resize_pos_embed
+
+        old = int(round((pos.shape[1] - 1) ** 0.5))
+        sd["pos_embed"] = resize_pos_embed(torch.from_numpy(pos), grid, (old, old)).numpy()
+    return {k: _arr(sd[k]) for k in _vit_names(cfg.num_layers, cfg.num_classes > 0)}
 
 
 def critic_params_from_flax(cparams: Tree) -> Dict[str, np.ndarray]:

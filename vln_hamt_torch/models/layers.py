@@ -414,7 +414,8 @@ class CrossModalLayer(nn.Module):
 
 
 def set_dropout_rng(module: nn.Module, rng: Optional[DropoutRNG]) -> None:
-    """Hand ``rng`` to every dropout site below ``module``."""
+    """Hand ``rng`` to every dropout site below ``module``: each module
+    with an ``rng`` attribute (:class:`Dropout`, the attentions)."""
     for m in module.modules():
-        if isinstance(m, (Dropout, MultiHeadAttention)):
+        if hasattr(m, "rng"):
             m.rng = rng

@@ -1,7 +1,7 @@
 """Proxy-task pretraining (torch), the port of ``vln_hamt_tpu/pretrain``:
 the trajectory data and task batchers (numpy copies), the pretraining
-model, the optimizer zoo and the trainer. Image pretraining
-(``image_model``, ``image_data``) is ROADMAP items A15 and A16."""
+model, the optimizer zoo and the trainer; end-to-end image pretraining
+with the ViT in the loop (``image_model``, ``image_data``)."""
 
 from .model import HAMTPretrain, expand_index_batch, init_pretrain
 from .tasks import TASK_NAMES, PretrainBatcher

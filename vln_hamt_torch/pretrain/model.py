@@ -338,14 +338,15 @@ def expand_index_batch(batch: Batch, feat_table: torch.Tensor, cfg: ModelConfig)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Batch:
-    """A host batch as tensors on ``device``: booleans stay boolean,
-    integers become int64 (indices), floats float32. On the card the
-    copies are issued from pinned memory without waiting for them."""
+    """A host batch as tensors on ``device``: booleans and uint8 (images)
+    stay as they are, other integers become int64 (indices), floats
+    float32. On the card the copies are issued from pinned memory without
+    waiting for them."""
     dev = torch.device(device)
     out = {}
     for k, v in batch.items():
         a = np.asarray(v)
-        if a.dtype == np.bool_:
+        if a.dtype in (np.bool_, np.uint8):
             t = torch.from_numpy(np.ascontiguousarray(a))
         elif np.issubdtype(a.dtype, np.integer):
             t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))

@@ -39,6 +39,7 @@ from .tasks import TASK_NAMES, PretrainBatcher
 GRAD_NORM = 5.0  # global-norm clip
 WEIGHT_DECAY = 0.01
 VAL_SEED = 1234  # validation's masking and negative-sampling streams
+AUG_RATIO = 0.5  # the chance a step draws from the aug stream, when there is one
 
 
 class TaskScheduler:
@@ -60,8 +61,12 @@ class TaskScheduler:
 
 class PretrainTrainer:
     """Pretraining of a :class:`HAMTPretrain` on ``device`` (the card
-    unless told otherwise). ``optim`` names the zoo's optimizer
-    (``pretrain/optim.py``); ``feat_table`` (N, 36, D + P), when given,
+    unless told otherwise): ``model``, a ready one (end-to-end image
+    pretraining's ``HAMTImagePretrain``), or one initialized from
+    ``seed``; ``aug_batcher``, a second stream drawn with probability
+    :data:`AUG_RATIO` per step (the JAX trainer's default). ``optim``
+    names the zoo's optimizer (``pretrain/optim.py``); ``feat_table``
+    (N, 36, D + P), when given,
     lives on the device in the compute dtype (bf16 under bfloat16
     compute: half the memory, and MRC's prob-tail labels bf16-approximate,
     as the JAX CLI's table) and the batchers' datasets must be in index mode
@@ -82,6 +87,8 @@ class PretrainTrainer:
         optim: str = "adamw",
         feat_table: Optional[np.ndarray] = None,
         device=None,
+        model: Optional[HAMTPretrain] = None,
+        aug_batcher: Optional[PretrainBatcher] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -90,7 +97,9 @@ class PretrainTrainer:
         self.scheduler = TaskScheduler(tasks, mix_ratio, seed)
         self._feat_table = (None if feat_table is None else torch.as_tensor(feat_table).to(
             self.device, compute_dtype(cfg)))
-        self.model: HAMTPretrain = init_pretrain(cfg, seed).to(self.device)
+        self.aug_batcher = aug_batcher
+        self.model: HAMTPretrain = (init_pretrain(cfg, seed) if model is None
+                                    else model).to(self.device)
         # dropout masks on the device, the attention kernels' seeds on the host
         self.dropout_rng = DropoutRNG(self.device, seed + 99)
         set_dropout_rng(self.model, self.dropout_rng)
@@ -141,13 +150,22 @@ class PretrainTrainer:
         self._pool.shutdown(wait=True)
 
     # ------------------------------------------------------------------
+    def _pick_batcher(self, step: int) -> PretrainBatcher:
+        """The GT batcher, or the aug stream's with probability
+        :data:`AUG_RATIO` when there is one: a pure function of (seed,
+        step), the JAX trainer's draw."""
+        if self.aug_batcher is None:
+            return self.batcher
+        rng = np.random.default_rng((self.scheduler.seed << 21) + step)
+        return self.aug_batcher if rng.random() < AUG_RATIO else self.batcher
+
     def _build_batch(self, step: int) -> Tuple[str, Dict[str, np.ndarray]]:
         task = self.scheduler.sample(step)
         if task == "itm" and self.batch_size < 2:
             # in-batch ITM negatives need >= 2 items; the reference skips
             # these batches (main_r2r_image.py:239-246), this resamples
             task = next(t for t in self.scheduler.tasks if t != "itm")
-        return task, self.batcher.batch(task, self.batch_size)
+        return task, self._pick_batcher(step).batch(task, self.batch_size)
 
     def next_batch(self) -> Tuple[str, Dict[str, np.ndarray]]:
         """The host batch of the current step (prefetched), and the next
@@ -163,8 +181,13 @@ class PretrainTrainer:
         """One optimizer step (or micro-batch under ``grad_accum``) on a
         host batch of ``task``, in training mode. Returns the loss and the
         metrics, detached device tensors; the host does not wait."""
+        return self.update_device(task, batch_to_device(batch, self.device))
+
+    def update_device(self, task: str, batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """:meth:`update` on a batch already on the device."""
         self.model.train()
-        loss, aux = self.model(batch_to_device(batch, self.device), task, self._feat_table)
+        loss, aux = self.model(batch, task, self._feat_table)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()

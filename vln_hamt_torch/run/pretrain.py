@@ -106,8 +106,8 @@ def _dataset(args, mcfg: ModelConfig, recs, graphs, feat_db) -> TrajectoryDatase
     return TrajectoryDataset(recs, graphs, feat_db, image_feat_size=mcfg.image_feat_size,
                              image_prob_size=mcfg.image_prob_size,
                              max_txt_len=args.max_txt_len, max_hist_len=args.max_hist_len,
-                             ob_cand_pano_view=bool(args.ob_cand_pano_view),
-                             ob_cand_extra=args.ob_cand_extra)
+                             ob_cand_pano_view=bool(getattr(args, "ob_cand_pano_view", False)),
+                             ob_cand_extra=getattr(args, "ob_cand_extra", 4))
 
 
 def build_synthetic(args, mcfg: ModelConfig
@@ -276,8 +276,19 @@ def main(argv=None):
         blob.pop("step", None)
         trainer.set_params(blob)
     start = trainer.resume(args.resume) if args.resume else 0
-    logger = MetricsLogger(args.output_dir)
+    ckpt = train_loop(trainer, val_batchers, args, start)
+    trainer.close()
+    print(json.dumps({"final_step": trainer.step}))
+    return {"final_step": trainer.step, "checkpoint": ckpt}
 
+
+def train_loop(trainer: PretrainTrainer, val_batchers: Dict[str, PretrainBatcher], args,
+               start: int):
+    """Steps ``start`` to ``args.num_steps``: every ``valid_steps // 10``
+    the task's loss, metrics and examples/s to ``metrics.jsonl``, every
+    ``valid_steps`` (and at the end) full-split validation of every
+    stream and ``model_step_N.pt``. Returns the last checkpoint's path."""
+    logger = MetricsLogger(args.output_dir)
     # unsynchronized updates; the host waits (and measures ex/s, as
     # main_r2r.py:283-301) only at log points
     t_last, n_since, ckpt = time.perf_counter(), 0, None
@@ -300,9 +311,7 @@ def main(argv=None):
             logger.log(step + 1, flat)
             ckpt = os.path.join(args.output_dir, f"model_step_{step + 1}.pt")
             trainer.save(ckpt)
-    trainer.close()
-    print(json.dumps({"final_step": trainer.step}))
-    return {"final_step": trainer.step, "checkpoint": ckpt}
+    return ckpt
 
 
 if __name__ == "__main__":

@@ -262,6 +262,34 @@ def pretrain_launch_mix(mcfg, task: str, batch: int, txt_len: int, hist_len: int
     return +fwd, +bwd
 
 
+#: tasks whose image-mode batch holds the observation's 36 views
+IMAGE_STEP_TASKS = ("sap", "sar", "sprel")
+
+
+def image_pretrain_launch_mix(mcfg, vit_cfg, task: str, batch: int, txt_len: int,
+                              hist_len: int, itm_candidates: int = 5
+                              ) -> Tuple[collections.Counter, collections.Counter]:
+    """Attention launches of one end-to-end image pretraining update
+    (``pretrain/image_model.py``) by (lanes, Lq, Lk): the trunk's
+    :func:`pretrain_launch_mix`, plus the ViT's ``num_layers`` forward
+    attentions over every history panorama (``batch * hist_len * 36``
+    lanes, no backward: it runs without gradient) and, for a task whose
+    batch holds the observation (SAP, SAR, SpRel), its ``num_layers``
+    forward and backward attentions over ``batch * 36`` lanes; the ViT's
+    length is its patches + the cls token (197 at ViT-B/16 on 224)."""
+    fwd, bwd = pretrain_launch_mix(mcfg, task, batch, txt_len, hist_len,
+                                   itm_candidates=itm_candidates)
+    n, layers = vit_cfg.num_patches + 1, vit_cfg.num_layers
+    fwd[(batch * hist_len * 36, n, n)] += layers
+    if task in IMAGE_STEP_TASKS:
+        fwd[(batch * 36, n, n)] += layers
+        # the observation reaches the loss through the visual stream, or
+        # through the text when the cross-modal layers attend both ways
+        if task in PRETRAIN_VISN_TASKS or not mcfg.no_lang_ca:
+            bwd[(batch * 36, n, n)] += layers
+    return fwd, bwd
+
+
 def bootstrap_mix(cfg) -> collections.Counter:
     """Forward launches of the sample updates' bootstrap value by
     (Lq, Lk): one planning step over the final observation, no
