@@ -246,6 +246,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                steps, dropout off, for MRC and SAP (the history's route
                through the ViT and the observation's): the loss and every
                gradient within train_parity's tolerances.
+19. multi_gpu -- rank processes of tests/torch_parallel_harness.py
+               (torchrun, bounded by MG_TIMEOUT; a failing or late rank
+               fails the phase), the
+               r2r preset at full width, dropout off, SGD, against one
+               undistributed process; the card count. (a) NCCL, world of
+               one: an IL update at batch 8 through the gradient
+               all-reduce, bit-equal; the all-reduce of the gradient
+               buffer timed, with its bytes. (b) two data ranks sharing
+               the card over gloo at global batch 8 (4 lanes each): 3 IL
+               and 3 merged sample updates, losses within 2e-5 / 1e-6,
+               parameters within 1e-5 of each tensor's largest entry,
+               the first IL and the first merged update's summed
+               gradients (the critic's too) at the card's gradient bar;
+               a greedy evaluation of 32 items sharded over the ranks (16
+               lanes each), trajectories identical; launches per rank
+               exact (279 / 240 per IL update, 295 / 240 merged, 279 per
+               greedy batch); one bf16 IL update by bf16_close; the
+               sharded feed's IL update (each rank's env on its shard)
+               against one process fed the shards' rows. (c) two model
+               ranks (6 heads each), alone on the card: an IL update's
+               loss, gathered gradients and the logits after it within
+               1e-5 relative, a greedy batch's trajectories, launches
+               per rank exact, the update's seconds and its all-reduces
+               by group. (d) pretraining,
+               two data ranks at batch 16: one update per task from the
+               same weights, losses and summed gradients at phase 12's
+               bars. Both kernels against their plain versions at the
+               new shapes: 4 and 16 lanes at 12 heads, 8 and 32 lanes at
+               6. (e) episodes/s and the all-reduce's ms per update
+               beside nvidia-smi's card and power limit: smoke output
+               (both ranks share one card). With two or more cards, NCCL
+               one rank per card runs (b)'s updates too.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -283,6 +315,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 import json
 import math
 import os
@@ -389,30 +422,30 @@ BF16 = {"dtype": "bfloat16"}
 POSE_ATOL = 1e-6
 # timed updates of the fp32 IL and sample paths, and of the bf16 and
 # packed ones (depths cut to keep the script near half its time limit)
-TIMED_UPDATES = 10
-TIMED_UPDATES_BF16 = 5
-VARIANT_TIMED_UPDATES = 2
+TIMED_UPDATES = 4
+TIMED_UPDATES_BF16 = 3
+VARIANT_TIMED_UPDATES = 1
 # the replay update: timed updates per rollout, and replayed against
 # recorded logits with dropout on (the JAX package's
 # test_rl_replay_matches_rollout_logits bound)
-REPLAY_UPDATES = 5
+REPLAY_UPDATES = 3
 REPLAY_LOGIT_ATOL = 2e-4
 
 
 # phase 18, the vision pipeline: the ViT's attention lanes (one panorama
 # and the observation ViT; the featurizer's 4 panoramas; the history
 # ViT's 25 x 36 images at batch 1), forward and, for the observation,
-# backward; viewpoints through the pipelined extract (4 calls); resident
+# backward; viewpoints through the pipelined extract (3 calls); resident
 # calls timed; card against CPU features and logits in fp32 (the
 # repository's parity bar); timed e2e updates per task (bf16's depth cut
 # for the script's time limit); the history length of the e2e
 # card-against-CPU check and its tasks (bound the CPU's time)
 VIT_FWD_LANES = (36, 36 * PANOS_PER_BATCH, 25 * 36)
 VIT_BWD_LANES = (36,)
-VISION_PANOS = 16
-VISION_RESIDENT_ITERS = 10
+VISION_PANOS = 12
+VISION_RESIDENT_ITERS = 6
 FEAT_ATOL = 2e-4
-E2E_UPDATES = {"float32": 3, "bfloat16": 1}
+E2E_UPDATES = {"float32": 1, "bfloat16": 1}
 E2E_PARITY_HIST = 2
 # the e2e card-against-CPU check's tasks: one per route through the ViT
 # (MRC: the history without gradient, masked after the ViT; SAP: the
@@ -2422,6 +2455,301 @@ def phase_vision(world):
     return out
 
 
+# phase 19, multi-GPU: rank processes of tests/torch_parallel_harness.py,
+# bounded by MG_TIMEOUT seconds, against one undistributed process at the
+# same settings (dropout off, SGD, the preset at full width). Two ranks
+# share the one card over gloo; one rank runs NCCL's own collectives.
+MG_TIMEOUT = 240
+MG_STEPS = "il,il,il,merged,merged,merged"
+# SGD's rate: its steps are linear in the gradients, so the parameters
+# compare; each step moves them by about 1e-4 of their scale here
+MG_LR = "1e-4"
+MG_EVAL_B, MG_EVAL_ITEMS = 32, 32
+MG_RTOL, MG_ATOL = 2e-5, 1e-6  # losses, two ranks against one (the CPU tests' bar)
+MG_PARAM_RTOL = 1e-5  # parameters after the updates, of each tensor's largest entry
+TP_HEADS = H // 2
+
+
+def alongside(tmp, tag, ranks, *argv, backend="gloo"):
+    """:func:`parallel_run` of rank processes started on a thread (the
+    caller runs the one-process reference meanwhile): a future of its
+    result."""
+    pool = ThreadPoolExecutor(max_workers=1)
+    fut = pool.submit(parallel_run, tmp, tag, ranks, *argv, backend=backend)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def parallel_run(tmp, tag, ranks, *argv, backend="gloo"):
+    """tests/torch_parallel_harness.py over ``argv``: ``ranks`` rank
+    processes, or with 0 this process (undistributed, on the card); its
+    result."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_parallel_harness as harness
+
+    out = os.path.join(tmp, f"{tag}.json")
+    argv = [*argv, "--backend", backend, "--out", out]
+    if ranks:
+        harness.spawn(argv, ranks, MG_TIMEOUT)
+    else:
+        threads = torch.get_num_threads()
+        try:
+            harness.main(argv)
+        finally:
+            torch.set_num_threads(threads)
+    with open(out) as f:
+        return json.load(f)
+
+
+def mg_losses_close(got, want, what, rtol=MG_RTOL, atol=MG_ATOL) -> float:
+    """Every step's loss and parts within tolerance, a part's on the scale
+    of the step's loss (A2C's loss is a small sum of larger terms); the
+    worst error over its tolerance."""
+    if [s for s, _ in got["losses"]] != [s for s, _ in want["losses"]]:
+        raise AssertionError(f"{what}: steps {got['losses']} vs {want['losses']}")
+    worst = 0.0
+    for (step, g), (_, w) in zip(got["losses"], want["losses"]):
+        for k, v in w.items():
+            tol = rtol * max(abs(v), abs(w["loss"])) + atol
+            if not abs(g[k] - v) <= tol:
+                raise AssertionError(f"{what}: {step} {k} {g[k]} vs {v}")
+            worst = max(worst, abs(g[k] - v) / tol)
+    return worst
+
+
+def mg_arrays_close(got_path, want_path, rtol, what, floor=1e-6) -> float:
+    """Each tensor of two .npz files within ``rtol`` of its largest entry
+    plus ``floor`` of the largest entry of all; the worst error over its
+    tolerance."""
+    got, want = np.load(got_path), np.load(want_path)
+    if sorted(got.files) != sorted(want.files):
+        raise AssertionError(f"{what}: different tensors")
+    top = max(float(np.abs(want[k]).max()) for k in want.files)
+    worst = 0.0
+    for k in want.files:
+        err = float(np.abs(got[k] - want[k]).max())
+        tol = rtol * float(np.abs(want[k]).max()) + floor * top
+        if not err <= tol:
+            raise AssertionError(f"{what}: {k} off by {err} (tolerance {tol})")
+        worst = max(worst, err / tol if tol else 0.0)
+    return worst
+
+
+def mg_launches(res, want, what):
+    """Each rank's launches per step equal ``want`` (per step name)."""
+    for rank, steps in enumerate(res["launches_per_rank"]):
+        for (step, _), got in zip(res["losses"], steps):
+            if got != want[step]:
+                raise AssertionError(f"{what}: rank {rank} {step} launches {got}, "
+                                     f"expected {want[step]}")
+
+
+def mg_kernels(dev, mix, bwd_mix):
+    """Both kernels against their plain versions at the multi-GPU paths'
+    new shapes (fp32 and bf16, dropout 0 and 0.1; timed in fp32 without
+    dropout): per data rank at 4 lanes (IL) and 16 (greedy), per model
+    rank at 6 heads (IL at 8 lanes, greedy at 32)."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    seed = 2**31 + 19
+    rows = {}
+    fwd_err = bwd_err = 0.0
+    for tag, b, h, with_bwd in (("dp_il", TRAIN_B // 2, H, True), ("dp_greedy", B // 2, H, False),
+                                ("tp_il", TRAIN_B, TP_HEADS, True),
+                                ("tp_greedy", B, TP_HEADS, False)):
+        f_rows, b_rows = [], []
+        for (lq, lk) in mix:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, m, g = kernel_inputs(b, h, lq, lk, DH, dtype, gen, dev)
+                for rate in (0.0, 0.1):
+                    where = f"{tag} B {b} H {h} ({lq},{lk})"
+                    err = check_fwd(q, k, v, m, seed, rate, where)
+                    fwd_err = max(fwd_err, err)
+                    row = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
+                           "max_abs_err": err}
+                    if rate == 0.0 and dtype == torch.float32:
+                        row.update(time_forward(q, k, v, m))
+                    f_rows.append(row)
+                    if with_bwd and (lq, lk) in bwd_mix:
+                        errs, err = check_bwd(q, k, v, m, g, seed, rate, where)
+                        bwd_err = max(bwd_err, err)
+                        brow = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
+                                "rel_err": errs}
+                        if rate == 0.0 and dtype == torch.float32:
+                            brow.update(time_backward(q, k, v, m, g))
+                        b_rows.append(brow)
+        emit("multi_gpu", kernels=tag, batch=b, heads=h, head_dim=DH,
+             attention_fwd=f_rows, attention_bwd=b_rows)
+        rows[tag] = (b, h, f_rows, b_rows)
+    return rows, fwd_err, bwd_err
+
+
+def phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd, merged_per):
+    """Phase 19 (see the module docstring); returns each kernel's
+    multi-GPU fields for the summary and the kernels' largest errors."""
+    smi = nvidia_smi()
+    n_cards = torch.cuda.device_count()
+    emit("multi_gpu", cards=n_cards, nvidia_smi=smi)
+    kern, fwd_err, bwd_err = mg_kernels(dev, mix, bwd_mix)
+    il_per = {"attention_fwd": per_batch, "attention_bwd": per_update_bwd}
+    per_step = {"il": il_per, "merged": merged_per}
+    full = ("--batch", str(TRAIN_B), "--lr", MG_LR)
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+        ev = ("--eval", "device", "--eval_batch", str(MG_EVAL_B), "--val_items",
+              str(MG_EVAL_ITEMS))
+        # (b) first, alone on the card, its times kept: two data ranks over
+        # gloo, 3 IL and 3 merged sample updates at global batch 8 (4 lanes
+        # per rank), the greedy evaluation of a split sharded over the
+        # ranks (16 lanes each)
+        # the gradients of the first IL and the first merged update
+        grads_at = ("--grads_steps", f"0,{MG_STEPS.split(',').index('merged')}")
+        t0 = time.perf_counter()
+        got = parallel_run(tmp, "b2", 2, *full, "--steps", MG_STEPS, *ev,
+                           "--params_out", p("b2.npz"), "--grads_out", p("b2g.npz"),
+                           *grads_at, "--time_allreduce", "5")
+        seconds_b = time.perf_counter() - t0
+        # (c) alone too: two model ranks, its update timed
+        tp_args = (*full, "--steps", "il", "--eval", "device", "--eval_batch", str(TRAIN_B),
+                   "--val_items", str(TRAIN_B))
+        t0 = time.perf_counter()
+        tp = parallel_run(tmp, "c2", 2, *tp_args, "--model_shards", "2",
+                          "--grads_out", p("c2g.npz"), "--logits_out", p("c2l.npy"))
+        seconds_c = time.perf_counter() - t0
+        # then the rest side by side: the ranks' processes of (a), the bf16
+        # IL update, the sharded feed and (d) at once, the references in
+        # this process meanwhile
+        t0 = time.perf_counter()
+        pt = ("--pretrain", "--batch", str(PRETRAIN_B), "--lr", "0")
+        nccl = alongside(tmp, "a1", 1, *full, "--steps", "il", "--grads_out", p("a1g.npz"),
+                         "--time_allreduce", "10", backend="nccl")
+        bf2 = alongside(tmp, "bf2", 2, *full, "--bf16", "--steps", "il")
+        shard = alongside(tmp, "bs", 2, *full, "--sharded_feed", "2", "--steps", "il")
+        pt2 = alongside(tmp, "d2", 2, *pt, "--grads_out", p("d2.npz"))
+        want = parallel_run(tmp, "b0", 0, *full, "--steps", MG_STEPS, *ev,
+                            "--params_out", p("b0.npz"), "--grads_out", p("b0g.npz"),
+                            *grads_at)
+        bf0 = parallel_run(tmp, "bf0", 0, *full, "--bf16", "--steps", "il")
+        shard0 = parallel_run(tmp, "bs0", 0, *full, "--sharded_feed", "2", "--steps", "il")
+        tp0 = parallel_run(tmp, "c0", 0, *tp_args, "--grads_out", p("c0g.npz"),
+                           "--logits_out", p("c0l.npy"))
+        pt0 = parallel_run(tmp, "d0", 0, *pt, "--grads_out", p("d0.npz"))
+
+        # (a) NCCL, one rank: the IL update through the gradient all-reduce,
+        # bit-equal to the undistributed one (b0's first: its loss and the
+        # gradients it steps with)
+        nccl = nccl.result()
+        a0, a1 = np.load(p("b0g.npz")), np.load(p("a1g.npz"))
+        diff = max(float(np.abs(a0[k] - a1[k]).max()) for k in a1.files)
+        if nccl["losses"] != want["losses"][:1] or diff != 0.0:
+            raise AssertionError(f"NCCL world of one: loss {nccl['losses']} vs "
+                                 f"{want['losses'][:1]}, gradients off by {diff}")
+        emit("multi_gpu", part="a", backend="nccl", world=1, batch=TRAIN_B,
+             loss=nccl["losses"][0][1]["loss"], max_grad_diff=diff,
+             allreduce_ms=nccl["allreduce"]["ms"], allreduce_bytes=nccl["allreduce"]["bytes"],
+             launches=nccl["launches"][0])
+
+        # (b)'s checks
+        loss_worst = mg_losses_close(got, want, "data parallel")
+        param_worst = mg_arrays_close(p("b2.npz"), p("b0.npz"), MG_PARAM_RTOL, "data parallel")
+        # the first IL and the first merged update's gradients summed over
+        # the ranks (the model's and the critic's: A2C's global normalisers),
+        # at the card's gradient bar (4 lanes' products round otherwise
+        # than 8 lanes')
+        grad_worst = mg_arrays_close(p("b2g.npz"), p("b0g.npz"), TRAIN_GRAD_REL,
+                                     "data-parallel gradients", floor=TRAIN_GRAD_FLOOR)
+        if got["traj"] != want["traj"] or len(want["traj"]) != MG_EVAL_ITEMS:
+            raise AssertionError("data-parallel greedy eval: trajectories differ")
+        mg_launches(got, per_step, "data parallel")
+        local_eval = MG_EVAL_B // 2
+        eval_batches = (MG_EVAL_ITEMS // 2) // local_eval + 1
+        if got["eval_launches"] != {"attention_fwd": per_batch * eval_batches,
+                                    "attention_bwd": 0}:
+            raise AssertionError(f"data-parallel eval launches {got['eval_launches']}")
+        # episodes/s over each kind's updates after its first
+        timed = {s: [(t, e) for (n, _), t, e in zip(got["losses"], got["seconds"],
+                                                     got["episodes"]) if n == s][1:]
+                 for s in ("il", "merged")}
+        dp = {f"{s}_episodes_per_s": sum(e for _, e in te) / sum(t for t, _ in te)
+              for s, te in timed.items()}
+        dp.update(allreduce_ms=got["allreduce"]["ms"], allreduce_bytes=got["allreduce"]["bytes"])
+        emit("multi_gpu", part="b", backend="gloo", ranks=2, batch=TRAIN_B,
+             lanes_per_rank=TRAIN_B // 2, steps=MG_STEPS, losses=got["losses"],
+             loss_worst_over_tol=loss_worst, param_worst_over_tol=param_worst,
+             grad_worst_over_tol=grad_worst, grad_rel_tol=TRAIN_GRAD_REL, lr=float(MG_LR),
+             eval_items=MG_EVAL_ITEMS, eval_batch=MG_EVAL_B, trajectories_identical=True,
+             launches_per_rank=got["launches_per_rank"], eval_launches=got["eval_launches"],
+             **dp, nvidia_smi=smi, seconds=seconds_b)
+        # one bf16 IL update, two ranks against one (the fp32 answer b0's);
+        # the sharded feed: each rank's env holds its rows of b0's first batch
+        close = bf16_close(bf2.result()["losses"][0][1]["loss"], bf0["losses"][0][1]["loss"],
+                           want["losses"][0][1]["loss"], "data-parallel bf16 IL loss")
+        shard = shard.result()
+        mg_losses_close(shard, shard0, "sharded feed")
+        mg_launches(shard, per_step, "sharded feed")
+        emit("multi_gpu", part="b", bf16_il=close, sharded_feed_loss=shard["losses"][0][1],
+             allreduces_per_update=got["allreduces"])
+
+        if n_cards >= 2 and TRAIN_B % n_cards == 0:  # NCCL, one rank per card
+            nccl = parallel_run(tmp, "bn", n_cards, *full, "--steps", MG_STEPS,
+                                backend="nccl")
+            emit("multi_gpu", part="b", backend="nccl", ranks=n_cards,
+                 loss_worst_over_tol=mg_losses_close(nccl, want, f"NCCL on {n_cards} cards"))
+            mg_launches(nccl, per_step, f"NCCL on {n_cards} cards")
+
+        # (c) two model ranks: 6 heads each; the IL update's loss and
+        # gathered gradients, the logits after it and a greedy batch
+        got = tp
+        tp_loss = mg_losses_close(got, tp0, "tensor parallel", rtol=1e-5)
+        tp_grads = mg_arrays_close(p("c2g.npz"), p("c0g.npz"), 1e-5, "tensor parallel grads")
+        lg, lw = np.load(p("c2l.npy")), np.load(p("c0l.npy"))
+        fin = np.isfinite(lw)
+        if not np.array_equal(np.isfinite(lg), fin):
+            raise AssertionError("tensor parallel: logits -inf at other places")
+        logit_err = float(np.abs(lg[fin] - lw[fin]).max())
+        if not logit_err <= 1e-5 * float(np.abs(lw[fin]).max()):
+            raise AssertionError(f"tensor parallel: logits off by {logit_err}")
+        if got["traj"] != tp0["traj"]:
+            raise AssertionError("tensor parallel: greedy trajectories differ")
+        mg_launches(got, per_step, "tensor parallel")
+        if got["eval_launches"] != {"attention_fwd": per_batch * 2, "attention_bwd": 0}:
+            raise AssertionError(f"tensor-parallel eval launches {got['eval_launches']}")
+        emit("multi_gpu", part="c", ranks=2, heads_per_rank=TP_HEADS, batch=TRAIN_B,
+             loss=got["losses"][0][1]["loss"], loss_worst_over_tol=tp_loss,
+             grad_worst_over_tol=tp_grads, logit_max_abs_err=logit_err,
+             launches_per_rank=got["launches_per_rank"], eval_launches=got["eval_launches"],
+             seconds_per_il_update=got["seconds"][0],
+             allreduces_per_update=got["allreduces"][0], seconds_alone=seconds_c)
+
+        # (d) pretraining, two data ranks at batch 16 (8 each): one update
+        # per task from the same weights (lr 0), losses and summed gradients
+        got = pt2.result()
+        pt_loss = mg_losses_close(got, pt0, "pretraining", rtol=TRAIN_LOSS_RTOL, atol=0.0)
+        pt_grads = mg_arrays_close(p("d2.npz"), p("d0.npz"), TRAIN_GRAD_REL,
+                                   "pretraining grads", floor=TRAIN_GRAD_FLOOR)
+        emit("multi_gpu", part="d", ranks=2, batch=PRETRAIN_B, losses=got["losses"],
+             loss_worst_over_tol=pt_loss, grad_worst_over_tol=pt_grads,
+             launches_per_rank=got["launches_per_rank"],
+             seconds_side_by_side=time.perf_counter() - t0)
+
+    # (e) the numbers, smoke output: both ranks share one card
+    emit("multi_gpu", part="e", **dp, nvidia_smi=smi, note="two ranks on one card")
+    out = {}
+    for i, name in enumerate(("attention_fwd", "attention_bwd")):
+        m = mix if i == 0 else bwd_mix
+        fields = {}
+        for tag, (b, h, f_rows, b_rows) in kern.items():
+            rows = f_rows if i == 0 else b_rows
+            if rows:
+                fields[tag] = {"batch": b, "heads": h, **kernel_times((rows, m))}
+        fields["launches_per_rank"] = {"il": il_per[name], "merged": merged_per[name],
+                                       "greedy_batch": per_batch if i == 0 else 0}
+        out[name] = fields
+    return out, fwd_err, bwd_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2764,6 +3092,11 @@ def main() -> int:
     # ------------------------------------------------------------ vision
     marks.append(("vision", time.perf_counter()))
     vision = phase_vision(world)
+    # --------------------------------------------------------- multi_gpu
+    marks.append(("multi_gpu", time.perf_counter()))
+    multi_gpu, ferr, berr = phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd,
+                                            merged_per)
+    fwd_err, bwd_err = max(fwd_err, ferr), max(bwd_err, berr)
     marks.append(("summary", time.perf_counter()))
 
     pretrain = {}
@@ -2845,6 +3178,7 @@ def main() -> int:
             extra[name]["hostloop"] = hostloop_launches
         extra[name]["variants"] = variants[name]
         extra[name]["vision"] = vision[name]
+        extra[name]["multi_gpu"] = multi_gpu[name]
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel

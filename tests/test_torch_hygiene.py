@@ -73,8 +73,6 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
 # every flag of the JAX CLI that the port does not run yet, with a value
 # and the ROADMAP item its error names
 UNPORTED = {
-    "sharded_feed": ([], "A13"),
-    "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"), "orbax_ckpt": ([], "A13"),
     "remat": ([], "A19"), "remat_policy": (["dots"], "A19"), "rng_impl": (["rbg"], "A20"),
 }
 
@@ -96,10 +94,7 @@ def test_cli_flags_cover_the_jax_cli():
 
 
 # every flag of the JAX pretraining CLI that the port does not run yet
-PRETRAIN_UNPORTED = {
-    "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"),
-    "sharded_feed": ([], "A13"), "rng_impl": (["rbg"], "A20"),
-}
+PRETRAIN_UNPORTED = {"rng_impl": (["rbg"], "A20")}
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -111,10 +106,7 @@ def test_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, item):
 
 
 # every flag of the JAX image pretraining CLI that the port does not run yet
-IMAGE_PRETRAIN_UNPORTED = {
-    "data_shards": (["2"], "A13"), "model_shards": (["2"], "A13"),
-    "sharded_feed": ([], "A13"), "rng_impl": (["rbg"], "A20"),
-}
+IMAGE_PRETRAIN_UNPORTED = {"rng_impl": (["rbg"], "A20")}
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -218,10 +210,11 @@ def test_cli_trains_bf16_and_packed_on_cpu(tmp_path, argv):
     (["--packed_il"], "teacher feedback only"),
     (["--packed_il", "--feedback", "sample"], "teacher feedback only"),
     (["--packed_il", "--feedback", "teacher", "--no_feat_table"], "requires the feature table"),
-], ids=["preset_sample", "sample", "no_feat_table"])
+    (["--packed_il", "--feedback", "teacher", "--sharded_feed"], "with --sharded_feed"),
+], ids=["preset_sample", "sample", "no_feat_table", "sharded_feed"])
 def test_cli_packed_il_guards(tmp_path, argv, match):
     """--packed_il raises as the JAX CLI does: with sample feedback (the
-    preset's) and without the feature table."""
+    preset's), without the feature table and with the sharded feed."""
     with pytest.raises(ValueError, match=match):
         finetune.main(["--synthetic", "--tiny", "--cpu", "--output_dir", str(tmp_path)] + argv)
 

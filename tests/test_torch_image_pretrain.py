@@ -145,7 +145,7 @@ def test_history_takes_no_gradient_and_mrc_masks_after_the_vit(batcher, monkeypa
     _, model = port_model()
     seen = {}
 
-    def spy(self, batch, task, feat_table=None):
+    def spy(self, batch, task, feat_table=None, rows=None):
         seen.update(batch)
         return torch.zeros(()), {}
 

@@ -47,8 +47,20 @@ Weights come from a seed, from a released reference checkpoint
 (:meth:`HAMTAgent.init_from_reference`), from the port's pretraining
 (:meth:`HAMTAgent.init_from_pretrain`) or from the agent's own
 checkpoint (:meth:`HAMTAgent.save` / :meth:`HAMTAgent.load`, the CLI's
-``--resume_file``). The whole R2R family (r2r, r2r_last, r4r, rxr) runs
-through this agent and the R2R reward of the device rollout.
+``--resume_file``; :meth:`HAMTAgent.save_dir` writes a directory). The
+whole R2R family (r2r, r2r_last, r4r, rxr) runs through this agent and
+the R2R reward of the device rollout.
+
+Across ranks (:meth:`HAMTAgent.enable_mesh`, ``parallel/mesh.py``) each
+rank trains on its rows of the global batch: every rank's env replica
+builds the same global batch and only the rank's rows go to its device,
+or (:meth:`HAMTAgent.enable_host_sharded_feed`) the env holds the rank's
+shard of the data. Every loss divides by the global count, the sampling
+draws its noise at the global batch and takes the rank's lanes, and the
+optimizers sum the gradients over the data group, so the ranks together
+take the one-rank update. Tensor parallelism splits the model's blocks
+over the model group (the critic stays replicated). Evaluation runs on
+each rank's own split shard without collectives across data ranks.
 """
 
 from __future__ import annotations
@@ -56,8 +68,12 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import json
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import HAMTConfig
 from ..data.angle import view_elevation, view_heading
@@ -70,6 +86,9 @@ from ..models.convert import (critic_params_from_flax, load_reference_checkpoint
                               merge_matching_params, params_from_flax)
 from ..models.hamt import init_hamt
 from ..models.layers import DropoutRNG, compute_dtype, drop_weight_cache, set_dropout_rng
+from ..parallel.mesh import (Mesh, barrier, gather_optimizer_state, gather_state_dict,
+                             is_default_process, process_feed_rows, shard_model,
+                             shard_optimizer_state, shard_state_dict)
 from .losses import IGNORE_ID, a2c_loss, il_loss
 from .optim import OptaxOptimizer
 from .packing import PackedILStream
@@ -125,7 +144,16 @@ class HAMTAgent:
                  seed: int = 0, device=None):
         self.cfg = cfg
         self.env = env
+        self.seed = seed
         self.device = resolve_device(device)
+        #: the rank's place among data and tensor-parallel ranks
+        #: (:meth:`enable_mesh`); ``_feed_rows`` its rows of the global
+        #: batch under the replicated feed, None when it trains on all
+        #: its env builds
+        self.mesh: Optional[Mesh] = None
+        self._feed_rows: Optional[Tuple[int, int]] = None
+        self._split_params: List[torch.nn.Parameter] = []
+        self._pending_saves: List[Any] = []
         model, critic = init_hamt(cfg.model, seed)
         self.model = model.to(self.device).eval()
         self.critic = critic.to(self.device).eval()
@@ -165,17 +193,82 @@ class HAMTAgent:
         agent_cmt.py:62-77 with optax's rules."""
         tcfg = self.cfg.train
         self.optimizer = OptaxOptimizer(self.model.parameters(), tcfg.optim, tcfg.lr,
-                                        tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+                                        tcfg.weight_decay, grad_clip=tcfg.grad_clip,
+                                        mesh=self.mesh, sharded=self._split_params)
         self.critic_optimizer = OptaxOptimizer(self.critic.parameters(), tcfg.optim,
-                                               tcfg.lr, tcfg.weight_decay)
+                                               tcfg.lr, tcfg.weight_decay, mesh=self.mesh)
+
+    # ------------------------------------------------------------ ranks
+    def enable_mesh(self, mesh: Mesh) -> None:
+        """Train as this rank of ``mesh`` (the JAX ``enable_mesh``; the
+        reference's DDP wrap): each rank's env replica builds the same
+        global batch, and the rank trains on its data index's rows of it;
+        with ``model_shards`` > 1 the model's blocks are split over the
+        model group (``parallel/mesh.py:shard_model``). Dropout draws per
+        rank (``Mesh.dropout_streams``). Call before training and before
+        :meth:`load`: the optimizers start afresh."""
+        if self.cfg.train.batch_size % mesh.data_shards:
+            raise ValueError(f"batch {self.cfg.train.batch_size} is not divisible by "
+                             f"{mesh.data_shards} data shards")
+        self.mesh = mesh
+        self._split_params = shard_model(self.model, mesh)
+        self._feed_rows = (process_feed_rows(mesh, self.cfg.train.batch_size)
+                           if mesh.data_shards > 1 else None)
+        self.dropout_rng = DropoutRNG(self.device, self.seed + 17, mesh.dropout_streams)
+        set_dropout_rng(self.model, self.dropout_rng)
+        set_dropout_rng(self.critic, self.dropout_rng)
+        self._weights_changed()
+        self._make_optimizers()
+
+    def enable_host_sharded_feed(self) -> None:
+        """The env holds this rank's shard of the data and builds only
+        the rank's rows (the JAX ``enable_host_sharded_feed``, the
+        reference's per-rank DDP loaders): call after :meth:`enable_mesh`
+        with ``self.env`` built on ``sel_data_idxs=(data index,
+        data_shards)`` at the local batch. The host-loop evaluators keep
+        to the rank's own split shard as under the replicated feed."""
+        if self.mesh is None:
+            raise RuntimeError("enable_mesh first")
+        local = self.cfg.train.batch_size // self.mesh.data_shards
+        if self.env is not None and self.env.batch_size != local:
+            raise ValueError(f"env batch {self.env.batch_size} != this rank's {local} rows")
+        self._feed_rows = None
+
+    @property
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
+    @property
+    def _data_shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data_shards
+
+    def _rows(self, x, axis: int = 0):
+        """This rank's rows of a global-batch array (all of it unless the
+        replicated feed splits the batch)."""
+        if self._feed_rows is None:
+            return x
+        start, stop = self._feed_rows
+        return x[(slice(None),) * axis + (slice(start, stop),)]
+
+    def _draw_rows(self, b: int, b_il: int = 0) -> Optional[Tuple[int, torch.Tensor]]:
+        """The rollout's lanes, [b RL | b_il IL], as rows of the global
+        [RL | IL] batch (``rollout.py:gumbel_max``); None on one data rank."""
+        n = self._data_shards
+        if n == 1:
+            return None
+        d, dev = self.mesh.data_index, self.device
+        idx = [torch.arange(d * b, (d + 1) * b, device=dev)]  # made on the device: no copy
+        if b_il:
+            idx.append(torch.arange(n * b + d * b_il, n * b + (d + 1) * b_il, device=dev))
+        return n * (b + b_il), torch.cat(idx)
 
     def load_flax_params(self, params: Mapping, cparams: Mapping) -> None:
         """Install the JAX package's flax params (nested dicts of numpy
         arrays) into the model and critic."""
         for module, sd in ((self.model, params_from_flax(params, self.cfg.model)),
                            (self.critic, critic_params_from_flax(cparams))):
-            module.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
-                                   strict=True)
+            module.load_state_dict(shard_state_dict(
+                {k: torch.from_numpy(v) for k, v in sd.items()}, self.mesh), strict=True)
         self._weights_changed()
 
     def _weights_changed(self) -> None:
@@ -226,21 +319,23 @@ class HAMTAgent:
         instructions, start poses, scan offsets and, with
         ``include_rewards``, the reward's cost slabs under
         ``task_inputs`` (without them, greedy evaluation runs on GT-less
-        test splits)."""
+        test splits). A training rollout (``include_rewards``) ships this
+        rank's rows only."""
         env = self.env
         obs = env.reset()
         offs = np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
         txt_ids, txt_mask = env.txt_batch()
         dev = self.device
+        rows = self._rows if include_rewards else (lambda x: x)
         ins = dict(
-            txt_ids=torch.as_tensor(txt_ids, dtype=torch.long).to(dev),
-            txt_mask=torch.as_tensor(txt_mask).to(dev),
-            start_node=torch.as_tensor(offs + obs.node).to(dev),
-            start_view=torch.as_tensor(obs.view_index, dtype=torch.long).to(dev),
-            offs=torch.as_tensor(offs).to(dev),
+            txt_ids=torch.as_tensor(rows(txt_ids), dtype=torch.long).to(dev),
+            txt_mask=torch.as_tensor(rows(txt_mask)).to(dev),
+            start_node=torch.as_tensor(rows(offs + obs.node)).to(dev),
+            start_view=torch.as_tensor(rows(obs.view_index), dtype=torch.long).to(dev),
+            offs=torch.as_tensor(rows(offs)).to(dev),
         )
         if include_rewards:
-            ins["task_inputs"] = {k: torch.as_tensor(v).to(dev) for k, v in
+            ins["task_inputs"] = {k: torch.as_tensor(rows(v)).to(dev) for k, v in
                                   self._device_rollout_inputs(env, obs).items()}
         return ins
 
@@ -434,13 +529,16 @@ class HAMTAgent:
             # padded to t_max, the replay's fixed shape (the reference
             # breaks early per batch, agent_cmt.py:450-451)
             obs_list += [obs_list[-1]] * (t_max - len(obs_list))
+            # the replay trains on this rank's rows (the ep's rows are
+            # taken in _arrays_to_device)
             extras = {
                 "ep": self._stack_obs_episode(obs_list, txt_ids, txt_mask, actions_rec,
                                               step_mask, final_obs=obs, feat_offs=feat_offs),
-                "rewards": torch.from_numpy(rewards).to(dev),
-                "masks": torch.from_numpy(step_mask.T.astype(np.float32)).to(dev),
-                "bootstrap_mask": torch.from_numpy(~ended).to(dev),
-                "rollout_logits": torch.stack(logits_rec),
+                "rewards": torch.from_numpy(self._rows(rewards, 1).copy()).to(dev),
+                "masks": torch.from_numpy(self._rows(step_mask.T.astype(np.float32), 1)
+                                          .copy()).to(dev),
+                "bootstrap_mask": torch.from_numpy(self._rows(~ended).copy()).to(dev),
+                "rollout_logits": self._rows(torch.stack(logits_rec), 1),
             }
         return traj, extras
 
@@ -763,11 +861,14 @@ class HAMTAgent:
 
     def _pack_to_device(self, pack: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A host pack -> device tensors (integers as int64 indices); the
-        normalizer ``n_episodes`` stays on the host."""
+        normalizer ``n_episodes`` stays on the host. Every rank builds the
+        global pack and takes its slots (all the text rows)."""
         out = {}
         for k, v in pack.items():
             if k == "n_episodes":
                 continue
+            if k not in ("txt_ids", "txt_mask"):
+                v = self._rows(v)
             t = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
         return out
@@ -811,11 +912,12 @@ class HAMTAgent:
         return self._arrays_to_device(d)
 
     def _arrays_to_device(self, d: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host episode arrays -> device tensors: integers as int64
-        indices, panorama features in the compute dtype."""
+        """Host episode arrays (batch-leading) -> device tensors of this
+        rank's rows: integers as int64 indices, panorama features in the
+        compute dtype."""
         out = {}
         for k, v in d.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
+            t = torch.from_numpy(np.ascontiguousarray(self._rows(v)))
             if k in ("pano_feat", "final_pano_feat", "obj_fts", "final_obj_fts"):
                 t = t.to(self._feat_dtype)
             out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
@@ -827,7 +929,7 @@ class HAMTAgent:
         REVERIE's dual CE, ``_ref_il_loss``); dropout as the modules'
         train/eval mode says."""
         out = self.episode_forward(ep, self._feat_table, self._obj_tables)
-        b = ep["actions"].shape[0]
+        b = ep["actions"].shape[0] * self._data_shards  # the global batch
         return self._ce(out.logits, out.obj_logits, ep) * weight / b
 
     def _a2c(self, logits, actions, values, rewards, masks, last_value,
@@ -839,7 +941,7 @@ class HAMTAgent:
         loss, aux = a2c_loss(logits, actions.T, values, rewards, masks,
                              torch.where(bootstrap_mask, last_value, 0.0),
                              gamma=tcfg.gamma, entropy_weight=tcfg.entropy_loss_weight,
-                             normalize=tcfg.normalize_loss)
+                             normalize=tcfg.normalize_loss, group=self._data_group)
         return loss, {**aux, "RL_loss": loss}
 
     def _rl_loss(self, ep: Dict[str, torch.Tensor], rewards, masks, bootstrap_mask
@@ -859,12 +961,15 @@ class HAMTAgent:
 
     def _rollout(self, ins: Dict[str, Any], txt_ids, txt_mask, policy: str, il=None):
         """The rollout of ``_device_rollout_args``' batch with rewards and
-        the bootstrap value, actions drawn from ``action_rng``."""
+        the bootstrap value, actions drawn from ``action_rng`` at the
+        lanes' global rows."""
+        b = ins["start_node"].shape[0]
         return self._ensure_device_rollout_fn()(
             txt_ids, txt_mask, self._feat_table, self._nav_tables, ins["start_node"],
             ins["start_view"], ins["offs"], ins["task_inputs"], policy=policy,
             compute_rewards=True, compute_bootstrap=True, il=il, generator=self.action_rng,
-            obj_tables=self._obj_tables)
+            obj_tables=self._obj_tables,
+            draw_rows=self._draw_rows(b, 0 if il is None else il["actions"].shape[0]))
 
     def _fused_sample_loss(self, il_ep: Dict[str, torch.Tensor], ins: Dict[str, Any],
                            policy: str = "sample"
@@ -887,7 +992,7 @@ class HAMTAgent:
         ep, extras = self._rollout(ins, torch.cat([ins["txt_ids"], il_ep["txt_ids"]]),
                                    torch.cat([ins["txt_mask"], il_ep["txt_mask"]]),
                                    "sample", il=il)
-        b_il = il_ep["actions"].shape[0]
+        b_il = il_ep["actions"].shape[0] * self._data_shards  # the global batch
         l1 = (self._ce(extras["il_logits"], extras.get("il_obj_logits"), il_ep)
               * self.cfg.train.ml_weight / b_il)
         l2, aux = self._rollout_a2c(ep, extras)
@@ -909,7 +1014,8 @@ class HAMTAgent:
                     ins["txt_ids"], ins["txt_mask"], self._feat_table, self._nav_tables,
                     ins["start_node"], ins["start_view"], ins["offs"], ins["task_inputs"],
                     policy="sample", compute_rewards=True, generator=self.action_rng,
-                    obj_tables=self._obj_tables)
+                    obj_tables=self._obj_tables,
+                    draw_rows=self._draw_rows(ins["start_node"].shape[0]))
             else:
                 _, extras = self.interactive_rollout("sample", record_for_replay=True)
                 ep = extras["ep"]
@@ -940,8 +1046,9 @@ class HAMTAgent:
     def _update(self, loss_fn: Callable[[], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One update: ``loss_fn()`` in training mode, its backward, one
-        step of each optimizer. Returns the loss and its parts, detached
-        device tensors."""
+        step of each optimizer (which sum the gradients over the data
+        group). Returns the loss and its parts, detached device tensors:
+        across data ranks their sums, the global batch's values."""
         self.model.train()
         self.critic.train()
         loss, aux = loss_fn()
@@ -951,7 +1058,12 @@ class HAMTAgent:
         self.optimizer.step()
         self.critic_optimizer.step()
         self._weights_changed()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+        if self._data_group is not None:
+            vals = torch.stack([loss, *aux.values()]).float()
+            dist.all_reduce(vals, group=self._data_group)
+            loss, aux = vals[0], dict(zip(aux, vals[1:]))
+        return loss, aux
 
     def _teacher_episode(self) -> Dict[str, torch.Tensor]:
         """The env's next teacher-forced episode on the device (REVERIE's
@@ -1036,6 +1148,8 @@ class HAMTAgent:
                                      (self.critic, critic_partial, "critic.")):
             if part is None:
                 continue
+            if module is self.model:  # whole tensors as this rank's blocks
+                part = shard_state_dict(part, self.mesh)
             merged, skip = merge_matching_params(module.state_dict(), part)
             module.load_state_dict(merged, strict=True)  # copies, casting
             skipped += [prefix + k for k in skip]
@@ -1058,26 +1172,82 @@ class HAMTAgent:
     init_from_pretrain = init_from_reference
 
     # ------------------------------------------------------- checkpoints
-    def save(self, path: str) -> None:
-        """Model, critic and both optimizer states (``torch.save``)."""
-        torch.save({"step": self.step,
-                    "model": self.model.state_dict(),
-                    "critic": self.critic.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "critic_optimizer": self.critic_optimizer.state_dict()}, path)
+    def _checkpoint(self) -> Dict[str, Any]:
+        """Step, model, critic and both optimizer states in the one-rank
+        layout (tensor-parallel blocks gathered; every rank takes part)."""
+        return {"step": self.step,
+                "model": gather_state_dict(self.model.state_dict(), self.mesh),
+                "critic": self.critic.state_dict(),
+                "optimizer": gather_optimizer_state(self.optimizer.state_dict(), self.model,
+                                                    self.mesh),
+                "critic_optimizer": self.critic_optimizer.state_dict()}
 
-    def load(self, path: str, resume_optimizer: bool = False) -> int:
-        """Restore a :meth:`save` checkpoint; the optimizer states only
-        with ``resume_optimizer``. Returns the checkpoint's step."""
-        blob = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(blob["model"], strict=True)
+    def _restore(self, blob: Mapping[str, Any], resume_optimizer: bool) -> int:
+        """Install a one-rank-layout checkpoint (split for this rank)."""
+        self.model.load_state_dict(shard_state_dict(blob["model"], self.mesh), strict=True)
         self.critic.load_state_dict(blob["critic"], strict=True)
         self._weights_changed()
         if resume_optimizer:
-            self.optimizer.load_state_dict(blob["optimizer"])
+            self.optimizer.load_state_dict(
+                shard_optimizer_state(blob["optimizer"], self.model, self.mesh))
             self.critic_optimizer.load_state_dict(blob["critic_optimizer"])
-        self.step = blob["step"]
+        self.step = int(blob["step"])
         return self.step
+
+    def save(self, path: str) -> None:
+        """Model, critic and both optimizer states (``torch.save``), in the
+        one-rank layout whatever the mesh: every rank gathers, rank 0
+        writes (the JAX ``save``)."""
+        blob = self._checkpoint()
+        if is_default_process():
+            torch.save(blob, path)
+        barrier(self.mesh)
+
+    def load(self, path: str, resume_optimizer: bool = False) -> int:
+        """Restore a :meth:`save` file or a :meth:`save_dir` directory
+        under any mesh; the optimizer states only with
+        ``resume_optimizer``. Returns the checkpoint's step."""
+        if os.path.isdir(path):
+            return self.load_dir(path, resume_optimizer)
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        return self._restore(blob, resume_optimizer)
+
+    def save_dir(self, path: str, async_: bool = False) -> None:
+        """The :meth:`save` checkpoint as a ``torch.distributed.checkpoint``
+        directory (the JAX ``save_orbax``; it cannot read orbax's):
+        written by the ranks together, each tensor once. ``async_``
+        copies the state to host memory and writes on a background
+        thread; :meth:`wait_for_checkpoints` waits for the writes."""
+        import torch.distributed.checkpoint as dcp
+
+        self.wait_for_checkpoints()  # one save in flight at a time
+        flat = _flatten_checkpoint(self._checkpoint())
+        pg = None if self.mesh is None else self.mesh.host_group
+        if async_:
+            self._pending_saves.append(dcp.async_save(flat, checkpoint_id=path,
+                                                      process_group=pg))
+        else:
+            dcp.save(flat, checkpoint_id=path, process_group=pg)
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until every asynchronous :meth:`save_dir` has written."""
+        while self._pending_saves:
+            self._pending_saves.pop(0).result()
+
+    def load_dir(self, path: str, resume_optimizer: bool = False) -> int:
+        """Restore a :meth:`save_dir` directory under any mesh."""
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+        meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        flat = {k: (torch.empty(tuple(m.size), dtype=m.properties.dtype)
+                    if isinstance(m, TensorStorageMetadata) else None) for k, m in meta.items()}
+        dcp.load(flat, checkpoint_id=path,
+                 process_group=None if self.mesh is None else self.mesh.host_group)
+        blob = _unflatten_checkpoint(flat)
+        for part in ("model", "critic"):
+            blob[part] = {k: v.to(self.device) for k, v in blob[part].items()}
+        return self._restore(blob, resume_optimizer)
 
 
 class _PackedEvalGroup:
@@ -1192,3 +1362,39 @@ class _PackedEvalGroup:
             self.txt_embeds = a._text_row_update(self.txt_embeds, a._h2d(txt_ids[pad]),
                                                  a._h2d(txt_mask[pad]), a._h2d(pad))
         self.obs = env._observe()
+
+
+def _flatten_checkpoint(blob: Mapping[str, Any]) -> Dict[str, Any]:
+    """:meth:`HAMTAgent._checkpoint` as one flat dict of host tensors and
+    scalars ("model/<name>", "optimizer/state/<i>/<key>", ...), the form
+    ``torch.distributed.checkpoint`` writes and reads without a template
+    of the optimizers' state."""
+    flat: Dict[str, Any] = {"step": int(blob["step"])}
+    for part in ("model", "critic"):
+        for k, v in blob[part].items():
+            flat[f"{part}/{k}"] = v.detach().to("cpu", copy=True)
+    for part in ("optimizer", "critic_optimizer"):
+        osd = blob[part]
+        flat[f"{part}/param_groups"] = json.dumps(osd["param_groups"])
+        for i, st in osd["state"].items():
+            for key, v in st.items():
+                flat[f"{part}/state/{i}/{key}"] = (v.detach().to("cpu", copy=True)
+                                                   if torch.is_tensor(v) else v)
+    return flat
+
+
+def _unflatten_checkpoint(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    blob: Dict[str, Any] = {"step": flat["step"], "model": {}, "critic": {},
+                            "optimizer": {"state": {}}, "critic_optimizer": {"state": {}}}
+    for k, v in flat.items():
+        if k == "step":
+            continue
+        part, rest = k.split("/", 1)
+        if part in ("model", "critic"):
+            blob[part][rest] = v
+        elif rest == "param_groups":
+            blob[part]["param_groups"] = json.loads(v)
+        else:
+            _, i, key = rest.split("/")
+            blob[part]["state"].setdefault(int(i), {})[key] = v
+    return blob

@@ -15,6 +15,9 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import global_sum
 
 IGNORE_ID = -100
 
@@ -82,9 +85,13 @@ def a2c_loss(
     entropy_weight: float,
     normalize: str = "total",
     use_entropy: bool = True,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """A2C loss and its parts; ``normalize`` divides by the number of
-    live steps (``total``), the batch (``batch``) or nothing (``none``)."""
+    live steps (``total``), the batch (``batch``) or nothing (``none``),
+    counted over the ranks of the data ``group`` when there is one (each
+    rank's loss is then its part of the global batch's, and the parts'
+    gradients sum to the global gradient)."""
     returns = discounted_returns(rewards, masks, last_value, gamma).detach()
     logp = masked_log_softmax(logits)
     act_logp = torch.gather(logp, -1, actions.long()[..., None]).squeeze(-1)
@@ -100,9 +107,9 @@ def a2c_loss(
 
     total = masks.sum()
     if normalize == "total":
-        loss = loss / total.clamp(min=1.0)
+        loss = loss / global_sum(total, group).clamp(min=1.0)
     elif normalize == "batch":
-        loss = loss / logits.shape[1]
+        loss = loss / (logits.shape[1] * (1 if group is None else dist.get_world_size(group)))
     elif normalize != "none":
         raise ValueError(f"bad normalize {normalize!r}")
 

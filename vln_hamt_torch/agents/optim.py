@@ -23,6 +23,15 @@ under optax; its arithmetic is skipped where that is exact (no moment
 state yet, and no weight decay on it), which is the case of the
 ``fix_*`` frozen parts of the model and of the heads a pretraining task
 does not use.
+
+Across ranks (``mesh``, ``parallel/mesh.py``) each update first sums the
+gradients over the data group, once per optimizer step (after
+``grad_accum``'s mean): a parameter takes part where any rank has its
+gradient, so the ones without a gradient stay without one on every rank
+alike. Under tensor parallelism the global-norm clip and the LARS trust
+ratio take the norm of each whole parameter: the squared norms of the
+split parameters (``sharded``) are summed over the model group, the
+replicated ones counted once.
 """
 
 from __future__ import annotations
@@ -31,6 +40,9 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import all_reduce_grads
 
 NAMES = ("adamw", "adam", "rms", "sgd", "radam", "ralamb", "lookahead", "rangerlars")
 #: the lookahead names and the fast optimizer each wraps
@@ -71,12 +83,15 @@ def radam_rectifier(count: int) -> Optional[float]:
                          / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)))
 
 
-def trust_ratio_(u: torch.Tensor, w: torch.Tensor) -> None:
+def trust_ratio_(u: torch.Tensor, w: torch.Tensor, wn: Optional[torch.Tensor] = None,
+                 un: Optional[torch.Tensor] = None) -> None:
     """The LARS / LAMB trust ratio (the 'lamb' of Ralamb,
     ``vln_hamt_tpu/pretrain/optim.py:scale_by_trust_ratio``): ``u`` scaled
-    in place by ||w|| / ||u||, or left as it is where either norm is 0.
-    Stays on the device (no host read)."""
-    wn, un = torch.linalg.vector_norm(w), torch.linalg.vector_norm(u)
+    in place by ||w|| / ||u|| (the norms given, or ``w``'s and ``u``'s),
+    or left as it is where either norm is 0. Stays on the device (no host
+    read)."""
+    wn = torch.linalg.vector_norm(w) if wn is None else wn
+    un = torch.linalg.vector_norm(u) if un is None else un
     ratio = torch.where((wn > 0) & (un > 0), wn / un, torch.ones_like(wn))
     u.mul_(ratio)
 
@@ -102,6 +117,9 @@ class OptaxOptimizer(torch.optim.Optimizer):
       the state, and every ``LOOKAHEAD_SYNC``-th step() (micro-batches
       count) moves the slow weights ``LOOKAHEAD_STEP`` of the way to the
       fast and resets the fast to them.
+    - ``mesh`` (``parallel/mesh.py:Mesh``): the rank's groups; with it
+      the gradients are summed over the data group, and ``sharded``
+      names the parameters split over the model group.
 
     ``state_dict()`` holds the update count, the accumulation and
     lookahead counters and the per-parameter moments (``mu`` for the adam
@@ -113,7 +131,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
                  lr: Union[float, Schedule], weight_decay: float = 0.0,
                  grad_clip: Optional[float] = None,
                  decay: Optional[Iterable[torch.nn.Parameter]] = None,
-                 grad_accum: int = 1):
+                 grad_accum: int = 1, mesh=None,
+                 sharded: Iterable[torch.nn.Parameter] = ()):
         name = "adamw" if name == "adamW" else name
         if name not in NAMES:
             raise ValueError(f"unknown optimizer {name!r}")
@@ -128,6 +147,12 @@ class OptaxOptimizer(torch.optim.Optimizer):
         self.grad_accum = grad_accum
         self._decayed = (None if decay is None or self.inner == "adamw"
                          else {id(p) for p in decay})
+        self.data_group = None if mesh is None else mesh.data_group
+        self._data_host_group = None if mesh is None else mesh.data_host_group
+        self.model_group = (mesh.model_group if mesh is not None and mesh.model_shards > 1
+                            else None)
+        self._sharded = {id(p) for p in sharded}
+        self._split_masks: Dict[tuple, torch.Tensor] = {}  # by which of the params are split
 
     def _decays(self, p: torch.Tensor) -> bool:
         return bool(self.weight_decay) and (self._decayed is None or id(p) in self._decayed)
@@ -154,6 +179,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
             else:
                 grads = {p: p.grad for p in params if p.grad is not None}
             updates: Dict[torch.Tensor, torch.Tensor] = {}
+            if grads is not None and self.data_group is not None:
+                grads = self._sum_over_data(params, grads)
             if grads is not None:  # an update is due
                 group["count"] += 1
                 live = [p for p in params if p in grads or self.state[p].keys() & {"mu", "nu"}
@@ -165,6 +192,32 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 self._lookahead(group, params, updates)
             elif updates:
                 torch._foreach_add_(list(updates), list(updates.values()))
+
+    def _sum_over_data(self, params, grads) -> Dict[torch.Tensor, torch.Tensor]:
+        """The gradients summed over the data group (one bucketed
+        all-reduce); a parameter with a gradient on some rank takes a
+        zero one where it has none. The presence flags go over gloo on the
+        host, so the host does not wait for the device."""
+        have = torch.tensor([p in grads for p in params], dtype=torch.int32)
+        dist.all_reduce(have, op=dist.ReduceOp.MAX, group=self._data_host_group)
+        out = {p: (grads[p] if p in grads else torch.zeros_like(p))
+               for p, h in zip(params, have.tolist()) if h}
+        all_reduce_grads(list(out.values()), self.data_group)
+        return out
+
+    def _sq_norms(self, tensors, params) -> torch.Tensor:
+        """Each tensor's squared norm, over the whole parameter: split
+        parameters' summed over the model group."""
+        sq = torch.stack(torch._foreach_norm(tensors)) ** 2
+        key = tuple(id(p) in self._sharded for p in params)
+        if not any(key):
+            return sq
+        mask = self._split_masks.get(key)
+        if mask is None:  # copied to the device once per set of parameters
+            mask = self._split_masks[key] = torch.tensor(key, device=sq.device)
+        part = torch.where(mask, sq, 0.0)
+        dist.all_reduce(part, group=self.model_group)
+        return torch.where(mask, part, sq)
 
     def _accumulate(self, group, params) -> Optional[Dict[torch.Tensor, torch.Tensor]]:
         """optax.MultiSteps' running mean (acc += (g - acc) / (n + 1));
@@ -193,7 +246,10 @@ class OptaxOptimizer(torch.optim.Optimizer):
         lr = self._lr(group, count - 1)
         if self.grad_clip is not None:
             # optax.clip_by_global_norm: g * max / norm when norm >= max
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if self.model_group is None:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            else:
+                norm = self._sq_norms(grads, params).sum().sqrt()
             scale = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
             grads = torch._foreach_mul(grads, scale)
         if self.inner == "sgd":
@@ -214,8 +270,13 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 torch._foreach_add_([upd[i] for i in decayed], [params[i] for i in decayed],
                                     alpha=self.weight_decay)
         if self.inner == "ralamb":
-            for u, p in zip(upd, params):
-                trust_ratio_(u, p)
+            if self.model_group is None:
+                for u, p in zip(upd, params):
+                    trust_ratio_(u, p)
+            else:
+                wn, un = self._sq_norms(params, params).sqrt(), self._sq_norms(upd, params).sqrt()
+                for i, (u, p) in enumerate(zip(upd, params)):
+                    trust_ratio_(u, p, wn[i], un[i])
         torch._foreach_mul_(upd, -lr)
         return upd
 

@@ -110,15 +110,21 @@ def make_expand_obs(views: int, angle_feat_size: int, ob_type: str = "pano",
     return expand_obs
 
 
-def gumbel_max(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def gumbel_max(logits: torch.Tensor, generator: torch.Generator,
+               rows: Optional[Tuple[int, torch.Tensor]] = None) -> torch.Tensor:
     """One categorical draw per row of ``logits`` (B, N) by the
     Gumbel-max trick, the method of ``jax.random.categorical``:
     ``argmax(logits + g)`` with ``g = -log(-log(u))``. ``u`` is clamped
     into (0, 1), so every ``g`` is finite and a -inf (masked) slot is
     never drawn. Draws from ``generator`` only, and reads nothing back
-    to the host (``torch.multinomial`` may)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=logits.dtype)
+    to the host (``torch.multinomial`` may). With ``rows`` = (n, index)
+    the lanes are rows ``index`` of a global batch of ``n``: the noise is
+    drawn at (n, N) and the lanes take theirs, so data-parallel ranks
+    sharing the generator draw what one rank over the whole batch would."""
+    shape = logits.shape if rows is None else (rows[0], logits.shape[1])
+    u = torch.rand(shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    if rows is not None:
+        u = u[rows[1]]
     fi = torch.finfo(u.dtype)
     u = u.clamp(fi.tiny, 1.0 - fi.eps / 2)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
@@ -159,14 +165,15 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs, objects: bool = Fa
 
     core(txt_embeds, txt_mask, hist_cache, hist_len, t, pano_feat,
          view_index, cand_point, cand_ang, live, forbid, given_action, mode,
-         generator=None, objs=None)
+         generator=None, objs=None, draw_rows=None)
       -> action (B,), logits (B, N), state (B, D), value (B,), hist_cache,
          hist_len, obj_logits (B, K) or None
 
     Modes: ``argmax`` and ``sample`` (Gumbel-max from ``generator``) over
     the logits with ``forbid`` (B, N) masked; ``teacher`` takes
     ``given_action``; ``mixed`` takes ``given_action`` where it is >= 0
-    (teacher-forced lanes) and samples elsewhere.
+    (teacher-forced lanes) and samples elsewhere; ``draw_rows``: the
+    lanes' rows of the global batch (:func:`gumbel_max`).
 
     With ``objects`` the step plans with ``HAMT.plan_ref`` over ``objs``
     = (obj_fts, obj_angs, obj_pos, obj_mask) and the logits are
@@ -184,7 +191,7 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs, objects: bool = Fa
     def core(txt_embeds, txt_mask, hist_cache, hist_len, t,
              pano_feat, view_index, cand_point, cand_ang,
              live, forbid, given_action, mode: str,
-             generator: Optional[torch.Generator] = None, objs=None):
+             generator: Optional[torch.Generator] = None, objs=None, draw_rows=None):
         h_max = hist_cache.shape[1]
         ob = expand_obs(pano_feat, view_index, cand_point, cand_ang)
         n_ob = ob["ob_ang"].shape[1]
@@ -208,7 +215,7 @@ def make_policy_core(model: HAMT, critic: Critic, expand_obs, objects: bool = Fa
             else:
                 if generator is None:
                     raise ValueError(f"policy mode {mode!r} needs a torch.Generator")
-                action = gumbel_max(masked, generator)
+                action = gumbel_max(masked, generator, draw_rows)
                 if mode == "mixed":
                     action = torch.where(given_action >= 0, given_action, action)
         else:
@@ -298,7 +305,7 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
     Returns rollout(txt_ids, txt_mask, feat_table, nav, start_node,
     start_view, offs=None, task_inputs=None, *, policy="argmax",
     compute_rewards=False, compute_bootstrap=False, il=None,
-    generator=None, obj_tables=None) -> (ep, extras) with the JAX
+    generator=None, obj_tables=None, draw_rows=None) -> (ep, extras) with the JAX
     package's keys:
 
     - ``ep``: batch-major (B, T) records of nodes, views, candidate
@@ -311,7 +318,9 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
       ``il`` (REVERIE: also ``il_obj_logits``); REVERIE's greedy rollout
       also ``obj_pred`` (T, B), each step's best object slot.
 
-    ``policy`` is ``argmax`` or ``sample`` (from ``generator``).
+    ``policy`` is ``argmax`` or ``sample`` (from ``generator``; with
+    ``draw_rows`` = (n, index) the [RL | IL] lanes are rows ``index`` of
+    a global batch of ``n`` lanes, :func:`gumbel_max`).
     ``compute_rewards`` needs ``offs`` (B,), each item's scan offset in
     the feature table, and the task's ``task_inputs``.
 
@@ -346,7 +355,8 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
                 compute_rewards: bool = False, compute_bootstrap: bool = False,
                 il: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                obj_tables: Optional[Dict[str, torch.Tensor]] = None
+                obj_tables: Optional[Dict[str, torch.Tensor]] = None,
+                draw_rows: Optional[Tuple[int, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         if policy not in ("argmax", "sample"):
             raise ValueError(f"rollout policy {policy!r}")
@@ -439,7 +449,7 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             action, logits, _, value, hist_cache, hist_len, obj_logits = core(
                 txt_embeds, txt_mask, hist_cache, hist_len, steps[t], pano,
                 view_all, cand_point, cand_ang, live_all, forbid, given, mode, generator,
-                objs=objs)
+                objs=objs, draw_rows=draw_rows)
             if il is not None:
                 il_logits.append(logits[b:])
                 if reverie:

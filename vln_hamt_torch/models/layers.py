@@ -41,6 +41,16 @@ every draw comes from the :class:`DropoutRNG` that
 from torch's global generator: :class:`Dropout` masks from its device
 generator, the attention kernels' 32-bit counter-hash seeds from its CPU
 generator, so choosing a seed never reads the card.
+
+Tensor parallelism (``parallel/mesh.py:shard_model``) splits the
+attentions' query / key / value and the feed-forwards' first dense by
+output features and the output denses by input features across a model
+group, Megatron's layout: each split block enters through
+:class:`_CopyToModel` (identity forward, all-reduce of the cotangent)
+and leaves through the row-parallel :class:`Linear`'s all-reduce
+(:class:`_ReduceFromModel`), its bias added once after the reduce. The
+attention then runs its rank's ``heads / model_shards`` heads through
+the kernels. The bf16 weight cache casts the rank's block.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -79,19 +90,58 @@ class _CachedCast(torch.autograd.Function):
         return grad.to(torch.float32), None
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Entry of a tensor-parallel block: identity forward, the
+    cotangent summed over the model group in backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Exit of a tensor-parallel block: the partial sums summed over the
+    model group forward, the cotangent passed through in backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` in the compute dtype (flax ``nn.Dense``): the input
     cast on every call; below fp32 the weight and bias from
-    :meth:`low_precision_params`."""
+    :meth:`low_precision_params`. A row-parallel layer (``reduce_group``
+    set) sums its product over the group before adding its bias."""
 
     compute_dtype = torch.float32
+    reduce_group = None
     _cache: Optional[Tuple[tuple, torch.Tensor, torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt == torch.float32:
-            return F.linear(x.to(dt), self.weight, self.bias)
-        return F.linear(x.to(dt), *self.low_precision_params())
+        w, b = ((self.weight, self.bias) if dt == torch.float32
+                else self.low_precision_params())
+        if self.reduce_group is None:
+            return F.linear(x.to(dt), w, b)
+        return _ReduceFromModel.apply(F.linear(x.to(dt), w), self.reduce_group) + b
 
     def low_precision_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The weight and bias in the compute dtype, cast once per version
@@ -183,14 +233,22 @@ def erf_gelu(x: torch.Tensor) -> torch.Tensor:
 ACT2FN = {"gelu": erf_gelu, "relu": torch.relu, "swish": nn.functional.silu}
 
 
+#: seed distance between two ranks' dropout streams
+STREAM_STRIDE = 1_000_003
+
+
 class DropoutRNG:
     """The random streams of training-mode dropout: ``masks``, a generator
     on the compute device for dropout masks, and ``seeds``, a CPU
-    generator for the attention kernels' 32-bit seeds."""
+    generator for the attention kernels' 32-bit seeds. ``streams`` =
+    (mask stream, seed stream) offsets them per rank
+    (``parallel/mesh.py:Mesh.dropout_streams``); (0, 0) is one rank's."""
 
-    def __init__(self, device: Union[str, torch.device], seed: int):
-        self.masks = torch.Generator(device=device).manual_seed(seed)
-        self.seeds = torch.Generator().manual_seed(seed + 1)
+    def __init__(self, device: Union[str, torch.device], seed: int,
+                 streams: Tuple[int, int] = (0, 0)):
+        self.masks = torch.Generator(device=device).manual_seed(
+            seed + STREAM_STRIDE * streams[0])
+        self.seeds = torch.Generator().manual_seed(seed + 1 + STREAM_STRIDE * streams[1])
 
     def keep(self, x: torch.Tensor, p: float) -> torch.Tensor:
         """A keep mask like ``x`` with ones at probability ``1 - p``."""
@@ -251,6 +309,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
         self.dropout_prob = cfg.attention_probs_dropout_prob
         self.rng: Optional[DropoutRNG] = None
+        self.tp_group = None  # tensor parallelism: this rank's heads
         width = self.num_heads * self.head_dim
         self.query = Linear(cfg.hidden_size, width)
         self.key = Linear(cfg.hidden_size, width)
@@ -261,6 +320,9 @@ class MultiHeadAttention(nn.Module):
         b, lq, _ = hidden.shape
         lk = context.shape[1]
         h, dh = self.num_heads, self.head_dim
+        entry = copy_to_model(hidden, self.tp_group)
+        context = entry if context is hidden else copy_to_model(context, self.tp_group)
+        hidden = entry
         # (B, L, H, Dh) projections seen as (B, H, L, Dh) strided views:
         # the kernel reads them in place, no transpose copies
         q = self.query(hidden).view(b, lq, h, dh).transpose(1, 2)
@@ -321,9 +383,10 @@ class Intermediate(nn.Module):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.intermediate_size)
         self.act = ACT2FN[cfg.hidden_act]
+        self.tp_group = None  # tensor parallelism: column-parallel dense
 
     def forward(self, x):
-        return self.act(self.dense(x))
+        return self.act(self.dense(copy_to_model(x, self.tp_group)))
 
 
 def feed_forward(inter: Intermediate, out: AttnOutput, x: torch.Tensor):
@@ -411,6 +474,23 @@ class CrossModalLayer(nn.Module):
         lang self-attention + FFN without any visual input."""
         lang_x = self.lang_self_att(lang, None, lang_mask)
         return feed_forward(self.lang_inter, self.lang_output, lang_x)
+
+
+def enable_tensor_parallel(module: nn.Module, group, shards: int) -> None:
+    """Hand the model group to every block below ``module`` whose weights
+    ``parallel/mesh.py:shard_model`` split: the attentions (``heads /
+    shards`` heads each) and intermediates enter through
+    :func:`copy_to_model`, the output denses reduce."""
+    for m in module.modules():
+        if isinstance(m, MultiHeadAttention):
+            if m.num_heads % shards:
+                raise ValueError(f"{m.num_heads} heads do not split {shards} ways")
+            m.num_heads //= shards
+            m.tp_group = group
+        elif isinstance(m, Intermediate):
+            m.tp_group = group
+        elif isinstance(m, AttnOutput):
+            m.dense.reduce_group = group
 
 
 def set_dropout_rng(module: nn.Module, rng: Optional[DropoutRNG]) -> None:

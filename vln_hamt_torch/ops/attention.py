@@ -309,16 +309,20 @@ def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"attention over Lk={lk}, Dh={dh} needs {smem} B of "
                          f"shared memory per block (limit {MAX_SMEM_BYTES})")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.hamt_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, h, lq, lk, dh,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        m.stride(0), m.stride(1),
-        out.stride(0), out.stride(2), out.stride(1),
-        1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
+    # the stream, the kernel's cudaFuncSetAttribute and the launch all act
+    # on the current device: make it the tensors' card (a process may see
+    # several)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hamt_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, h, lq, lk, dh,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            m.stride(0), m.stride(1),
+            out.stride(0), out.stride(2), out.stride(1),
+            1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     launch_counts["attention_fwd"] += 1
@@ -366,13 +370,14 @@ def _launch_bwd(q, k, v, m, g, seed: int, rate: float,
     dm_part = torch.empty((nqb, b, h, lk), **f32) if need_dm else None
     ptr = lambda t: None if t is None else t.data_ptr()
     strides = [s for t in (q, k, v, g, *views) for s in t.stride()[:3]] + list(m.stride())
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.hamt_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        ptr(dk_part), ptr(dv_part), ptr(dm_part), ptr(dm),
-        _DTYPES[q.dtype], b, h, lq, lk, dh, (ctypes.c_longlong * 23)(*strides),
-        1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
+    with torch.cuda.device(q.device):  # as in _launch
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hamt_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ptr(dk_part), ptr(dv_part), ptr(dm_part), ptr(dm),
+            _DTYPES[q.dtype], b, h, lq, lk, dh, (ctypes.c_longlong * 23)(*strides),
+            1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
     launch_counts["attention_bwd"] += 1

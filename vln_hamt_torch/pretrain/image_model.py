@@ -25,7 +25,7 @@ SpRel 12 forward and 12 backward over the observation's B x 36.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,12 +58,14 @@ class HAMTImagePretrain(HAMTPretrain):
             feats, _ = self.vit(x, return_logits=False)
         return feats.reshape(*lead, feats.shape[-1])
 
-    def forward(self, batch: Batch, task: str, feat_table: Optional[torch.Tensor] = None):
+    def forward(self, batch: Batch, task: str, feat_table: Optional[torch.Tensor] = None,
+                rows: Optional[Tuple[int, int]] = None):
         """Replace the image tensors with ViT features, then the trunk's task
         forward. Image keys (uint8): ``hist_pano_images`` (B, T, 36, H, W,
         3) with ``hist_viewindex`` (B, T), the view faced at each step;
         ``ob_images`` (B, 36, H, W, 3). Other entries pass through.
-        ``feat_table`` is accepted for the trainer's call and unused."""
+        ``feat_table`` is accepted for the trainer's call and unused;
+        ``rows`` as the trunk's (ITM's rows of a global batch)."""
         fed: Dict[str, torch.Tensor] = dict(batch)
         b = batch["txt_ids"].shape[0]
         if "hist_pano_images" in fed:
@@ -81,7 +83,7 @@ class HAMTImagePretrain(HAMTPretrain):
             if "ob_v_exists" in fed:  # random visual kill (:101-102)
                 ob = ob * fed["ob_v_exists"][:, None, None]
             fed["ob_img"] = torch.cat([ob, ob.new_zeros((b, 1, ob.shape[-1]))], dim=1)
-        return super().forward(fed, task)
+        return super().forward(fed, task, rows=rows)
 
 
 def init_image_pretrain(cfg: ModelConfig, vit_cfg: ViTConfig, seed: int = 0

@@ -37,6 +37,7 @@ from ..configs import ModelConfig
 from ..data.angle import all_point_angle_feature
 from ..models.hamt import HAMT, MLP2Head, init_weights_
 from ..models.layers import LayerNorm, Linear, erf_gelu, set_compute_dtype
+from ..parallel.mesh import global_sum
 from .tasks import TASK_NAMES
 from .trajectory_data import IGNORE_ID
 
@@ -75,14 +76,19 @@ class MLMHead(nn.Module):
         return (h @ word_embeddings.to(h.dtype).t()).float() + self.predictions.bias
 
 
-def _count(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum().clamp(min=1)
-
-
 class HAMTPretrain(nn.Module):
     """The trunk and the heads of MultiStepNavCMTPreTraining; one forward
     per task, each returning (loss, aux) with aux the task's metrics as
-    device scalars (``n``: the examples or tokens the loss averages)."""
+    device scalars (``n``: the examples or tokens the loss averages).
+
+    Across data-parallel ranks (``data_group``, set by the trainer) a
+    training forward divides by the counts of the global batch, summed
+    over the group: each rank's loss and metrics are then its part of
+    the global batch's, and the parts sum to them (the trainer sums).
+    Evaluation divides by its own counts and runs no collective."""
+
+    #: the data-parallel group whose counts the training losses divide by
+    data_group = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -98,6 +104,14 @@ class HAMTPretrain(nn.Module):
         set_compute_dtype(self, self.bert.compute_dtype)
 
     # ------------------------------------------------------------------
+    def _global(self, count: torch.Tensor) -> torch.Tensor:
+        """``count`` summed over the data group in training (the global
+        batch's), else itself."""
+        return global_sum(count, self.data_group if self.training else None)
+
+    def _count(self, mask: torch.Tensor) -> torch.Tensor:
+        return self._global(mask.sum()).clamp(min=1)
+
     def _history(self, b: Batch, pos_ids: Optional[torch.Tensor] = None):
         """The history steps' embeddings (B, T, D) from the batch."""
         return self.bert.encode_history_seq(b["hist_img"], b["hist_ang"], b.get("hist_pano_img"),
@@ -130,8 +144,7 @@ class HAMTPretrain(nn.Module):
         h = hist.shape[1]
         return txt_out, visn_out[:, :h], (visn_out[:, h:] if with_ob else None)
 
-    @staticmethod
-    def _weighted(b: Batch, per_example: torch.Tensor, correct: torch.Tensor):
+    def _weighted(self, b: Batch, per_example: torch.Tensor, correct: torch.Tensor):
         """Mean loss and accuracy over the batch, over the rows that
         ``ex_valid`` keeps when the batch has it (full-split validation's
         wrap-padded rows count nowhere)."""
@@ -140,8 +153,12 @@ class HAMTPretrain(nn.Module):
             wn = w.sum().clamp(min=1.0)
             return ((per_example * w).sum() / wn,
                     {"acc": (correct.float() * w).sum() / wn, "n": w.sum()})
-        return per_example.mean(), {"acc": correct.float().mean(),
-                                    "n": torch.tensor(float(per_example.shape[0]))}
+        if self.data_group is None or not self.training:
+            return per_example.mean(), {"acc": correct.float().mean(),
+                                        "n": torch.tensor(float(per_example.shape[0]))}
+        n = per_example.new_full((), float(per_example.shape[0]))  # no host copy
+        total = self._global(n)
+        return per_example.sum() / total, {"acc": correct.float().sum() / total, "n": n}
 
     # ------------------------------------------------------------- MLM
     def forward_mlm(self, b: Batch):
@@ -155,7 +172,7 @@ class HAMTPretrain(nn.Module):
             valid = valid & b["ex_valid"][:, None]
         tgt = torch.where(valid, labels, 0)
         nll = -torch.log_softmax(logits, dim=-1).gather(-1, tgt[..., None]).squeeze(-1)
-        n = _count(valid)
+        n = self._count(valid)
         loss = torch.where(valid, nll, 0.0).sum() / n
         acc = ((logits.argmax(-1) == labels) & valid).sum() / n
         return loss, {"acc": acc, "n": valid.sum()}
@@ -173,7 +190,7 @@ class HAMTPretrain(nn.Module):
         if "ex_valid" in b:
             mask = mask & b["ex_valid"][:, None]
         kl = (targets * (torch.log(targets.clamp(min=1e-12)) - logp)).sum(-1)
-        n = _count(mask)
+        n = self._count(mask)
         loss = torch.where(mask, kl, 0.0).sum() / n
         acc = ((logits.argmax(-1) == targets.argmax(-1)) & mask).sum() / n
         return loss, {"acc": acc, "n": mask.sum()}
@@ -210,8 +227,7 @@ class HAMTPretrain(nn.Module):
         pred = self.sprel_head(torch.cat([anchor.expand_as(views), views], dim=-1)).float()
         return self._regression(b, (pred - b["sp_targets"]) ** 2, ("heading", "elevation"))
 
-    @staticmethod
-    def _regression(b: Batch, sq: torch.Tensor, names):
+    def _regression(self, b: Batch, sq: torch.Tensor, names):
         """Mean squared error and its per-component means (the
         validators' metrics, main_r2r.py:398-453); ``sq`` is (B, C) or
         (B, V, C)."""
@@ -222,43 +238,58 @@ class HAMTPretrain(nn.Module):
                 dim=tuple(range(sq.dim() - 1))) / wn
             n = w.sum()
             loss = per_dim.mean()
-        else:
+        elif self.data_group is None or not self.training:
             per_dim = sq.mean(dim=tuple(range(sq.dim() - 1)))
             n = torch.tensor(float(sq.shape[0]))
             loss = sq.mean()
+        else:
+            n = sq.new_full((), float(sq.shape[0]))
+            count = self._global(n) * (sq.numel() // (sq.shape[0] * sq.shape[-1]))
+            per_dim = sq.sum(dim=tuple(range(sq.dim() - 1))) / count
+            loss = per_dim.mean()
         aux = {f"{k}_loss": per_dim[i] for i, k in enumerate(names)}
         aux["n"] = n
         return loss, aux
 
     # ------------------------------------------------------------- ITM
-    def forward_itm(self, b: Batch):
+    def forward_itm(self, b: Batch, rows: Optional[Tuple[int, int]] = None):
         """Instruction-trajectory matching (vilmodel.py:640-724,
         pretrain_cmt.py:245-262): the positive pair, in-batch negative
         histories and shuffled-order negatives, a 1-of-(1+K)
         cross-entropy with the positive at 0. The cross-modal stack runs
-        over all (1+K) x B pairs at once."""
+        over all (1+K) x B pairs at once.
+
+        With ``rows`` = [start, stop) the batch is the global one and the
+        rank scores its rows only: every history is encoded, since the
+        in-batch negatives index the whole batch, and the ranks'
+        gradients sum to the global batch's."""
         bert = self.bert
-        txt_ids, txt_mask, hist_mask = b["txt_ids"], b["txt_mask"], b["hist_mask"]
+
+        def own(x):  # the rank's rows (all of them without ``rows``)
+            return x if rows is None else x[rows[0]:rows[1]]
+
+        txt_ids, txt_mask, hist_mask = own(b["txt_ids"]), own(b["txt_mask"]), b["hist_mask"]
         bsz, t = b["hist_img"].shape[:2]
         txt = bert.encode_text(txt_ids, txt_mask)
         cls_tok = bert.init_history(bsz)[:, None, :]
         base = self._history(b)  # position-free
 
-        def with_pos(ids):
-            hist = torch.cat([cls_tok, bert.apply_hist_pos(base, ids)], dim=1)
-            return bert.run_h_layers(hist, hist_mask)
+        def with_pos(ids, pick=lambda x: x):
+            hist = torch.cat([pick(cls_tok), bert.apply_hist_pos(pick(base), ids)], dim=1)
+            return bert.run_h_layers(hist, pick(hist_mask))
 
         pos_hist = with_pos(torch.arange(t, device=txt_ids.device).expand(bsz, t))
-        hists, masks = [pos_hist], [hist_mask]
+        hists, masks = [own(pos_hist)], [own(hist_mask)]
         if "itm_neg_idxs" in b:  # (B, K1) in-batch negatives
             for k in range(b["itm_neg_idxs"].shape[1]):
-                idx = b["itm_neg_idxs"][:, k]
+                idx = own(b["itm_neg_idxs"])[:, k]
                 hists.append(pos_hist[idx])
                 masks.append(hist_mask[idx])
         if "itm_shuffled_pos" in b:  # (K2, B, T) shuffled orders
             for ids in b["itm_shuffled_pos"]:
-                hists.append(with_pos(ids))
-                masks.append(hist_mask)
+                hists.append(with_pos(own(ids), own))
+                masks.append(own(hist_mask))
+        bsz = txt_ids.shape[0]
         n = len(hists)
         txt_rep = txt.repeat(1, n, 1, 1) if self.config.no_lang_ca else txt.repeat(n, 1, 1)
         txt_out, hist_out = bert.fuse(txt_rep, txt_mask.repeat(n, 1), torch.cat(hists),
@@ -266,18 +297,25 @@ class HAMTPretrain(nn.Module):
         scores = self.itm_head(txt_out[:, 0] * hist_out[:, 0]).view(n, bsz).t().float()
         nll = -torch.log_softmax(scores, dim=-1)[:, 0]
         # wrap-padded rows (ex_valid False) still serve as negatives
-        return self._weighted(b, nll, scores.argmax(-1) == 0)
+        valid = {"ex_valid": own(b["ex_valid"])} if "ex_valid" in b else {}
+        return self._weighted(valid, nll, scores.argmax(-1) == 0)
 
     # ------------------------------------------------------------------
-    def forward(self, batch: Batch, task: str, feat_table: Optional[torch.Tensor] = None):
+    def forward(self, batch: Batch, task: str, feat_table: Optional[torch.Tensor] = None,
+                rows: Optional[Tuple[int, int]] = None):
         """Task dispatch (pretrain_cmt.py:101-140). With ``feat_table``
         and an index-mode batch (``hist_node`` present), the feature
         stacks are first gathered on the device from the resident table
-        (:func:`expand_index_batch`)."""
+        (:func:`expand_index_batch`). ``rows``: ITM's rows of a global
+        batch (:meth:`forward_itm`)."""
         if feat_table is not None and "hist_node" in batch:
             batch = expand_index_batch(batch, feat_table, self.config)
         if task not in TASK_NAMES:
             raise ValueError(f"unknown task {task!r}")
+        if task == "itm":
+            return self.forward_itm(batch, rows)
+        if rows is not None:
+            raise ValueError(f"only ITM takes the global batch's rows, not {task!r}")
         return getattr(self, f"forward_{task}")(batch)
 
 

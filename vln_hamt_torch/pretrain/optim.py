@@ -18,6 +18,7 @@ import numpy as np
 from torch import nn
 
 from ..agents.optim import OptaxOptimizer
+from ..parallel.mesh import param_partition_spec
 
 Schedule = Callable[[int], float]
 
@@ -72,7 +73,7 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
 
 def build_pretrain_optimizer(name: str, model: nn.Module, lr: Union[float, Schedule],
                              weight_decay: float = 0.01, grad_norm: Optional[float] = None,
-                             grad_accum: int = 1) -> OptaxOptimizer:
+                             grad_accum: int = 1, mesh=None) -> OptaxOptimizer:
     """The optimizer of ``model``'s parameters (pretrain_src/optim):
     adamw | adam | radam | ralamb | lookahead (lookahead around adam) |
     rangerlars (lookahead around ralamb), as the JAX package composes
@@ -81,11 +82,15 @@ def build_pretrain_optimizer(name: str, model: nn.Module, lr: Union[float, Sched
     radam and ralamb take the mask of :func:`decay_mask`; ``grad_accum``
     accumulates as ``optax.MultiSteps`` inside the lookahead (sync every
     6 micro-batches, slow step 0.5), whose sync counter ticks per
-    micro-batch."""
+    micro-batch. ``mesh``: the rank's groups (``agents/optim.py``), the
+    split parameters named by ``parallel/mesh.py:param_partition_spec``."""
     if name not in ("adamw", "adam", "radam", "ralamb", "lookahead", "rangerlars"):
         raise ValueError(f"unknown pretrain optimizer {name!r}")
     mask = decay_mask(model)
     params = dict(model.named_parameters())
     return OptaxOptimizer(params.values(), name, lr, weight_decay=weight_decay,
                           grad_clip=grad_norm, decay=[params[k] for k, d in mask.items() if d],
-                          grad_accum=grad_accum)
+                          grad_accum=grad_accum, mesh=mesh,
+                          sharded=[p for k, p in params.items()
+                                   if mesh is not None and mesh.model_shards > 1
+                                   and param_partition_spec(k) is not None])

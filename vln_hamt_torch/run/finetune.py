@@ -8,8 +8,11 @@
         [--aug AUG.json] [--init_pretrain P.pt | --init_ref_ckpt REF.pt] \\
         [--resume_file latest.pt] \\
         [--eval_first] [--feedback teacher [--packed_il]] [--no_merged_sample] [--bf16] \\
-        [--no_feat_table] [--no_cand_backtrack] [--iters N --log_every K]
+        [--no_feat_table] [--no_cand_backtrack] [--iters N --log_every K] \
+        [--orbax_ckpt]
     python -m vln_hamt_torch.run.finetune --task rxr --synthetic [--valid_only] ...
+    torchrun --nproc_per_node 2 -m vln_hamt_torch.run.finetune ... \
+        --data_shards 2 [--sharded_feed] | --model_shards 2
 
 runs the task's preset (the R2R family, R2R-Back, CVDN, or REVERIE with
 its object grounding) at full width on the GPU (``--cpu`` runs on the
@@ -46,8 +49,22 @@ it prints ``{"best": {...}}``; the selection score is the task's
 instead (``--resume_file`` and/or ``--init_ref_ckpt`` give the weights),
 prints ``{"valid": {split: metrics}}`` and writes ``valid.txt`` (and
 ``submit_{split}.json`` with ``--submit``, with R2R-Back's ``midstop``
-and REVERIE's ``predObjId``). The JAX CLI's other flags are accepted and
+and REVERIE's ``predObjId``). ``--orbax_ckpt`` writes the checkpoints as
+``torch.distributed.checkpoint`` directories (``latest``,
+``best_val_unseen``; asynchronously, waited for before exit), which
+``--resume_file`` also takes. The JAX CLI's other flags are accepted and
 raise, naming their ROADMAP item.
+
+Across GPUs, one rank per process (``parallel/mesh.py``; ``torchrun`` or
+RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT): ``--data_shards`` x
+``--model_shards`` must be the number of ranks. Data parallelism trains
+each rank on its rows of the global batch that every rank's env replica
+builds, or with ``--sharded_feed`` on its own shard of the train split
+at ``batch / data_shards``; ``--model_shards`` splits the transformer
+blocks (tensor parallelism). The validation splits are sharded over the
+data ranks (a model group's ranks take the same shard), their
+predictions gathered before the metrics. Rank 0 alone writes records,
+``metrics.jsonl`` and checkpoints.
 """
 
 from __future__ import annotations
@@ -72,6 +89,8 @@ from ..data.fixtures import (add_synthetic_objects, make_synthetic_cvdn_items,
 from ..data.instructions import construct_instrs
 from ..data.nav_graph import load_nav_graphs
 from ..env import CVDNNavEnv, ObsSpec, R2RBackNavEnv, R2RNavEnv, ReverieNavEnv
+from ..parallel.mesh import (Mesh, host_allgather, init_distributed, is_default_process,
+                             local_device, make_mesh)
 from ..utils.flops import analytic_update_flops, chip_peak_flops
 from ..utils.logging import MetricsLogger, write_record
 
@@ -83,10 +102,7 @@ _AGENT_CLS = {**{task: HAMTAgent for task in ("r2r", "r2r_last", "r4r", "rxr")},
 
 #: flags of the JAX CLI that the port does not run yet, with their
 #: ROADMAP item
-_UNPORTED_FLAGS = {
-    "sharded_feed": "A13", "data_shards": "A13", "model_shards": "A13",
-    "orbax_ckpt": "A13", "remat": "A19", "remat_policy": "A19", "rng_impl": "A20",
-}
+_UNPORTED_FLAGS = {"remat": "A19", "remat_policy": "A19", "rng_impl": "A20"}
 
 
 def selection_score(dataset: str, metrics: Dict[str, float]) -> float:
@@ -100,8 +116,22 @@ def selection_score(dataset: str, metrics: Dict[str, float]) -> float:
     return metrics.get("spl", 0.0) + metrics.get("sr", 0.0)
 
 
+def _env_layout(cfg: HAMTConfig, mesh: Optional[Mesh], sharded_feed: bool):
+    """(train split's shard, train batch, val shard, val batch): the data
+    index's shard of a split at ``batch / data_shards``, or None and the
+    whole batch (the train env's replicated feed, or one data rank)."""
+    b = cfg.train.batch_size
+    if mesh is None or mesh.data_shards == 1:
+        return None, b, None, b
+    if b % mesh.data_shards:
+        raise ValueError(f"batch {b} is not divisible by {mesh.data_shards} data shards")
+    shard, local = (mesh.data_index, mesh.data_shards), b // mesh.data_shards
+    return (shard if sharded_feed else None), (local if sharded_feed else b), shard, local
+
+
 def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = False,
-                            aug: bool = False):
+                            aug: bool = False, mesh: Optional[Mesh] = None,
+                            sharded_feed: bool = False):
     """Fixture-backed envs for hermetic runs (no Matterport data), with the
     preset's feature width.
 
@@ -110,7 +140,8 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
     alternation (main.py:146-161) runs hermetically. The variants take
     the world's items as their fixtures make them (R2R-Back's out-and-back
     paths, CVDN's dialog items with end panos, REVERIE's target objects
-    and object database), as the JAX CLI wires them.
+    and object database), as the JAX CLI wires them. ``mesh`` shards the
+    splits as :func:`_env_layout` says.
     """
     dataset = cfg.env.dataset
     world = make_synthetic_world(
@@ -139,15 +170,18 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
         items = world.instr_data
     n_train = int(len(items) * 0.75)
     env_cls = _ENV_CLS[dataset]
+    train_shard, train_bs, val_shard, val_bs = _env_layout(cfg, mesh, sharded_feed)
 
     def make_env(data, name, seed_shift=0):
+        is_train = name in ("train", "aug")
         return env_cls(
             world.graphs, world.feat_db, data, spec,
-            batch_size=cfg.train.batch_size,
+            batch_size=train_bs if is_train else val_bs,
             max_instr_len=cfg.env.max_instr_len,
             max_action_len=cfg.env.max_action_len,
             seed=cfg.train.seed + seed_shift, name=name,
-            reuse_episode_buffers=(name in ("train", "aug")),
+            sel_data_idxs=train_shard if is_train else val_shard,
+            reuse_episode_buffers=is_train,
             **env_kwargs,
         )
 
@@ -167,8 +201,9 @@ def build_synthetic_dataset(cfg: HAMTConfig, seed: int = 0, test_split: bool = F
 
 def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
                        feat_db: Optional[FeatureDB] = None,
-                       obj_db: Optional[dict] = None) -> Tuple:
-    """Envs over the reference's files (main.py:26-83), one process.
+                       obj_db: Optional[dict] = None, mesh: Optional[Mesh] = None) -> Tuple:
+    """Envs over the reference's files (main.py:26-83), sharded over
+    ``mesh``'s data ranks as :func:`_env_layout` says (``args.sharded_feed``).
 
     ``valid_only`` builds only the evaluation envs: the reference's
     ``valid()`` never touches the train split (r2r/main.py:225-269), so a
@@ -231,6 +266,8 @@ def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
                           obj_feat_size=cfg.model.obj_feat_size)
     elif dataset == "cvdn":
         env_kwargs["use_player_path"] = cfg.env.use_player_path
+    train_shard, train_bs, val_shard, val_bs = _env_layout(
+        cfg, mesh, bool(getattr(args, "sharded_feed", False)))
 
     def make_env(data, name):
         is_train = name in ("train", "aug")
@@ -240,10 +277,11 @@ def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
                           multi_startpoints=name == "aug")
         return env_cls(
             graphs, feat_db, data, spec,
-            batch_size=cfg.train.batch_size,
+            batch_size=train_bs if is_train else val_bs,
             max_instr_len=cfg.env.max_instr_len,
             max_action_len=cfg.env.max_action_len,
             seed=cfg.train.seed, name=name,
+            sel_data_idxs=train_shard if is_train else val_shard,
             reuse_episode_buffers=is_train, **kwargs,
         )
 
@@ -257,11 +295,11 @@ def build_real_dataset(cfg: HAMTConfig, args, valid_only: bool = False,
     return cfg, train_env, val_envs
 
 
-def _merge_preds(preds: List[dict]) -> List[dict]:
-    """Predictions deduped by instr_id (one process; the cross-process
-    gather arrives with multi-GPU, ROADMAP item A13)."""
+def _merge_preds(preds: List[dict], mesh: Optional[Mesh] = None) -> List[dict]:
+    """Every rank's predictions (``host_allgather``), deduped by instr_id:
+    the data ranks' shards join, a model group's copies collapse."""
     merged: Dict[str, dict] = {}
-    for p in preds:
+    for p in (q for shard in host_allgather(preds, mesh) for q in shard):
         merged.setdefault(p["instr_id"], p)
     return list(merged.values())
 
@@ -295,7 +333,8 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
           eval_first: bool = False, resume_file: Optional[str] = None,
           merged_sample: bool = True, init_ref_ckpt: Optional[str] = None,
           packed_il: bool = False, no_cand_backtrack: bool = False,
-          device=None) -> Dict[str, float]:
+          device=None, mesh: Optional[Mesh] = None, sharded_feed: bool = False,
+          orbax_ckpt: bool = False) -> Dict[str, float]:
     """The train/validate loop (main.py:86-222) with the config's
     feedback; ``sample`` updates are merged (the JAX CLI's production
     default) unless ``merged_sample`` is off, then fused; ``packed_il``
@@ -303,7 +342,10 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
     ``no_cand_backtrack`` goes to every evaluation. Without the config's
     ``feat_table`` the features stay on the host.
     ``train_env`` may be a (train_env, aug_env) pair: the updates of an
-    interval then alternate between the two (main.py:150-161)."""
+    interval then alternate between the two (main.py:150-161).
+    ``mesh``: train as its rank (``agent.enable_mesh``; with
+    ``sharded_feed`` the envs hold the rank's shard); ``orbax_ckpt``:
+    directory checkpoints written asynchronously."""
     os.makedirs(output_dir, exist_ok=True)
     logger = MetricsLogger(output_dir)
     record_file = os.path.join(output_dir, "train.txt")
@@ -313,6 +355,13 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
         train_env, aug_env = train_env
     agent = _AGENT_CLS[dataset](cfg, train_env, seed=cfg.train.seed, device=device)
     agent.merged_sample_update = merged_sample
+    if mesh is not None:  # before any weights land: they are split on load
+        agent.enable_mesh(mesh)
+        if sharded_feed:
+            if packed_il:
+                raise ValueError("--packed_il with --sharded_feed is not supported (the "
+                                 "JAX CLI's guard)")
+            agent.enable_host_sharded_feed()
     # reference or pretrained weights first, then the feature table, then
     # a resumed checkpoint, which wins
     _apply_weight_init(agent, init_ref_ckpt, record_file)
@@ -328,13 +377,20 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
         agent.enable_packed_il()
     if resume_file:
         agent.load(resume_file, resume_optimizer=cfg.train.resume_optimizer)
-    with open(os.path.join(output_dir, "training_config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if is_default_process():
+        with open(os.path.join(output_dir, "training_config.json"), "w") as f:
+            f.write(cfg.to_json())
+
+    def save(stem: str) -> None:
+        if orbax_ckpt:
+            agent.save_dir(os.path.join(output_dir, stem), async_=True)
+        else:
+            agent.save(os.path.join(output_dir, stem + ".pt"))
 
     if eval_first:  # sanity eval before training (main.py:112-128)
         for name, env in val_envs.items():
             metrics, _ = env.eval_metrics(_merge_preds(
-                agent.eval_split_fast(env, no_cand_backtrack)))
+                agent.eval_split_fast(env, no_cand_backtrack), mesh))
             write_record(record_file, f"eval_first {name}: {metrics}")
 
     iters = iters or cfg.train.iters
@@ -376,7 +432,7 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
         for name, env in val_envs.items():
             with logger.timer(f"eval_{name}"):
                 metrics, _ = env.eval_metrics(_merge_preds(
-                    agent.eval_split_fast(env, no_cand_backtrack)))
+                    agent.eval_split_fast(env, no_cand_backtrack), mesh))
             logger.log(step, metrics, prefix=f"{name}/")
             write_record(record_file, f"iter {step} {name}: " + ", ".join(
                 f"{k}={v:.2f}" for k, v in metrics.items()))
@@ -384,21 +440,26 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
                 score = selection_score(dataset, metrics)
                 if score > best["score"]:
                     best = {"score": score, "iter": step, **metrics}
-                    agent.save(os.path.join(output_dir, "best_val_unseen.pt"))
-        agent.save(os.path.join(output_dir, "latest.pt"))
+                    save("best_val_unseen")
+        save("latest")
         logger.log_timers(step)
+    agent.wait_for_checkpoints()
     return best
 
 
 def valid(cfg: HAMTConfig, ckpt: Optional[str], val_envs: Dict[str, R2RNavEnv],
           output_dir: str, submit: bool = False, init_ref_ckpt: Optional[str] = None,
-          no_cand_backtrack: bool = False, device=None) -> Dict[str, Dict[str, float]]:
+          no_cand_backtrack: bool = False, device=None,
+          mesh: Optional[Mesh] = None) -> Dict[str, Dict[str, float]]:
     """Stand-alone greedy evaluation of a checkpoint (main.py:225-269):
     greedy eval per split, metrics for GT splits, ``submit_{split}.json``
-    dumps, and a valid.txt record file."""
+    dumps, and a valid.txt record file; as ``mesh``'s rank over its
+    shards when given."""
     os.makedirs(output_dir, exist_ok=True)
     record_file = os.path.join(output_dir, "valid.txt")
     agent = _AGENT_CLS[cfg.env.dataset](cfg, None, seed=cfg.train.seed, device=device)
+    if mesh is not None:
+        agent.enable_mesh(mesh)
     _apply_weight_init(agent, init_ref_ckpt, record_file)
     if ckpt:
         step = agent.load(ckpt)
@@ -410,13 +471,13 @@ def valid(cfg: HAMTConfig, ckpt: Optional[str], val_envs: Dict[str, R2RNavEnv],
     results = {}
     for name, env in val_envs.items():
         agent.env = env
-        merged = _merge_preds(agent.eval_split_fast(env, no_cand_backtrack))
+        merged = _merge_preds(agent.eval_split_fast(env, no_cand_backtrack), mesh)
         if "test" not in name:  # test splits have no GT (main.py:258-262)
             metrics, _ = env.eval_metrics(merged)
             results[name] = metrics
             write_record(record_file, f"{name}: " + ", ".join(
                 f"{k}={v:.2f}" for k, v in metrics.items()))
-        if submit:
+        if submit and is_default_process():
             path = os.path.join(output_dir, f"submit_{name}.json")
             with open(path, "w") as f:
                 # the task's extras ride along, as in the reference's
@@ -497,22 +558,35 @@ def parse_args(argv=None):
                         "then the rollout) instead of the merged one (the teacher "
                         "episode as extra lanes of the rollout)")
     p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"])
-    p.add_argument("--orbax_ckpt", action="store_true")
-    p.add_argument("--sharded_feed", action="store_true")
+    p.add_argument("--orbax_ckpt", action="store_true",
+                   help="write directory checkpoints (torch.distributed.checkpoint, "
+                        "asynchronous) instead of .pt files; --resume_file takes either")
+    p.add_argument("--sharded_feed", action="store_true",
+                   help="each data rank's train env holds its shard of the split at "
+                        "batch / data_shards (else every rank builds the global batch)")
     p.add_argument("--packed_il", action="store_true",
                    help="pack several teacher episodes into each slot of the IL episode "
                         "loop (agents/packing.py): about T / mean length more episodes "
                         "per update, the same per-episode estimator; teacher feedback "
                         "and the feature table only")
-    p.add_argument("--data_shards", type=int, default=None)
-    p.add_argument("--model_shards", type=int, default=None)
+    p.add_argument("--data_shards", type=int, default=None,
+                   help="data-parallel ranks (the batch split over them)")
+    p.add_argument("--model_shards", type=int, default=None,
+                   help="tensor-parallel ranks (the transformer blocks split over them)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    # the ranks' process group first (a no-op on one process)
+    dist_up = init_distributed(cpu=args.cpu)
+    mesh = make_mesh(args.data_shards or 1, args.model_shards or 1)
+    mesh = mesh if dist_up else None
     if args.packed_il and args.no_feat_table:
         raise ValueError("--packed_il requires the feature table")
+    if args.packed_il and args.sharded_feed:
+        raise ValueError("--packed_il with --sharded_feed is not supported (the JAX CLI's "
+                         "guard)")
     for flag, item in _UNPORTED_FLAGS.items():
         value = getattr(args, flag)
         if value not in (None, False):
@@ -521,14 +595,17 @@ def main(argv=None):
                                    and args.img_ft_file):
         raise ValueError("real-data runs need --anno_dir --connectivity_dir --img_ft_file "
                          "(or pass --synthetic)")
-    device = resolve_device("cpu" if args.cpu else None)
+    device = resolve_device(local_device(args.cpu) if dist_up else
+                            ("cpu" if args.cpu else None))
     # a port pretraining checkpoint is a reference pretrain ModelSaver file
     init_ckpt = args.init_ref_ckpt or args.init_pretrain
 
     cfg = get_preset(args.task)
     overrides = {key: getattr(args, key) for key in ("batch_size", "lr", "feedback")
                  if getattr(args, key) is not None}
-    cfg = cfg.replace(train={**overrides, "seed": args.seed})
+    cfg = cfg.replace(train={**overrides, "seed": args.seed,
+                             "num_data_shards": args.data_shards or 1,
+                             "model_shards": args.model_shards or 1})
     if args.no_feat_table:
         cfg = cfg.replace(train={"feat_table": False})
     if args.bf16:
@@ -549,14 +626,16 @@ def main(argv=None):
 
     if args.synthetic:
         cfg, train_env, val_envs = build_synthetic_dataset(
-            cfg, args.seed, test_split=args.submit, aug=bool(args.aug) and not args.valid_only)
+            cfg, args.seed, test_split=args.submit, aug=bool(args.aug) and not args.valid_only,
+            mesh=mesh, sharded_feed=args.sharded_feed)
     else:
-        cfg, train_env, val_envs = build_real_dataset(cfg, args, valid_only=args.valid_only)
+        cfg, train_env, val_envs = build_real_dataset(cfg, args, valid_only=args.valid_only,
+                                                      mesh=mesh)
 
     if args.valid_only:
         results = valid(cfg, args.resume_file, val_envs, args.output_dir, submit=args.submit,
                         init_ref_ckpt=init_ckpt, no_cand_backtrack=args.no_cand_backtrack,
-                        device=device)
+                        device=device, mesh=mesh)
         print(json.dumps({"valid": results}, default=float))
         return results
 
@@ -566,7 +645,8 @@ def main(argv=None):
                  log_every=args.log_every, eval_first=args.eval_first,
                  resume_file=args.resume_file, merged_sample=not args.no_merged_sample,
                  init_ref_ckpt=init_ckpt, packed_il=args.packed_il,
-                 no_cand_backtrack=args.no_cand_backtrack, device=device)
+                 no_cand_backtrack=args.no_cand_backtrack, device=device, mesh=mesh,
+                 sharded_feed=args.sharded_feed, orbax_ckpt=args.orbax_ckpt)
     print(json.dumps({"best": best}, default=float))
     return best
 

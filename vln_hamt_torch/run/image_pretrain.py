@@ -33,7 +33,10 @@ end) every validation stream runs per task over its whole split and
 ``vit.*`` and ``step``), which ``--init_ckpt`` and ``--resume`` take.
 ``--device_bench N`` times N updates per task on one batch resident on
 the card and exits. The JAX CLI's flags that the port does not run
-raise, naming their ROADMAP item.
+raise, naming their ROADMAP item. ``--data_shards``, ``--model_shards``
+and ``--sharded_feed`` run as ``run/pretrain.py``'s (the ViT stays
+replicated; the sharded feed seeds each rank's stream and transform
+1000 apart).
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ import time
 
 import torch
 
-from ..agents.agent import resolve_device
 from ..pretrain import PretrainTrainer
 from ..pretrain.image_data import (DEFAULT_IMAGE_SIZE, ImagePretrainBatcher,
                                    LMDBPanoImageStore, NpyDirPanoImageStore,
@@ -55,12 +57,11 @@ from ..pretrain.model import batch_to_device
 from ..vision.transforms import ImageTransform
 from ..vision.vit import ViTConfig
 from .pretrain import (DEFAULT_MIX, DEFAULT_TASKS, build_real, build_synthetic,
-                       pretrain_model_config, train_loop)
+                       pretrain_model_config, rank_setup, train_loop)
 
 #: flags of the JAX CLI that the port does not run yet, with their
 #: ROADMAP item
-_UNPORTED_FLAGS = {"data_shards": "A13", "model_shards": "A13",
-                   "sharded_feed": "A13", "rng_impl": "A20"}
+_UNPORTED_FLAGS = {"rng_impl": "A20"}
 
 
 def parse_args(argv=None):
@@ -156,10 +157,12 @@ def model_configs(args):
     return mcfg, ViTConfig(**vit_kwargs)
 
 
-def build_batchers(args, mcfg):
+def build_batchers(args, mcfg, rank_off: int = 0):
     """The train batcher, the validation batchers by stream and the aug
     stream's batcher (or None) of parsed ``args`` (after
-    :func:`model_configs`)."""
+    :func:`model_configs`); ``rank_off``, the sharded feed's data
+    index, offsets the train stream's and its transform's seeds by 1000
+    each."""
     if args.synthetic:
         train_ds, val_dss = build_synthetic(args, mcfg)
         store = SyntheticPanoImageStore(tuple(args.image_size))
@@ -174,9 +177,11 @@ def build_batchers(args, mcfg):
         # main_r2r_image.py:149,162)
         train_tf = ImageTransform(out_size=args.vit_image_size, train=True, hflip=args.hflip,
                                   re_prob=args.re_prob, re_mode=args.re_mode,
-                                  auto_augment=args.auto_augment, seed=args.seed + 7000)
+                                  auto_augment=args.auto_augment,
+                                  seed=args.seed + 7000 + 1000 * rank_off)
         val_tf = ImageTransform(out_size=args.vit_image_size, train=False)
-    batcher = ImagePretrainBatcher(train_ds, store, transform=train_tf, seed=args.seed)
+    batcher = ImagePretrainBatcher(train_ds, store, transform=train_tf,
+                                   seed=args.seed + 1000 * rank_off)
     val_batchers = {name: ImagePretrainBatcher(ds, store, transform=val_tf, seed=args.seed + 1)
                     for name, ds in val_dss.items()}
     aug_batcher = None
@@ -192,10 +197,14 @@ def build_batchers(args, mcfg):
     return batcher, val_batchers, aug_batcher
 
 
-def build(args, device):
-    """The trainer and the validation batchers of parsed ``args``."""
+def build(args, device, mesh=None):
+    """The trainer and the validation batchers of parsed ``args``, as this
+    rank of ``mesh`` when given (``run/pretrain.py:build``'s ranks; the
+    ViT stays replicated)."""
     mcfg, vit_cfg = model_configs(args)
-    batcher, val_batchers, aug_batcher = build_batchers(args, mcfg)
+    sharded = mesh is not None and args.sharded_feed
+    batcher, val_batchers, aug_batcher = build_batchers(
+        args, mcfg, mesh.data_index if sharded else 0)
     model = init_image_pretrain(mcfg, vit_cfg, args.seed)
     if args.vit_ckpt:
         from ..models.convert import load_vit_checkpoint
@@ -207,6 +216,8 @@ def build(args, device):
         lr=args.lr, warmup_steps=args.warmup_steps, total_steps=args.num_steps,
         grad_accum=args.grad_accum, seed=args.seed, optim=args.optim, device=device,
         model=model, aug_batcher=aug_batcher)
+    if mesh is not None:
+        trainer.enable_mesh(mesh, sharded_feed=sharded)
     return trainer, val_batchers
 
 
@@ -239,8 +250,8 @@ def main(argv=None):
                                    and args.connectivity_dir and (args.lmdb_path or args.npy_dir)):
         raise ValueError("file-backed runs need --train_traj_files --img_ft_file "
                          "--connectivity_dir and --lmdb_path or --npy_dir (or pass --synthetic)")
-    device = resolve_device("cpu" if args.cpu else None)
-    trainer, val_batchers = build(args, device)
+    device, mesh = rank_setup(args)
+    trainer, val_batchers = build(args, device, mesh)
     if args.init_ckpt:
         blob = torch.load(args.init_ckpt, map_location="cpu", weights_only=True)
         blob.pop("step", None)

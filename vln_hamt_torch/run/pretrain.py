@@ -31,6 +31,16 @@ writes ``model_step_N.pt``: the model's state dict in the reference's
 pretrain format plus ``step``, which ``run/finetune.py --init_pretrain``
 takes. The JAX CLI's flags that the port does not run raise, naming
 their ROADMAP item.
+
+Across GPUs, one rank per process (``parallel/mesh.py``): launch
+``--data_shards x --model_shards`` ranks with ``torchrun
+--nproc_per_node N -m vln_hamt_torch.run.pretrain ...``. Data
+parallelism trains each rank on its rows of the global batch that every
+rank's batcher builds, or with ``--sharded_feed`` on a batch of
+``batch_size / data_shards`` from its own batcher (seed + 1000 x the data
+index; ITM's negatives within it); ``--model_shards`` splits the
+transformer blocks. Rank 0 alone writes ``metrics.jsonl`` and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from ..data.nav_graph import load_nav_graphs
 from ..models.convert import convert_hf_bert_state_dict, convert_hf_xlmr_state_dict
 from ..pretrain import (PretrainBatcher, PretrainTrainer, TrajectoryDataset,
                         make_synthetic_trajectories)
+from ..parallel.mesh import Mesh, init_distributed, local_device, make_mesh
 from ..pretrain.trajectory_data import load_trajectory_jsonl
 from ..utils.logging import MetricsLogger
 
@@ -66,8 +77,7 @@ RXR_MIX = (5, 1, 1, 1, 2)
 
 #: flags of the JAX CLI that the port does not run yet, with their
 #: ROADMAP item
-_UNPORTED_FLAGS = {"data_shards": "A13", "model_shards": "A13",
-                   "sharded_feed": "A13", "rng_impl": "A20"}
+_UNPORTED_FLAGS = {"rng_impl": "A20"}
 
 
 def parse_val_specs(entries: List[str]) -> Dict[str, List[str]]:
@@ -232,9 +242,11 @@ def resolve(args) -> ModelConfig:
     return pretrain_model_config(args.preset, args.tiny, args.max_txt_len, args.bf16)
 
 
-def build(args, device) -> Tuple[PretrainTrainer, Dict[str, PretrainBatcher]]:
+def build(args, device, mesh: Mesh = None
+          ) -> Tuple[PretrainTrainer, Dict[str, PretrainBatcher]]:
     """The trainer and the validation batchers of parsed ``args``
-    (:func:`resolve` first)."""
+    (:func:`resolve` first), as this rank of ``mesh`` when given (the
+    sharded feed's batcher seeded per data index)."""
     mcfg = resolve(args)
     train_ds, val_dss = (build_synthetic if args.synthetic else build_real)(args, mcfg)
     feat_table = None
@@ -242,14 +254,29 @@ def build(args, device) -> Tuple[PretrainTrainer, Dict[str, PretrainBatcher]]:
         feat_table, offsets = build_feature_table(train_ds.graphs, train_ds.feat_db)
         for ds in (train_ds, *val_dss.values()):
             ds.set_feat_offsets(offsets)
+    sharded = mesh is not None and args.sharded_feed
+    rank_seed = args.seed + 1000 * mesh.data_index if sharded else args.seed
     trainer = PretrainTrainer(
-        mcfg, PretrainBatcher(train_ds, seed=args.seed), tasks=args.tasks,
+        mcfg, PretrainBatcher(train_ds, seed=rank_seed), tasks=args.tasks,
         mix_ratio=args.mix_ratio, batch_size=args.batch_size, lr=args.lr,
         warmup_steps=args.warmup_steps, total_steps=args.num_steps,
         grad_accum=args.grad_accum, seed=args.seed, optim=args.optim, feat_table=feat_table,
         device=device)
+    if mesh is not None:
+        trainer.enable_mesh(mesh, sharded_feed=sharded)
     return trainer, {name: PretrainBatcher(ds, seed=args.seed + 1)
                      for name, ds in val_dss.items()}
+
+
+def rank_setup(args) -> Tuple[torch.device, Mesh]:
+    """Join the ranks' process group (none without WORLD_SIZE) and check
+    the mesh against it; the rank's device and mesh (None on one
+    process)."""
+    dist_up = init_distributed(cpu=args.cpu)
+    mesh = make_mesh(args.data_shards or 1, args.model_shards or 1)
+    if not dist_up:
+        return resolve_device("cpu" if args.cpu else None), None
+    return resolve_device(local_device(args.cpu)), mesh
 
 
 def main(argv=None):
@@ -261,8 +288,8 @@ def main(argv=None):
                                    and args.connectivity_dir):
         raise ValueError("file-backed runs need --train_traj_files --img_ft_file "
                          "--connectivity_dir (or pass --synthetic)")
-    device = resolve_device("cpu" if args.cpu else None)
-    trainer, val_batchers = build(args, device)
+    device, mesh = rank_setup(args)
+    trainer, val_batchers = build(args, device, mesh)
     mcfg = trainer.cfg
     # initialization (main_r2r.py:131-148): HF BERT/XLM-R text, a prior
     # checkpoint, or a resumed run

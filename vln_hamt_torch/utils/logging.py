@@ -9,7 +9,8 @@ Parity targets: the reference's record files + TB scalars
 JSONL metrics file (machine-readable; one line per event) with optional
 tensorboardX mirroring when available, plus wall-clock timers for the
 per-phase profiling the reference lacks (SURVEY §5: env-step / H2D /
-model / eval timing as a first-class concern).
+model / eval timing as a first-class concern). Across ranks only rank 0
+writes (the reference's ``is_default_gpu`` gating).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import os
 import time
 from collections import defaultdict
 from typing import Any, Dict
+
+from ..parallel.mesh import is_default_process
 
 
 class Timer:
@@ -56,17 +59,17 @@ class Timer:
 
 
 def write_record(path: str, text: str) -> None:
-    """Append-only record file (utils/logger.py:8-13)."""
+    """Append-only record file (utils/logger.py:8-13); rank 0 writes."""
+    if not is_default_process():
+        return
     with open(path, "a") as f:
         f.write(text.rstrip() + "\n")
 
 
 class MetricsLogger:
-    """JSONL metrics sink with per-phase timers."""
+    """JSONL metrics sink with per-phase timers; rank 0 writes."""
 
     def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
-        # one process, so no rank-0 gating yet (multi-GPU is ROADMAP
-        # item A13)
         self.timers: Dict[str, Timer] = defaultdict(Timer)
         self.path = os.path.join(log_dir, filename)
         os.makedirs(log_dir, exist_ok=True)
@@ -78,6 +81,8 @@ class MetricsLogger:
         rec = {"step": step, "time": time.time()}
         for k, v in scalars.items():
             rec[f"{prefix}{k}"] = float(v) if isinstance(v, (int, float)) else v  # None stays null
+        if not is_default_process():
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
