@@ -60,7 +60,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 6. train    -- the training path: full-width R2R imitation learning
                (HAMTAgent.train_iteration("teacher"), `r2r` preset, fp32,
                production dropout, adamw lr 1e-5, clip 40, batch 8,
-               T = 15) over the same world; 3 warm-up and 10 timed
+               T = 15) over the same world; 1 warm-up and 2 timed
                updates: IL episodes/s, the losses, and 279 forward and
                240 backward launches per update. Then 15 updates on one
                repeated batch (lr 1e-4, dropout off): the loss must fall.
@@ -72,11 +72,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 8. sample   -- the sample training path: full-width R2R IL + A2C
                (HAMTAgent.train_iteration("sample"), the same optimizer,
                production dropout, batch 8, T = 15), merged (8 sampling
-               lanes and 8 teacher-forced lanes in one rollout); 3
-               warm-up and 10 timed updates: sample episodes/s, the
+               lanes and 8 teacher-forced lanes in one rollout); 1
+               warm-up and 2 timed updates: sample episodes/s, the
                losses, peak memory, and 295 forward (279 at 16 lanes, the
                bootstrap's 16 at 8) and 240 backward launches per update.
-               Then 3 fused updates (the teacher episode forward, then
+               Then 2 fused updates (the teacher episode forward, then
                the rollout): 574 forward and 480 backward launches each.
 9. sample_parity -- card against CPU, batch 4, dropout off, the same
                weights and batches: the argmax rollout with rewards and
@@ -92,7 +92,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                both with the text and history stacks trained (their
                kernels are checked and timed in phase 3 at the batches
                and lanes this phase runs them at): per preset one
-               warm-up and 3 timed merged
+               warm-up and 2 timed merged
                sample updates (sample episodes/s, losses, peak memory,
                and exactly the launches of launch_mix + bootstrap_mix per
                update), one timed greedy batch (exactly launch_mix's
@@ -144,8 +144,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. bf16    -- bfloat16 compute at full `r2r` width (ModelConfig.dtype,
                the CLI's --bf16; parameters, optimizers and losses fp32):
                greedy evaluation at batch 32 (exactly 279 forward launches
-               per batch), 3 warm-up and 5 timed IL updates at batch 8
-               (279 / 240), 3 warm-up and 5 timed merged sample updates
+               per batch), 1 warm-up and 2 timed IL updates at batch 8
+               (279 / 240), 1 warm-up and 2 timed merged sample updates
                (295 / 240), episodes/s and peak memory of each beside the
                fp32 phases' of this run; 15 updates on one repeated batch
                (dropout off): the loss must fall; card against CPU, both
@@ -157,7 +157,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                bf16_close of the card's fp32 answer, as in the pretrain
                phase (tests/test_torch_bf16.py's yardstick).
 14. packed_il -- packed IL (--packed_il) at full `r2r` width, 8 slots, T
-               15, 30 text rows, fp32 and bf16: 3 warm-up and 5 timed
+               15, 30 text rows, fp32 and bf16: 1 warm-up and 2 timed
                packed updates, episodes per update and episodes/s beside
                the unpacked IL update's of this run, and exactly
                packed_il_mix's launches (279 forward, the text stack's 9
@@ -185,7 +185,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 16. replay  -- the rollout-then-replay sample update at full `r2r` width,
                fp32, production dropout, batch 8, T 15: with the device
                rollout (merged and fused off) and with the host-loop
-               rollout (no feature table), one warm-up and 5 timed
+               rollout (no feature table), one warm-up and 3 timed
                updates each (sample episodes/s, peak memory, and exactly
                the rollout's launches, 279 on the device or 9 + 18 per
                policy step on the host loop, plus 279 + 279 + 16 forward
@@ -240,7 +240,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                trunk with ViT-B/16 in the loop, batch 1, 80 tokens, 25
                steps, rangerlars), fp32 and bf16: one update per task with
                exactly image_pretrain_launch_mix's launches, then per task
-               the host's batch building and 3 timed updates (1 in
+               the host's batch building and 1 timed update (fp32 and
                bf16; exact launches, examples/s, idle share from one
                traced update, peak memory); card against CPU at 2 history
                steps, dropout off, for MRC and SAP (the history's route
@@ -278,6 +278,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                beside nvidia-smi's card and power limit: smoke output
                (both ranks share one card). With two or more cards, NCCL
                one rank per card runs (b)'s updates too.
+20. remat   -- activation recomputation (--remat, --remat_policy) at full
+               `r2r` width, batch 8, production dropout, fp32 and bf16:
+               per dtype three agents from the same weights and streams,
+               remat off, `full` and `dots`, each taking one warm-up IL
+               update and then one IL, merged, fused and packed IL update
+               (the same batches): every update's loss within
+               train_parity's bar of remat off's, the parameters' change
+               over the updates within its gradient bar (check_grads),
+               the dropout masks', attention seeds' and actions' next
+               draws equal, and each update's forward and backward
+               launches exactly launch_mix(remat) / packed_il_mix(remat)
+               (+ bootstrap_mix); peak memory and episodes/s of each
+               update printed. The `rxr` merged update, fp32, off, `full`
+               and `dots` (one warm-up update, one measured): `full`'s
+               peak memory below remat off's. A profile_trace of one
+               `full` IL update read back by utils/xprof.analyze: exactly
+               the mix's attention forward and backward launches.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -305,7 +322,8 @@ times and the `rxr` pretraining mix's come in fp32 and bf16 (``bf16``
 under each preset). The bf16
 phases' lines carry the fp32 peak memory beside the bf16 one and the
 device kernels per update in both (torch.profiler, as
-run/profile_train.py counts them).
+run/profile_train.py counts them). Its ``remat`` fields: launches per
+update of each phase 20 path in fp32, remat off, `full` and `dots`.
 The last is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero before printing either.
@@ -346,6 +364,8 @@ from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
 from vln_hamt_torch.run.profile_vision import (
     PANOS_PER_BATCH, e2e_args, e2e_batcher, e2e_mixes, pipelined_images_per_s, render_panoramas,
     resident_call_ms, slice_e2e_trainer, slice_featurizer, timed_build_and_updates, traced)
+from vln_hamt_torch.utils import xprof
+from vln_hamt_torch.utils.logging import profile_trace
 from vln_hamt_torch.vision.vit import ViTConfig
 
 B, H, DH = 32, 12, 64
@@ -421,9 +441,11 @@ BF16 = {"dtype": "bfloat16"}
 # elevations are functions of the view index on every path)
 POSE_ATOL = 1e-6
 # timed updates of the fp32 IL and sample paths, and of the bf16 and
-# packed ones (depths cut to keep the script near half its time limit)
-TIMED_UPDATES = 4
-TIMED_UPDATES_BF16 = 3
+# packed ones, after WARMUP_UPDATES (depths cut to keep the script within
+# its time limit)
+WARMUP_UPDATES = 1
+TIMED_UPDATES = 2
+TIMED_UPDATES_BF16 = 2
 VARIANT_TIMED_UPDATES = 1
 # the replay update: timed updates per rollout, and replayed against
 # recorded logits with dropout on (the JAX package's
@@ -1226,7 +1248,7 @@ def phase_family(task, mixes):
         agent.train_iteration("sample", sync=False)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        iters = 3
+        iters = 2
         losses, seconds, launches = timed_sample_updates(agent, iters)
         if launches != {k: n * iters for k, n in per.items()}:
             raise AssertionError(f"{task} merged sample launches {launches} over {iters} "
@@ -1436,7 +1458,7 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
     tcfg = cfg.replace(model=BF16, train={"batch_size": TRAIN_B, "feedback": "teacher"})
     agent = HAMTAgent(tcfg, slice_env(tcfg, world, seed=0), seed=0)
     agent.enable_feature_table()
-    for _ in range(3):  # warm-up
+    for _ in range(WARMUP_UPDATES):  # warm-up
         agent.train_iteration("teacher", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1462,7 +1484,7 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
     agent = HAMTAgent(scfg, slice_env(scfg, world, seed=0), seed=0)
     agent.merged_sample_update = True
     agent.enable_feature_table()
-    for _ in range(3):  # warm-up
+    for _ in range(WARMUP_UPDATES):  # warm-up
         agent.train_iteration("sample", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1564,7 +1586,7 @@ def phase_packed(cfg, world, pmix, unpacked):
         agent.enable_packed_il()
         if agent._packer.text_cap != PACKED_TEXT_CAP:
             raise AssertionError(f"packed text rows {agent._packer.text_cap}")
-        for _ in range(3):  # warm-up
+        for _ in range(WARMUP_UPDATES):  # warm-up
             agent.train_iteration("teacher", sync=False)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2548,7 +2570,7 @@ def mg_launches(res, want, what):
 
 def mg_kernels(dev, mix, bwd_mix):
     """Both kernels against their plain versions at the multi-GPU paths'
-    new shapes (fp32 and bf16, dropout 0 and 0.1; timed in fp32 without
+    new shapes (fp32 and bf16, dropout 0 and 0.1; timed in both without
     dropout): per data rank at 4 lanes (IL) and 16 (greedy), per model
     rank at 6 heads (IL at 8 lanes, greedy at 32)."""
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -2568,7 +2590,7 @@ def mg_kernels(dev, mix, bwd_mix):
                     fwd_err = max(fwd_err, err)
                     row = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
                            "max_abs_err": err}
-                    if rate == 0.0 and dtype == torch.float32:
+                    if rate == 0.0:
                         row.update(time_forward(q, k, v, m))
                     f_rows.append(row)
                     if with_bwd and (lq, lk) in bwd_mix:
@@ -2576,7 +2598,7 @@ def mg_kernels(dev, mix, bwd_mix):
                         bwd_err = max(bwd_err, err)
                         brow = {"lq": lq, "lk": lk, "dtype": dtype_name(dtype), "rate": rate,
                                 "rel_err": errs}
-                        if rate == 0.0 and dtype == torch.float32:
+                        if rate == 0.0:
                             brow.update(time_backward(q, k, v, m, g))
                         b_rows.append(brow)
         emit("multi_gpu", kernels=tag, batch=b, heads=h, head_dim=DH,
@@ -2743,11 +2765,175 @@ def phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd, merged_per):
         for tag, (b, h, f_rows, b_rows) in kern.items():
             rows = f_rows if i == 0 else b_rows
             if rows:
-                fields[tag] = {"batch": b, "heads": h, **kernel_times((rows, m))}
+                fields[tag] = {"batch": b, "heads": h, **kernel_times((rows, m)),
+                               "bf16": kernel_times((rows, m), dtype="bfloat16")}
         fields["launches_per_rank"] = {"il": il_per[name], "merged": merged_per[name],
                                        "greedy_batch": per_batch if i == 0 else 0}
         out[name] = fields
     return out, fwd_err, bwd_err
+
+
+# phase 20: remat off and under each policy; the updates each agent takes
+# after a warm-up IL update (compared too)
+REMAT_MODES = (None, "full", "dots")
+REMAT_PATHS = ("il", "merged", "fused", "packed")
+
+
+def remat_per_update(cfg, path, remat):
+    """Attention launches of one update of ``path`` with or without
+    recomputation: launch_mix(remat) per episode loop (two in the fused
+    update) and the sample updates' bootstrap, or packed_il_mix(remat)."""
+    if path == "packed":
+        pf, pb = packed_il_mix(cfg, PACKED_TEXT_CAP, remat)
+        return {"attention_fwd": sum(pf.values()), "attention_bwd": sum(pb.values())}
+    fwd, bwd = (sum(m.values()) for m in launch_mix(cfg, remat))
+    loops = 2 if path == "fused" else 1
+    boot = sum(bootstrap_mix(cfg).values()) if path != "il" else 0
+    return {"attention_fwd": loops * fwd + boot, "attention_bwd": loops * bwd}
+
+
+def remat_update(agent, path):
+    """One update of ``path`` from zeroed launch counts and peak memory:
+    its loss, episodes, wall time, peak memory and launches."""
+    if path == "packed" and not agent.packed_il:
+        agent.enable_packed_il()
+    agent.merged_sample_update = path == "merged"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = agent.train_iteration("sample" if path in ("merged", "fused") else "teacher")
+    seconds = time.perf_counter() - t0  # the losses were read back: the update is done
+    episodes = out.get("episodes", agent.cfg.train.batch_size)
+    return {"loss": out["loss"], "episodes": episodes, "ms": seconds * 1e3,
+            "episodes_per_s": episodes / seconds,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": dict(attn.launch_counts)}
+
+
+def remat_params(agent):
+    """The model's and the critic's state, copied to the host."""
+    return {**{k: v.detach().to("cpu", copy=True) for k, v in agent.model.state_dict().items()},
+            **{"critic." + k: v.detach().to("cpu", copy=True)
+               for k, v in agent.critic.state_dict().items()}}
+
+
+def next_draws(agent):
+    """The next draws of every stream: a dropout mask, an attention seed,
+    an action noise row."""
+    dev = agent.device
+    return (agent.dropout_rng.keep(torch.zeros(4096, device=dev), 0.5).cpu(),
+            agent.dropout_rng.attention_seed(),
+            torch.rand(64, generator=agent.action_rng, device=dev).cpu())
+
+
+def remat_xprof(agent, cfg):
+    """A profile_trace of one IL update under remat, read back by
+    utils/xprof: exactly the mix's attention launches."""
+    agent.packed_il = False
+    want = remat_per_update(cfg, "il", True)
+    with tempfile.TemporaryDirectory() as tdir:
+        with profile_trace(tdir):
+            # the tracer can lose the first device events of its window (up to
+            # about 100 seen, PERF.md §6): a lead-in of 1,000 short spin
+            # kernels, no attention among them, takes that loss
+            for _ in range(1000):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            agent.train_iteration("teacher")
+        res = xprof.analyze(tdir, top=5)
+    cats = {c["category"]: c["launches"] for c in res["categories"]}
+    got = {"attention_fwd": cats["attention_fwd_kernel"],
+           "attention_bwd": cats["attention_bwd_kernel"]}
+    if got != want:
+        raise AssertionError(f"xprof of a remat IL update: {got}, expected {want}")
+    emit("remat", xprof={"launches": got, "device_ms": res["device_us"] / 1e3,
+                         "busy_ms": res["busy_us"] / 1e3, "span_ms": res["span_us"] / 1e3,
+                         "idle_share_in_span": res["idle_share"], "gaps": res["gaps"],
+                         "categories": res["categories"], "top": res["top"]})
+
+
+def phase_remat(cfg, world, smi):
+    """Phase 20 (see the module docstring); returns the fp32 launches per
+    update of each path by mode (off, ``full``, ``dots``) for the summary."""
+    per_update = {}
+    for dtype in ("float32", "bfloat16"):
+        base = None  # remat off's updates, parameter change and next draws
+        for mode in REMAT_MODES:
+            t_agent = time.perf_counter()
+            rcfg = cfg.replace(model={"dtype": dtype, "remat": mode is not None,
+                                      "remat_policy": mode or "full"},
+                               train={"batch_size": TRAIN_B, "feedback": "teacher"})
+            agent = HAMTAgent(rcfg, slice_env(rcfg, world, seed=0), seed=0)
+            agent.enable_feature_table()
+            before = remat_params(agent)
+            runs = {}
+            for path in ("warm-up",) + REMAT_PATHS:
+                kind = "il" if path == "warm-up" else path
+                runs[path] = got = remat_update(agent, kind)
+                want = remat_per_update(rcfg, kind, mode is not None)
+                if got["launches"] != want:
+                    raise AssertionError(f"remat {mode} {dtype} {path}: launches "
+                                         f"{got['launches']}, expected {want}")
+            if agent._packer.text_cap != PACKED_TEXT_CAP:
+                raise AssertionError(f"packed text rows {agent._packer.text_cap}")
+            after = remat_params(agent)
+            delta = {k: after[k].float() - before[k].float() for k in after}
+            draws = next_draws(agent)
+            if mode == "full" and dtype == "float32":
+                remat_xprof(agent, rcfg)
+            del agent
+            if dtype == "float32":
+                per_update[mode or "off"] = {p: runs[p]["launches"] for p in REMAT_PATHS}
+            checks = {}
+            if base is None:
+                base = (runs, delta, draws)
+            else:
+                for path, r in runs.items():
+                    want = base[0][path]["loss"]
+                    if not abs(r["loss"] - want) <= TRAIN_LOSS_RTOL * abs(want):
+                        raise AssertionError(f"remat {mode} {dtype} {path}: loss {r['loss']}, "
+                                             f"remat off {want}")
+                if not (torch.equal(draws[0], base[2][0]) and draws[1] == base[2][1]
+                        and torch.equal(draws[2], base[2][2])):
+                    raise AssertionError(f"remat {mode} {dtype}: the streams' next draws "
+                                         "differ from remat off's")
+                checks = {"param_change_worst_over_tol": check_grads(
+                    delta, base[1], f"remat {mode} {dtype} parameter change"),
+                    "losses_max_rel_err": max(
+                        abs(r["loss"] - base[0][p]["loss"]) / abs(base[0][p]["loss"])
+                        for p, r in runs.items()),
+                    "streams_equal": True}
+            emit("remat", preset="r2r", dtype=dtype, remat=mode or "off", batch=TRAIN_B,
+                 dropout=[rcfg.model.hidden_dropout_prob,
+                          rcfg.model.attention_probs_dropout_prob],
+                 updates=runs, **checks, nvidia_smi=smi,
+                 seconds=time.perf_counter() - t_agent)
+
+    # the rxr merged update's peak memory, fp32: off, full, dots
+    xcfg, xworld = slice_config(get_preset("rxr").train.batch_size, seed=0, task="rxr")
+    peaks = {}
+    t_rxr = time.perf_counter()
+    for mode in REMAT_MODES:
+        rcfg = xcfg.replace(model={"remat": mode is not None, "remat_policy": mode or "full"},
+                            train={"feedback": "sample"})
+        agent = HAMTAgent(rcfg, slice_env(rcfg, xworld, seed=0), seed=0)
+        agent.enable_feature_table()
+        remat_update(agent, "merged")  # warm-up: the optimizers' moments
+        peaks[mode or "off"] = r = remat_update(agent, "merged")
+        want = remat_per_update(rcfg, "merged", mode is not None)
+        if r["launches"] != want:
+            raise AssertionError(f"rxr remat {mode}: launches {r['launches']}, expected {want}")
+        del agent
+    if not peaks["full"]["peak_mem_gb"] < peaks["off"]["peak_mem_gb"]:
+        raise AssertionError(f"rxr merged update: remat full peaks at "
+                             f"{peaks['full']['peak_mem_gb']} GB, remat off at "
+                             f"{peaks['off']['peak_mem_gb']} GB")
+    emit("remat", preset="rxr", update="merged", dtype="float32",
+         batch=xcfg.train.batch_size, lanes=2 * xcfg.train.batch_size, runs=peaks,
+         full_over_off_peak=peaks["full"]["peak_mem_gb"] / peaks["off"]["peak_mem_gb"],
+         nvidia_smi=smi, seconds=time.perf_counter() - t_rxr)
+    return per_update
 
 
 def main() -> int:
@@ -2866,7 +3052,7 @@ def main() -> int:
         raise AssertionError(f"the r2r preset's optimizer changed: {tr}")
     agent = HAMTAgent(tcfg, slice_env(tcfg, world, seed=0), seed=0)
     agent.enable_feature_table()
-    for _ in range(3):  # warm-up: allocator, cuBLAS workspaces
+    for _ in range(WARMUP_UPDATES):  # warm-up: allocator, cuBLAS workspaces
         agent.train_iteration("teacher", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2951,7 +3137,7 @@ def main() -> int:
     agent = HAMTAgent(scfg, slice_env(scfg, world, seed=0), seed=0)
     agent.merged_sample_update = True
     agent.enable_feature_table()
-    for _ in range(3):  # warm-up
+    for _ in range(WARMUP_UPDATES):  # warm-up
         agent.train_iteration("sample", sync=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2981,7 +3167,7 @@ def main() -> int:
     agent.merged_sample_update = False  # the fused update, the class default
     agent.train_iteration("sample", sync=False)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    fused_iters = 3
+    fused_iters = 2
     losses, seconds, fused_launches = timed_sample_updates(agent, fused_iters)
     fused_per = {"attention_fwd": 2 * per_batch + boot, "attention_bwd": 2 * per_update_bwd}
     if fused_launches != {k: n * fused_iters for k, n in fused_per.items()}:
@@ -3097,6 +3283,9 @@ def main() -> int:
     multi_gpu, ferr, berr = phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd,
                                             merged_per)
     fwd_err, bwd_err = max(fwd_err, ferr), max(bwd_err, berr)
+    # ------------------------------------------------------------- remat
+    marks.append(("remat", time.perf_counter()))
+    remat = phase_remat(cfg, world, smi)
     marks.append(("summary", time.perf_counter()))
 
     pretrain = {}
@@ -3179,6 +3368,9 @@ def main() -> int:
         extra[name]["variants"] = variants[name]
         extra[name]["vision"] = vision[name]
         extra[name]["multi_gpu"] = multi_gpu[name]
+        extra[name]["remat"] = {"launches_per_update": {
+            mode: {path: per[path][name] for path in REMAT_PATHS}
+            for mode, per in remat.items()}}
     summary = {"kernels": [
         summary_row("attention_fwd", "vln_hamt_torch/csrc/attention.cu",
                     "vln_hamt_tpu/ops/attention.py:53",  # _attn_kernel

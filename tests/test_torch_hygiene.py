@@ -70,19 +70,35 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     assert not torch.backends.cudnn.allow_tf32
 
 
-# every flag of the JAX CLI that the port does not run yet, with a value
-# and the ROADMAP item its error names
-UNPORTED = {
-    "remat": ([], "A19"), "remat_policy": (["dots"], "A19"), "rng_impl": (["rbg"], "A20"),
-}
+@pytest.fixture
+def one_thread():
+    """One torch thread: the CLI runs below share the test workers' cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in UNPORTED.items()],
-    ids=list(UNPORTED))
-def test_cli_names_the_roadmap_item_of_unported_paths(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
-        finetune.main(argv + ["--cpu"])
+# the flags of the JAX CLI that the port ran last (activation
+# recomputation, the dropout-PRNG name), each with a value; none is left
+# unported
+PORTED_LAST = {"remat": [], "remat_policy": ["dots"], "rng_impl": ["rbg"]}
+UNPORTED = {}
+
+
+@pytest.mark.parametrize("argv", [["--synthetic", f"--{flag}"] + value
+                                  for flag, value in PORTED_LAST.items()],
+                         ids=list(PORTED_LAST))
+def test_cli_names_the_roadmap_item_of_unported_paths(argv, tmp_path, one_thread):
+    """Each flag that once raised its ROADMAP item now runs: one tiny IL
+    update on the CPU, the flag in the run's config record."""
+    out = tmp_path / "run"
+    finetune.main(argv + ["--cpu", "--tiny", "--feedback", "teacher", "--iters", "1",
+                          "--log_every", "1", "--output_dir", str(out)])
+    rec = json.loads((out / "training_config.json").read_text())
+    flag = argv[1][2:]
+    part = "train" if flag == "rng_impl" else "model"
+    assert rec[part][flag] == (argv[2] if len(argv) > 2 else True)
 
 
 def test_cli_flags_cover_the_jax_cli():
@@ -93,28 +109,42 @@ def test_cli_flags_cover_the_jax_cli():
     assert set(UNPORTED) == set(finetune._UNPORTED_FLAGS)
 
 
-# every flag of the JAX pretraining CLI that the port does not run yet
-PRETRAIN_UNPORTED = {"rng_impl": (["rbg"], "A20")}
+# the JAX pretraining CLIs' flags that the port ran last; none is left
+PRETRAIN_PORTED_LAST = {"rng_impl": ["rbg"]}
+PRETRAIN_UNPORTED = {}
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in
-    PRETRAIN_UNPORTED.items()], ids=list(PRETRAIN_UNPORTED))
-def test_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
-        pretrain.main(argv + ["--cpu", "--tiny"])
+def _pretrain_run(main, argv, tmp_path):
+    out = tmp_path / "run"
+    assert main(argv + ["--cpu", "--tiny", "--num_steps", "1", "--valid_steps", "1",
+                        "--output_dir", str(out)])["final_step"] == 1
+    return json.loads((out / "training_config.json").read_text())
 
 
-# every flag of the JAX image pretraining CLI that the port does not run yet
-IMAGE_PRETRAIN_UNPORTED = {"rng_impl": (["rbg"], "A20")}
+@pytest.mark.parametrize("argv", [["--synthetic", f"--{flag}"] + value
+                                  for flag, value in PRETRAIN_PORTED_LAST.items()],
+                         ids=list(PRETRAIN_PORTED_LAST))
+def test_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, tmp_path, one_thread):
+    """The flag that once raised its ROADMAP item now runs: one tiny
+    pretraining step on the CPU, the name in the run's config record."""
+    rec = _pretrain_run(pretrain.main, argv + ["--batch_size", "2"], tmp_path)
+    assert rec["args"]["rng_impl"] == "rbg"
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--synthetic", f"--{flag}"] + value, item) for flag, (value, item) in
-    IMAGE_PRETRAIN_UNPORTED.items()], ids=list(IMAGE_PRETRAIN_UNPORTED))
-def test_image_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
-        image_pretrain.main(argv + ["--cpu", "--tiny"])
+# the JAX image pretraining CLI's flags that the port ran last; none is left
+IMAGE_PRETRAIN_PORTED_LAST = {"rng_impl": ["rbg"]}
+IMAGE_PRETRAIN_UNPORTED = {}
+
+
+@pytest.mark.parametrize("argv", [["--synthetic", f"--{flag}"] + value
+                                  for flag, value in IMAGE_PRETRAIN_PORTED_LAST.items()],
+                         ids=list(IMAGE_PRETRAIN_PORTED_LAST))
+def test_image_pretrain_cli_names_the_roadmap_item_of_unported_flags(argv, tmp_path,
+                                                                     one_thread):
+    """The flag that once raised its ROADMAP item now runs: one tiny e2e
+    pretraining step on the CPU, the name in the run's config record."""
+    rec = _pretrain_run(image_pretrain.main, argv, tmp_path)
+    assert rec["args"]["rng_impl"] == "rbg"
 
 
 def test_image_pretrain_cli_flags_cover_the_jax_cli():

@@ -13,6 +13,7 @@ off for the comparisons, one thread."""
 
 import collections
 import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -271,7 +272,11 @@ def test_cli_tiny_synthetic_on_cpu(tmp_path):
             "--output_dir", out]
     res = image_pretrain.main(argv)
     assert res["final_step"] == 4 and res["checkpoint"].endswith("model_step_4.pt")
-    assert sorted(os.listdir(out)) == ["metrics.jsonl", "model_step_2.pt", "model_step_4.pt"]
+    # the run's config record, and the metrics' TensorBoard mirror where
+    # tensorboardX imports (utils/logging.py:MetricsLogger)
+    tb = ["tb"] if importlib.util.find_spec("tensorboardX") else []
+    assert sorted(os.listdir(out)) == sorted(["metrics.jsonl", "model_step_2.pt",
+                                              "model_step_4.pt", "training_config.json", *tb])
     rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     assert any("ex_per_sec" in r for r in rows)
     assert any(any(k.startswith("val_unseen/") for k in r) for r in rows)

@@ -7,6 +7,7 @@ resume under two ranks; pretraining and image pretraining take two
 updates with ``--data_shards 2`` and write one checkpoint in the
 one-rank layout."""
 
+import importlib.util
 import json
 import os
 
@@ -91,6 +92,10 @@ def test_pretrain_clis_two_ranks(tmp_path):
                              "--valid_steps", "2", "--data_shards", "2", "--output_dir", out,
                              *extra])
         assert got == [{"final_step": 2}] * 2
-        assert sorted(os.listdir(out)) == ["metrics.jsonl", "model_step_2.pt"]
+        # the run's config record, and the metrics' TensorBoard mirror
+        # where tensorboardX imports (utils/logging.py:MetricsLogger)
+        tb = ["tb"] if importlib.util.find_spec("tensorboardX") else []
+        assert sorted(os.listdir(out)) == sorted(["metrics.jsonl", "model_step_2.pt",
+                                                  "training_config.json", *tb])
         blob = torch.load(os.path.join(out, "model_step_2.pt"), weights_only=True)
         assert blob["step"] == 2 and any(k.startswith("bert.") for k in blob)

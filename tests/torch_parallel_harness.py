@@ -83,6 +83,8 @@ def parse_args(argv=None):
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--remat", default=None, choices=("full", "dots"),
+                   help="activation recomputation of the rollout steps, by this policy")
     p.add_argument("--pretrain", action="store_true")
     p.add_argument("--collectives", action="store_true",
                    help="only the host collectives: host_allgather, reduce_dict_mean, "
@@ -193,6 +195,8 @@ def finetune_config(args) -> tuple:
             cfg = cfg.replace(model=NO_DROPOUT)
     if args.bf16:
         cfg = cfg.replace(model={"dtype": "bfloat16"})
+    if args.remat:
+        cfg = cfg.replace(model={"remat": True, "remat_policy": args.remat})
     cfg = cfg.replace(train={"batch_size": args.batch, "optim": args.optim, "lr": args.lr,
                              "grad_clip": args.grad_clip, "ml_weight": 1.0})
     return cfg, world

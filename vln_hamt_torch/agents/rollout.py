@@ -28,18 +28,106 @@ History cache invariant (as in the JAX package): the cache has a fixed
 and per-sample history length is ``1 + (# live steps so far)`` — masked
 attention reproduces the reference's per-sample ``hist_lens``
 bookkeeping (agent_cmt.py:305-306,399-401) without ragged shapes.
+
+Activation recomputation (``ModelConfig.remat``, :func:`remat_step`):
+the three differentiated loops (the device rollout, the episode forward
+and the packed forward) run each step's model call as a checkpointed
+function of the step's carry (history cache and length) and inputs; its
+activations are dropped after the forward and recomputed in backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from ..configs import ModelConfig
 from ..data.angle import all_point_angle_feature
 from ..models.hamt import HAMT, Critic
+
+#: products without batch dimensions: what ``remat_policy="dots"`` saves
+#: (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)
+_SAVED_PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def rng_streams(*modules: torch.nn.Module,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Generator, ...]:
+    """The random streams a step of ``modules`` draws from: each distinct
+    ``DropoutRNG``'s mask and seed generators (``models/layers.py``), and
+    ``generator`` (the sampling rollout's actions) when given."""
+    rngs = {}
+    for module in modules:
+        for m in module.modules():
+            rng = getattr(m, "rng", None)
+            if rng is not None:
+                rngs[id(rng)] = rng
+    out = [g for rng in rngs.values() for g in (rng.masks, rng.seeds)]
+    return tuple(out + ([generator] if generator is not None else []))
+
+
+def remat_step(step_fn: Callable, cfg: ModelConfig,
+               streams: Sequence[torch.Generator] = ()) -> Callable:
+    """The configured activation recomputation of one loop step, the
+    port of ``vln_hamt_tpu/agents/rollout.py:remat_scan_body``.
+
+    Off (``cfg.remat`` false) it returns ``step_fn`` unchanged. Else,
+    under autograd, each call runs ``step_fn`` through
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant): ``"full"``
+    keeps none of the step's activations and recomputes the whole step
+    in backward; ``"dots"`` keeps the outputs of the products without
+    batch dimensions (``aten.mm`` / ``aten.addmm``: the dense layers) and
+    recomputes the rest (elementwise work, LayerNorm, both attention
+    kernels). Without gradient the step runs as it is.
+
+    The step draws from private generators (``streams``: dropout masks,
+    attention seeds, sampled actions), which torch's own RNG stashing
+    does not cover. So each call notes their states at its start; the
+    recompute starts from them, drawing the forward's masks, seeds and
+    actions again, and puts the streams back where it found them. The
+    losses, gradients and the streams' next draws equal those without
+    recomputation (``tests/test_torch_remat.py``); only the forward
+    attention launches grow (``run/profile_attention.py:launch_mix``).
+    """
+    if not cfg.remat:
+        return step_fn
+    if cfg.remat_policy == "dots":  # the listed ops saved, every other recomputed
+        kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                              _SAVED_PRODUCTS)}
+    elif cfg.remat_policy == "full":
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r}")
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return step_fn(*args, **kwargs)
+        start = [g.get_state() for g in streams]
+        calls = 0
+
+        def body(*a, **k):
+            nonlocal calls
+            calls += 1
+            if calls == 1:  # the forward
+                return step_fn(*a, **k)
+            resume = [g.get_state() for g in streams]
+            for g, s in zip(streams, start):
+                g.set_state(s)
+            try:
+                return step_fn(*a, **k)
+            finally:  # also when the recompute stops early
+                for g, s in zip(streams, resume):
+                    g.set_state(s)
+
+        # every random draw is in ``streams``: torch's global RNG needs no stash
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False,
+                          **kw, **kwargs)
+
+    return run
 
 
 def hist_mask(hist_len: torch.Tensor, h: int) -> torch.Tensor:
@@ -435,6 +523,7 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
         forbid = torch.zeros((bt, n_ob + int(reverie)), dtype=torch.bool, device=device)
         given = torch.zeros(b, dtype=torch.long, device=device)
         ys, il_logits, il_obj_logits, obj_pred = [], [], [], []
+        step = remat_step(core, cfg, rng_streams(model, critic, generator=generator))
         for t in range(t_max):
             live = ~ended
             node_all, view_all, live_all = node, view, live
@@ -446,7 +535,7 @@ def build_device_rollout(model: HAMT, critic: Critic, t_max: int,
             cg, valid, cand_point, cand_ang = cand_tables(node_all, view_all)
             pano = feat_table[node_all]
             objs = object_rows(obj_tables, node_all, view_all, ang_tab) if reverie else None
-            action, logits, _, value, hist_cache, hist_len, obj_logits = core(
+            action, logits, _, value, hist_cache, hist_len, obj_logits = step(
                 txt_embeds, txt_mask, hist_cache, hist_len, steps[t], pano,
                 view_all, cand_point, cand_ang, live_all, forbid, given, mode, generator,
                 objs=objs, draw_rows=draw_rows)
@@ -644,8 +733,9 @@ def build_episode_forward(model: HAMT, critic: Critic, ob_type: str = "pano",
         hist_len = torch.ones(b, dtype=torch.int32, device=device)
         steps = torch.arange(t_steps, device=device)
         logits, states, values, obj_logits = [], [], [], []
+        step = remat_step(core, cfg, rng_streams(model, critic))
         for t in range(t_steps):
-            _, lg, state, value, hist_cache, hist_len, olg = core(
+            _, lg, state, value, hist_cache, hist_len, olg = step(
                 txt_embeds, txt_mask, hist_cache, hist_len, steps[t], pano_feat[:, t],
                 ep["view_index"][:, t], ep["cand_point"][:, t], ep["cand_ang"][:, t],
                 ep["step_mask"][:, t], None, ep["actions"][:, t], "teacher",
@@ -726,37 +816,45 @@ def build_packed_il_forward(model: HAMT, ob_type: str = "pano", objects: bool = 
         hist_cache = reset_cache
         hist_len = torch.ones(s, dtype=torch.int32, device=device)
         positions = torch.arange(h_max, device=device)
-        logits, obj_logits = [], []
-        for t in range(t_steps):
-            start, live = pack["is_start"][:, t], pack["live"][:, t]
-            hist_cache = torch.where(start[:, None, None], reset_cache, hist_cache)
-            hist_len = hist_len.masked_fill(start, 1)
-            ep_id = pack["ep_id"][:, t].long()
-            txt_e = txt_all[:, ep_id] if txt_all.dim() == 4 else txt_all[ep_id]
-            ob = expand_obs(pano_feat[:, t], pack["view_index"][:, t],
-                            pack["cand_point"][:, t], pack["cand_ang"][:, t])
-            plan_in = (txt_e, pack["txt_mask"][ep_id], hist_cache, hist_mask(hist_len, h_max),
+
+        def step(hist_cache, hist_len, txt_e, txt_m, pano, view_index, cand_point, cand_ang,
+                 action, local_t, live, objs_t):
+            ob = expand_obs(pano, view_index, cand_point, cand_ang)
+            plan_in = (txt_e, txt_m, hist_cache, hist_mask(hist_len, h_max),
                        ob["ob_img"], ob["ob_ang"], ob["ob_nav"], ob["ob_mask"])
-            action = pack["actions"][:, t].long()
+            obj_lg = None
             if objects:
-                act_lg, obj_lg, _ = model.plan_ref(*plan_in, *(x[:, t] for x in objs))
+                act_lg, obj_lg, _ = model.plan_ref(*plan_in, *objs_t)
                 stop_slot = ob["ob_ang"].shape[1] - 1 - 36
                 lg = full_logits(act_lg, obj_lg, stop_slot)
-                obj_logits.append(obj_lg)
                 action = torch.where(action >= ob["ob_ang"].shape[1], stop_slot, action)
             else:
                 lg, _ = model.plan(*plan_in)
             act_ang = torch.gather(
                 ob["ob_ang"], 1, action[:, None, None].expand(-1, 1, ob["ob_ang"].shape[-1])
             ).squeeze(1)
-            local_t = pack["local_t"][:, t]
             new_tok = model.encode_history(ob["hist_img"], act_ang, local_t,
                                            ob["pano_img"], ob["pano_ang"])
             write = (positions[None, :] == local_t[:, None] + 1) & live[:, None]
             hist_cache = torch.where(write[:, :, None], new_tok[:, None].to(hist_cache.dtype),
                                      hist_cache)
-            hist_len = hist_len + live.to(hist_len.dtype)
+            return lg, obj_lg, hist_cache, hist_len + live.to(hist_len.dtype)
+
+        step = remat_step(step, cfg, rng_streams(model))
+        logits, obj_logits = [], []
+        for t in range(t_steps):
+            start = pack["is_start"][:, t]
+            hist_cache = torch.where(start[:, None, None], reset_cache, hist_cache)
+            hist_len = hist_len.masked_fill(start, 1)
+            ep_id = pack["ep_id"][:, t].long()
+            txt_e = txt_all[:, ep_id] if txt_all.dim() == 4 else txt_all[ep_id]
+            lg, obj_lg, hist_cache, hist_len = step(
+                hist_cache, hist_len, txt_e, pack["txt_mask"][ep_id], pano_feat[:, t],
+                pack["view_index"][:, t], pack["cand_point"][:, t], pack["cand_ang"][:, t],
+                pack["actions"][:, t].long(), pack["local_t"][:, t], pack["live"][:, t],
+                tuple(x[:, t] for x in objs) if objects else None)
             logits.append(lg)
+            obj_logits.append(obj_lg)
         if objects:
             return torch.stack(logits), torch.stack(obj_logits)
         return torch.stack(logits)

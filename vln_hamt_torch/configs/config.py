@@ -7,10 +7,12 @@ parsers ``finetune_src/{r2r,reverie,cvdn}/parser.py``, the legacy
 tree plus per-task presets mirroring ``finetune_src/scripts/*.sh``.
 
 A copy of ``vln_hamt_tpu/configs/config.py`` so configs round-trip as
-the same JSON in both packages. Fields that select JAX execution
-(``use_pallas_attention``, ``remat``, ``remat_policy``, ``rng_impl``,
-mesh shapes) are kept for that round trip and ignored by the port: on
-CUDA every attention runs through the hand-written kernel.
+the same JSON in both packages. ``use_pallas_attention`` is kept for
+that round trip and ignored by the port: on CUDA every attention runs
+through the hand-written kernel. ``remat`` / ``remat_policy`` select the
+port's activation recomputation (``agents/rollout.py:remat_step``);
+``rng_impl`` is validated and recorded, and selects nothing
+(``utils/misc.py``).
 """
 
 from __future__ import annotations
@@ -76,10 +78,10 @@ class ModelConfig:
     # pretraining heads (pretrain_src/model/pretrain_cmt.py)
     image_prob_size: int = 1000  # MRC soft-label classes
 
-    # JAX execution knobs (ignored by the port; see module docstring)
+    # execution knobs (see module docstring)
     dtype: str = "float32"  # compute dtype: float32 | bfloat16
     use_pallas_attention: bool = False
-    remat: bool = False
+    remat: bool = False  # recompute each rollout step's activations in backward
     remat_policy: str = "full"  # full | dots
 
     @property
@@ -150,7 +152,8 @@ class TrainConfig:
     ckpt_dir: str = "ckpts"
     resume_file: Optional[str] = None
     resume_optimizer: bool = False
-    # dropout PRNG implementation of the JAX package (ignored by the port)
+    # dropout PRNG name of the JAX package (validated and recorded by the
+    # port, whose streams are the same under every name: utils/misc.py)
     rng_impl: str = "threefry2x32"
 
 @dataclass(frozen=True)

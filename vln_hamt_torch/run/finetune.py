@@ -93,6 +93,7 @@ from ..parallel.mesh import (Mesh, host_allgather, init_distributed, is_default_
                              local_device, make_mesh)
 from ..utils.flops import analytic_update_flops, chip_peak_flops
 from ..utils.logging import MetricsLogger, write_record
+from ..utils.misc import apply_rng_impl
 
 #: each task's env and agent; the R2R family shares R2R's
 _ENV_CLS = {**{task: R2RNavEnv for task in ("r2r", "r2r_last", "r4r", "rxr")},
@@ -101,8 +102,8 @@ _AGENT_CLS = {**{task: HAMTAgent for task in ("r2r", "r2r_last", "r4r", "rxr")},
               "r2r_back": R2RBackAgent, "reverie": ReverieAgent, "cvdn": CVDNAgent}
 
 #: flags of the JAX CLI that the port does not run yet, with their
-#: ROADMAP item
-_UNPORTED_FLAGS = {"remat": "A19", "remat_policy": "A19", "rng_impl": "A20"}
+#: ROADMAP item (none left)
+_UNPORTED_FLAGS: Dict[str, str] = {}
 
 
 def selection_score(dataset: str, metrics: Dict[str, float]) -> float:
@@ -444,6 +445,7 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
         save("latest")
         logger.log_timers(step)
     agent.wait_for_checkpoints()
+    logger.close()
     return best
 
 
@@ -548,8 +550,12 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (parameters, optimizers and losses fp32; the "
                         "feature table bf16)")
-    p.add_argument("--remat", action="store_true")
-    p.add_argument("--remat_policy", default=None, choices=["full", "dots"])
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each rollout step's activations in backward (less "
+                        "memory, one more forward of the steps)")
+    p.add_argument("--remat_policy", default=None, choices=["full", "dots"],
+                   help="full: recompute the whole step; dots: keep the dense layers' "
+                        "outputs, recompute the rest (the preset's: full)")
     p.add_argument("--no_feat_table", action="store_true",
                    help="keep the features on the host, shipped per step: host-loop "
                         "evaluation and rollout-then-replay sample updates")
@@ -557,7 +563,9 @@ def parse_args(argv=None):
                    help="sample feedback as the fused update (teacher episode forward, "
                         "then the rollout) instead of the merged one (the teacher "
                         "episode as extra lanes of the rollout)")
-    p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"])
+    p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"],
+                   help="the JAX package's dropout PRNG name, validated and recorded; the "
+                        "port draws from the same streams under either (utils/misc.py)")
     p.add_argument("--orbax_ckpt", action="store_true",
                    help="write directory checkpoints (torch.distributed.checkpoint, "
                         "asynchronous) instead of .pt files; --resume_file takes either")
@@ -603,6 +611,9 @@ def main(argv=None):
     cfg = get_preset(args.task)
     overrides = {key: getattr(args, key) for key in ("batch_size", "lr", "feedback")
                  if getattr(args, key) is not None}
+    # validated and recorded (training_config.json); the port's streams
+    # are the same under every name (utils/misc.py)
+    overrides["rng_impl"] = apply_rng_impl(args.rng_impl or cfg.train.rng_impl)
     cfg = cfg.replace(train={**overrides, "seed": args.seed,
                              "num_data_shards": args.data_shards or 1,
                              "model_shards": args.model_shards or 1})
@@ -610,6 +621,10 @@ def main(argv=None):
         cfg = cfg.replace(train={"feat_table": False})
     if args.bf16:
         cfg = cfg.replace(model={"dtype": "bfloat16"})
+    if args.remat:
+        cfg = cfg.replace(model={"remat": True})
+    if args.remat_policy is not None:
+        cfg = cfg.replace(model={"remat_policy": args.remat_policy})
     if args.tiny:
         cfg = cfg.replace(
             model={"hidden_size": 64, "num_attention_heads": 4,

@@ -45,6 +45,7 @@ import argparse
 import dataclasses
 import json
 import time
+from typing import Dict
 
 import torch
 
@@ -54,14 +55,15 @@ from ..pretrain.image_data import (DEFAULT_IMAGE_SIZE, ImagePretrainBatcher,
                                    SyntheticPanoImageStore)
 from ..pretrain.image_model import init_image_pretrain
 from ..pretrain.model import batch_to_device
+from ..utils.misc import apply_rng_impl
 from ..vision.transforms import ImageTransform
 from ..vision.vit import ViTConfig
 from .pretrain import (DEFAULT_MIX, DEFAULT_TASKS, build_real, build_synthetic,
                        pretrain_model_config, rank_setup, train_loop)
 
 #: flags of the JAX CLI that the port does not run yet, with their
-#: ROADMAP item
-_UNPORTED_FLAGS = {"rng_impl": "A20"}
+#: ROADMAP item (none left)
+_UNPORTED_FLAGS: Dict[str, str] = {}
 
 
 def parse_args(argv=None):
@@ -128,7 +130,9 @@ def parse_args(argv=None):
     p.add_argument("--data_shards", type=int, default=None)
     p.add_argument("--sharded_feed", action="store_true")
     p.add_argument("--model_shards", type=int, default=None)
-    p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"])
+    p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"],
+                   help="the JAX package's dropout PRNG name, validated and recorded; the "
+                        "port draws from the same streams under either (utils/misc.py)")
     p.add_argument("--device_bench", type=int, default=0,
                    help="time N updates per task on one batch resident on the card "
                         "(examples/s without the host's batch building), then exit")
@@ -246,6 +250,7 @@ def main(argv=None):
     for flag, item in _UNPORTED_FLAGS.items():
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(f"--{flag} is ROADMAP item {item}")
+    args.rng_impl = apply_rng_impl(args.rng_impl or "threefry2x32")  # utils/misc.py
     if not args.synthetic and not (args.train_traj_files and args.img_ft_file
                                    and args.connectivity_dir and (args.lmdb_path or args.npy_dir)):
         raise ValueError("file-backed runs need --train_traj_files --img_ft_file "

@@ -63,9 +63,11 @@ from ..data.nav_graph import load_nav_graphs
 from ..models.convert import convert_hf_bert_state_dict, convert_hf_xlmr_state_dict
 from ..pretrain import (PretrainBatcher, PretrainTrainer, TrajectoryDataset,
                         make_synthetic_trajectories)
-from ..parallel.mesh import Mesh, init_distributed, local_device, make_mesh
+from ..parallel.mesh import (Mesh, init_distributed, is_default_process, local_device,
+                             make_mesh)
 from ..pretrain.trajectory_data import load_trajectory_jsonl
 from ..utils.logging import MetricsLogger
+from ..utils.misc import apply_rng_impl
 
 # pretrain_r2r.json task mix (config/pretrain_r2r.json:45-60)
 DEFAULT_TASKS = ("mlm", "mrc", "itm", "sap", "sar", "sprel")
@@ -76,8 +78,8 @@ RXR_TASKS = ("mlm", "sap", "sar", "sprel", "itm")
 RXR_MIX = (5, 1, 1, 1, 2)
 
 #: flags of the JAX CLI that the port does not run yet, with their
-#: ROADMAP item
-_UNPORTED_FLAGS = {"rng_impl": "A20"}
+#: ROADMAP item (none left)
+_UNPORTED_FLAGS: Dict[str, str] = {}
 
 
 def parse_val_specs(entries: List[str]) -> Dict[str, List[str]]:
@@ -223,7 +225,9 @@ def parse_args(argv=None):
     p.add_argument("--init_ckpt", default=None,
                    help="a pretraining checkpoint (model_step_N.pt) to start from; the "
                         "step restarts")
-    p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"])
+    p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"],
+                   help="the JAX package's dropout PRNG name, validated and recorded; the "
+                        "port draws from the same streams under either (utils/misc.py)")
     p.add_argument("--resume", default=None,
                    help="a pretraining checkpoint to resume from (weights and step)")
     return p.parse_args(argv)
@@ -284,6 +288,7 @@ def main(argv=None):
     for flag, item in _UNPORTED_FLAGS.items():
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(f"--{flag} is ROADMAP item {item}")
+    args.rng_impl = apply_rng_impl(args.rng_impl or "threefry2x32")  # utils/misc.py
     if not args.synthetic and not (args.train_traj_files and args.img_ft_file
                                    and args.connectivity_dir):
         raise ValueError("file-backed runs need --train_traj_files --img_ft_file "
@@ -314,8 +319,13 @@ def train_loop(trainer: PretrainTrainer, val_batchers: Dict[str, PretrainBatcher
     """Steps ``start`` to ``args.num_steps``: every ``valid_steps // 10``
     the task's loss, metrics and examples/s to ``metrics.jsonl``, every
     ``valid_steps`` (and at the end) full-split validation of every
-    stream and ``model_step_N.pt``. Returns the last checkpoint's path."""
+    stream and ``model_step_N.pt``; the run's flags and model config go to
+    ``training_config.json`` first. Returns the last checkpoint's path."""
     logger = MetricsLogger(args.output_dir)
+    if is_default_process():
+        with open(os.path.join(args.output_dir, "training_config.json"), "w") as f:
+            json.dump({"args": vars(args), "model": dataclasses.asdict(trainer.cfg)}, f,
+                      indent=2, sort_keys=True)
     # unsynchronized updates; the host waits (and measures ex/s, as
     # main_r2r.py:283-301) only at log points
     t_last, n_since, ckpt = time.perf_counter(), 0, None
@@ -338,6 +348,7 @@ def train_loop(trainer: PretrainTrainer, val_batchers: Dict[str, PretrainBatcher
             logger.log(step + 1, flat)
             ckpt = os.path.join(args.output_dir, f"model_step_{step + 1}.pt")
             trainer.save(ckpt)
+    logger.close()
     return ckpt
 
 

@@ -36,7 +36,7 @@ import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -60,17 +60,25 @@ def nvidia_smi() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn: Callable[[], object], iters: int = 50, warmup: int = 3,
-                 hold_cycles: int = 100_000_000) -> float:
+def cuda_time_ms(fn: Callable[[], object], iters: int = 25, warmup: int = 3,
+                 hold_cycles: Optional[int] = None) -> float:
     """Device ms per call of ``fn``: ``iters`` calls queued behind a
-    sleeping stream (``hold_cycles`` GPU cycles, tens of ms) and timed
-    between two events, so the host's time to issue them (Python,
-    autograd, ctypes) does not count, only the device's back-to-back
-    work. The sleep must outlast the queueing, which is checked: a call
-    of many kernels fills the device's launch queue (about a thousand
-    launches) and blocks the host, so the run is halved until it fits."""
+    sleeping stream and timed between two events, so the host's time to
+    issue them (Python, autograd, ctypes) does not count, only the
+    device's back-to-back work. The sleep (``hold_cycles`` GPU cycles)
+    lasts by default twice the host's time to issue the calls, as the
+    last warm-up call took (at 2 GHz; a slower clock sleeps longer), at
+    least 2 ms and at most 10^8 cycles. It must outlast the queueing,
+    which is checked: a call of many kernels fills the device's launch
+    queue (about a thousand launches) and blocks the host, so the run is
+    halved until it fits."""
+    call_s = 0.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        call_s = time.perf_counter() - t0
+    if hold_cycles is None:
+        hold_cycles = int(min(max(2 * iters * call_s, 2e-3) * 2e9, 1e8))
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
@@ -112,10 +120,16 @@ def attention_bwd_bound_ms(b: int, h: int, lq: int, lk: int, dh: int, elt_bytes:
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[elt_bytes] * 1e3
 
 
-def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
+def launch_mix(cfg, remat: bool = False) -> Tuple[collections.Counter, collections.Counter]:
     """Attention launches of the main path by (Lq, Lk): the forward's per
     greedy batch or IL update, and the backward's per IL update (the
-    merged sample update's too, at twice the lanes).
+    merged sample update's too, at twice the lanes). With ``remat`` the
+    forward is an update's under activation recomputation
+    (``ModelConfig.remat``, ``agents/rollout.py:remat_step``), ``full``
+    or ``dots`` alike: the backward recomputes each step up to its last
+    saved activation, so every step's cross-modal attentions run again,
+    and its panorama encoder too unless ``fix_hist_embedding`` keeps it
+    out of the graph; the text encoding and the backward are unchanged.
 
     The forward: the text stack once (under ``no_lang_ca`` also the
     cross-modal layers' language half, precomputed once), then per step
@@ -145,8 +159,10 @@ def launch_mix(cfg) -> Tuple[collections.Counter, collections.Counter]:
     if not mcfg.fix_hist_embedding:
         bwd[(l_pano, l_pano)] += (t_max - 1) * n_p
     for shape in per_step:
-        fwd[shape] += t_max * n_x
+        fwd[shape] += t_max * n_x * (2 if remat else 1)
         bwd[shape] += t_max * n_x
+    if remat and not mcfg.fix_hist_embedding:
+        fwd[(l_pano, l_pano)] += t_max * n_p
     return fwd, +bwd
 
 
@@ -173,14 +189,16 @@ def text_launches(mcfg) -> Tuple[int, int]:
             (0 if text_frozen else mcfg.num_l_layers) + lang_once)
 
 
-def packed_il_mix(cfg, text_cap: int) -> Tuple[collections.Counter, collections.Counter]:
+def packed_il_mix(cfg, text_cap: int, remat: bool = False
+                  ) -> Tuple[collections.Counter, collections.Counter]:
     """Attention launches of one packed IL update by (lanes, Lq, Lk),
     forward and backward (``agents/rollout.py:build_packed_il_forward``):
-    :func:`launch_mix`'s IL update, with the one text encoding at the
-    pack's ``text_cap`` lanes and every per-step attention at the slots
-    (the batch). As in the unpacked update, the panorama encoder of the
-    last step takes no backward: no later step reads its token."""
-    fwd, bwd = launch_mix(cfg)
+    :func:`launch_mix`'s IL update (with ``remat`` its recomputed steps),
+    with the one text encoding at the pack's ``text_cap`` lanes and every
+    per-step attention at the slots (the batch). As in the unpacked
+    update, the panorama encoder of the last step takes no backward: no
+    later step reads its token."""
+    fwd, bwd = launch_mix(cfg, remat)
     s, l_txt = cfg.train.batch_size, cfg.env.max_instr_len
     out = []
     for mix, n_text in zip((fwd, bwd), text_launches(cfg.model)):

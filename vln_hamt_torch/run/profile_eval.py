@@ -32,6 +32,7 @@ from ..configs import HAMTConfig, get_preset
 from ..data.fixtures import (SyntheticWorld, add_synthetic_objects, make_synthetic_cvdn_items,
                              make_synthetic_r2rback_items, make_synthetic_world)
 from ..env import ObsSpec, R2RNavEnv
+from ..utils.xprof import kernel_group
 from .finetune import _AGENT_CLS, _ENV_CLS
 
 TASKS = tuple(_ENV_CLS)
@@ -90,19 +91,6 @@ def slice_agent(cfg: HAMTConfig, world: SyntheticWorld, seed: int = 0, device=No
                                        device=device)
 
 
-def _group(name: str) -> str:
-    low = name.lower()
-    if "attention_fwd_kernel" in low:
-        return "attention_fwd_kernel"
-    if "attention_bwd" in low:  # the backward kernel, its block-sum and dm passes
-        return "attention_bwd_kernel"
-    # cuBLAS's Hopper bf16 products are named nvjet_* or *xmma*
-    if any(s in low for s in ("gemm", "gemv", "cutlass", "cublas", "matmul", "nvjet",
-                              "xmma")):
-        return "matmul"
-    return "other"
-
-
 def kernel_table(prof) -> Tuple[List[Tuple[str, float, int]], Dict[str, dict]]:
     """Device kernels of a ``torch.profiler`` trace, longest first, as
     (name, device ms, launches), and their sums by group (the attention
@@ -122,7 +110,7 @@ def kernel_table(prof) -> Tuple[List[Tuple[str, float, int]], Dict[str, dict]]:
     kernels.sort(key=lambda r: -r[1])
     groups: Dict[str, dict] = {}
     for name, ms, n in kernels:
-        g = groups.setdefault(_group(name), {"ms": 0.0, "launches": 0})
+        g = groups.setdefault(kernel_group(name), {"ms": 0.0, "launches": 0})
         g["ms"] += ms
         g["launches"] += n
     return kernels, groups

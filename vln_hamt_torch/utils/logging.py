@@ -1,6 +1,7 @@
-"""Observability: metrics logging, timers, running meters (torch port of
-``vln_hamt_tpu/utils/logging.py``; its JAX profiler scope is not part of
-the port, see ROADMAP item A17).
+"""Observability: metrics logging, timers, running meters and the
+profiler scope (torch port of ``vln_hamt_tpu/utils/logging.py``;
+:class:`profile_trace` runs ``torch.profiler`` where the JAX package runs
+``jax.profiler``, and ``utils/xprof.py`` reads what it writes).
 
 Parity targets: the reference's record files + TB scalars
 (``finetune_src/utils/logger.py``, ``pretrain_src/utils/logger.py``:
@@ -19,7 +20,9 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import torch
 
 from ..parallel.mesh import is_default_process
 
@@ -58,6 +61,20 @@ class Timer:
         return self.total / max(self.count, 1)
 
 
+class RunningMeter:
+    """EMA-smoothed scalar (pretrain_src/utils/logger.py RunningMeter)."""
+
+    def __init__(self, name: str, smooth: float = 0.99):
+        self.name = name
+        self.smooth = smooth
+        self.val: Optional[float] = None
+
+    def update(self, v: float):
+        self.val = v if self.val is None else (
+            self.val * self.smooth + v * (1 - self.smooth)
+        )
+
+
 def write_record(path: str, text: str) -> None:
     """Append-only record file (utils/logger.py:8-13); rank 0 writes."""
     if not is_default_process():
@@ -66,13 +83,54 @@ def write_record(path: str, text: str) -> None:
         f.write(text.rstrip() + "\n")
 
 
+class profile_trace:
+    """``torch.profiler`` scope over CPU and (where present) CUDA activity
+    that writes one Chrome trace, ``{worker}.{ns}.pt.trace.json``, into
+    ``log_dir`` on exit (TensorBoard's profile plugin reads it; so does
+    ``python -m vln_hamt_torch.utils.xprof log_dir``). Usage:
+    ``with profile_trace("runs/trace"): step()``. On the H100 the trace
+    can lack the first device events of the block (0 to about 100 of a
+    remat IL update's 24,600 kernels seen, torch 2.11): where every event
+    must count, run other device work first inside the block."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self._prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        os.makedirs(self.log_dir, exist_ok=True)
+        acts = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+                if a in torch.profiler.supported_activities()]
+        self._prof = profile(activities=acts,
+                             on_trace_ready=tensorboard_trace_handler(self.log_dir))
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the queued kernels land in the trace
+        self._prof.__exit__(*exc)
+
+
 class MetricsLogger:
-    """JSONL metrics sink with per-phase timers; rank 0 writes."""
+    """JSONL metrics sink with per-phase timers and, where tensorboardX
+    imports, a TensorBoard mirror of its numeric scalars in
+    ``log_dir/tb``; rank 0 writes."""
 
     def __init__(self, log_dir: str, filename: str = "metrics.jsonl"):
         self.timers: Dict[str, Timer] = defaultdict(Timer)
         self.path = os.path.join(log_dir, filename)
+        self._tb = None
         os.makedirs(log_dir, exist_ok=True)
+        if is_default_process():
+            try:  # optional mirror
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self._tb = SummaryWriter(os.path.join(log_dir, "tb"))
 
     def timer(self, name: str) -> Timer:
         return self.timers[name]
@@ -85,6 +143,16 @@ class MetricsLogger:
             return
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k not in ("step", "time") and isinstance(v, float):
+                    self._tb.add_scalar(k, v, step)
 
     def log_timers(self, step: int) -> None:
         self.log(step, {f"time/{k}": t.mean for k, t in self.timers.items()})
+
+    def close(self) -> None:
+        """Flush and close the TensorBoard mirror, if any."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
