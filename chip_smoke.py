@@ -62,7 +62,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                production dropout, adamw lr 1e-5, clip 40, batch 8,
                T = 15) over the same world; 1 warm-up and 2 timed
                updates: IL episodes/s, the losses, and 279 forward and
-               240 backward launches per update. Then 15 updates on one
+               240 backward launches per update. Then 8 updates on one
                repeated batch (lr 1e-4, dropout off): the loss must fall.
 7. train_parity -- one IL update's loss and every parameter's gradient,
                card against CPU, batch 4, dropout off, same weights and
@@ -147,7 +147,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                per batch), 1 warm-up and 2 timed IL updates at batch 8
                (279 / 240), 1 warm-up and 2 timed merged sample updates
                (295 / 240), episodes/s and peak memory of each beside the
-               fp32 phases' of this run; 15 updates on one repeated batch
+               fp32 phases' of this run; 8 updates on one repeated batch
                (dropout off): the loss must fall; card against CPU, both
                bf16, batch 4, dropout off: greedy trajectories identical
                up to steps where the two devices' logits tie within the
@@ -185,7 +185,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 16. replay  -- the rollout-then-replay sample update at full `r2r` width,
                fp32, production dropout, batch 8, T 15: with the device
                rollout (merged and fused off) and with the host-loop
-               rollout (no feature table), one warm-up and 3 timed
+               rollout (no feature table), one warm-up and 2 timed
                updates each (sample episodes/s, peak memory, and exactly
                the rollout's launches, 279 on the device or 9 + 18 per
                policy step on the host loop, plus 279 + 279 + 16 forward
@@ -241,8 +241,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                steps, rangerlars), fp32 and bf16: one update per task with
                exactly image_pretrain_launch_mix's launches, then per task
                the host's batch building and 1 timed update (fp32 and
-               bf16; exact launches, examples/s, idle share from one
-               traced update, peak memory); card against CPU at 2 history
+               bf16; exact launches, examples/s, peak memory; for MLM
+               and SAP, one per route through the ViT, the idle share
+               from one traced update); card against CPU at 2 history
                steps, dropout off, for MRC and SAP (the history's route
                through the ViT and the observation's): the loss and every
                gradient within train_parity's tolerances.
@@ -265,7 +266,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                greedy batch); one bf16 IL update by bf16_close; the
                sharded feed's IL update (each rank's env on its shard)
                against one process fed the shards' rows. (c) two model
-               ranks (6 heads each), alone on the card: an IL update's
+               ranks (6 heads each), beside (b): an IL update's
                loss, gathered gradients and the logits after it within
                1e-5 relative, a greedy batch's trajectories, launches
                per rank exact, the update's seconds and its all-reduces
@@ -294,7 +295,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and `dots` (one warm-up update, one measured): `full`'s
                peak memory below remat off's. A profile_trace of one
                `full` IL update read back by utils/xprof.analyze: exactly
-               the mix's attention forward and backward launches.
+               the mix's attention forward and backward launches, with no
+               lead-in from this script (profile_trace warms its tracer).
+21. shapes  -- the shapes past the whole-row kernels, which the key-blocked
+               kernels (csrc/attention_blocked.cu, attention_blocked_bwd.cu)
+               take: the whole-row kernels' key limits by head width
+               (ops/attention.py:FWD_SMEM_MAX_LK, BWD_SMEM_MAX_LK) held
+               against the libraries' shared memory; check_fwd_layout and check_bwd_layout
+               passing for every head width 1..128 at 15 key rows up to
+               1024 (layer views, fp32 and bf16); both kernels once per
+               head width 1..128 against their plain versions; both at
+               Lk 257, 301, 514 and 577 (Lq = Lk) and Dh 12, 48, 64, 80 and
+               128, fp32 and bf16, dropout 0 and 0.1, with one lane's keys
+               all at -10000 and a key inside the last key block dropped,
+               at phase 3's bars, each call on the key-blocked kernels;
+               then, counts zeroed just before each and read just after,
+               one update or call of each JAX CLI configuration that
+               reaches them, at full width, with exact launches by kernel
+               and a finite loss: run/image_pretrain.py --transform none
+               (the ViT at the store's 248 x 330, 301 tokens; SAP),
+               run/precompute_features.py --image_size 384 384 on one
+               synthetic viewpoint (577 tokens, bf16), run/image_pretrain.py
+               --tiny (the ViT's Dh 12; SAP) and run/pretrain.py
+               --max_txt_len 300 (MLM at batch 16); ViT-B/16 at 301 and 577
+               tokens card against CPU on 2 images (fp32, within 2e-4);
+               each key-blocked shape of those runs (lanes, heads, Lq, Lk
+               and Dh as the runs gave them) held against its plain
+               version in fp32 and bf16 at dropout 0 and 0.1, at phase 3's
+               bars, then timed against its plain version, scaled_dot_product_attention and
+               the bound; and at the ViT's 197 keys, which the whole-row
+               kernels keep, each key-blocked kernel timed beside its
+               whole-row one.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -317,7 +348,10 @@ variant (``variants``) its launches per greedy batch, IL, merged and
 packed update, the launches of phase 17, and its times weighted as the
 family's; and its ``vision`` fields: launches per featurize call and per
 e2e update of each task, and its times at the ViT's lanes (the
-featurizer's 144, the e2e update's 900 and 36), fp32 and bf16. The family
+featurizer's 144, the e2e update's 900 and 36), fp32 and bf16. Two more
+lines are the key-blocked kernels': launches summed over phase 21's
+configuration runs (and per run), times weighted by those runs' launches
+by shape, fp32 and bf16 (``bf16``), and the 197-key comparison. The family
 times and the `rxr` pretraining mix's come in fp32 and bf16 (``bf16``
 under each preset). The bf16
 phases' lines carry the fp32 peak memory beside the bf16 one and the
@@ -325,13 +359,16 @@ device kernels per update in both (torch.profiler, as
 run/profile_train.py counts them). Its ``remat`` fields: launches per
 update of each phase 20 path in fp32, remat off, `full` and `dots`.
 The last is {"ok": true, "device": {...}}.
-Without a CUDA device, or without the rest of the repository beside it,
-the script exits non-zero before printing either.
+Every phase before 21 reads the whole-row kernels' counts through
+tier_launches, which fails if a key-blocked kernel ran on a path of
+preset shapes. Without a CUDA device, or without the rest of the
+repository beside it, the script exits non-zero before printing either.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 import json
@@ -354,11 +391,12 @@ from vln_hamt_torch.native import navsim
 from vln_hamt_torch.ops import attention as attn
 from vln_hamt_torch.pretrain.image_model import init_image_pretrain
 from vln_hamt_torch.pretrain.model import batch_to_device, init_pretrain
-from vln_hamt_torch.run import finetune
+from vln_hamt_torch.run import finetune, precompute_features
 from vln_hamt_torch.run.profile_attention import (
-    bootstrap_mix, build_all, image_pretrain_launch_mix, kernel_inputs, launch_mix, nvidia_smi,
-    packed_il_mix, rel_err,
-    text_launches, time_backward, time_forward, weighted)
+    bootstrap_mix, build_all, cuda_time_ms, image_pretrain_kernel_counts,
+    image_pretrain_launch_mix, kernel_counts, kernel_inputs, launch_mix, nvidia_smi,
+    packed_il_mix, pretrain_launch_mix, rel_err, text_launches, time_backward, time_forward,
+    weighted)
 from vln_hamt_torch.run.profile_eval import kernel_table, slice_agent, slice_config, slice_env
 from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
 from vln_hamt_torch.run.profile_vision import (
@@ -366,7 +404,7 @@ from vln_hamt_torch.run.profile_vision import (
     resident_call_ms, slice_e2e_trainer, slice_featurizer, timed_build_and_updates, traced)
 from vln_hamt_torch.utils import xprof
 from vln_hamt_torch.utils.logging import profile_trace
-from vln_hamt_torch.vision.vit import ViTConfig
+from vln_hamt_torch.vision.vit import ViTConfig, vit_base_patch16
 
 B, H, DH = 32, 12, 64
 TRAIN_B = 8  # the r2r preset's training batch
@@ -422,6 +460,9 @@ PRETRAIN_B = 16
 PRETRAIN_PRESETS = ("r2r", "rxr")
 PRETRAIN_UPDATES = 30
 PRETRAIN_PARITY_B = 2
+# the tasks whose update is traced for its device kernels, fp32 and bf16:
+# the text route and the observation route
+PRETRAIN_TRACED = ("mlm", "sap")
 # the packed IL update's text rows at r2r's batch 8 and T 15
 # (agents/packing.py: max(8 + 1, 8 * 15 // 4))
 PACKED_TEXT_CAP = 30
@@ -444,30 +485,35 @@ POSE_ATOL = 1e-6
 # packed ones, after WARMUP_UPDATES (depths cut to keep the script within
 # its time limit)
 WARMUP_UPDATES = 1
+# updates on one repeated batch whose loss must fall (phases 6 and 13)
+FIT_UPDATES = 8
 TIMED_UPDATES = 2
 TIMED_UPDATES_BF16 = 2
 VARIANT_TIMED_UPDATES = 1
 # the replay update: timed updates per rollout, and replayed against
 # recorded logits with dropout on (the JAX package's
 # test_rl_replay_matches_rollout_logits bound)
-REPLAY_UPDATES = 3
+REPLAY_UPDATES = 2
 REPLAY_LOGIT_ATOL = 2e-4
 
 
 # phase 18, the vision pipeline: the ViT's attention lanes (one panorama
 # and the observation ViT; the featurizer's 4 panoramas; the history
 # ViT's 25 x 36 images at batch 1), forward and, for the observation,
-# backward; viewpoints through the pipelined extract (3 calls); resident
+# backward; viewpoints through the pipelined extract (2 calls); resident
 # calls timed; card against CPU features and logits in fp32 (the
 # repository's parity bar); timed e2e updates per task (bf16's depth cut
 # for the script's time limit); the history length of the e2e
 # card-against-CPU check and its tasks (bound the CPU's time)
 VIT_FWD_LANES = (36, 36 * PANOS_PER_BATCH, 25 * 36)
 VIT_BWD_LANES = (36,)
-VISION_PANOS = 12
+VISION_PANOS = 8
 VISION_RESIDENT_ITERS = 6
 FEAT_ATOL = 2e-4
 E2E_UPDATES = {"float32": 1, "bfloat16": 1}
+# the e2e tasks whose update is traced: one per route through the ViT (the
+# history alone; the observation with gradient), PERF.md §5's rows
+E2E_TRACED = ("mlm", "sap")
 E2E_PARITY_HIST = 2
 # the e2e card-against-CPU check's tasks: one per route through the ViT
 # (MRC: the history without gradient, masked after the ViT; SAP: the
@@ -484,6 +530,17 @@ def emit(phase: str, **fields) -> None:
 def reset_counts() -> None:
     for name in attn.launch_counts:
         attn.launch_counts[name] = 0
+
+
+def tier_launches(counts=None) -> dict:
+    """The whole-row kernels' launches of ``counts`` (the wrappers' counts
+    by default), raising if a key-blocked kernel was launched: no path of
+    phases 3-20 has a shape past the whole-row kernels'."""
+    counts = dict(attn.launch_counts if counts is None else counts)
+    blocked = {name: counts.pop(name) for name in attn.BLOCKED}
+    if any(blocked.values()):
+        raise AssertionError(f"a key-blocked kernel ran on a path of preset shapes: {blocked}")
+    return counts
 
 
 def check_bwd(q, k, v, m, g, seed, rate, where):
@@ -745,7 +802,7 @@ def timed_sample_updates(agent, iters):
     keys = ("loss", "IL_loss", "RL_loss", "entropy")
     vals = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).cpu()
     seconds = time.perf_counter() - t0
-    launches = dict(attn.launch_counts)
+    launches = tier_launches()
     if not torch.isfinite(vals).all():
         raise AssertionError(f"non-finite sample losses {vals.tolist()}")
     return dict(zip(keys, vals.T)), seconds, launches
@@ -904,7 +961,7 @@ def counted_update(trainer, task, batch, want, what):
     reset_counts()
     loss, _ = trainer.update(task, batch)
     loss = float(loss)
-    got = dict(attn.launch_counts)
+    got = tier_launches()
     per = {"attention_fwd": sum(want[0].values()), "attention_bwd": sum(want[1].values())}
     if got != per or not math.isfinite(loss):
         raise AssertionError(f"{what} {task}: launches {got}, expected {per}; loss {loss}")
@@ -927,7 +984,7 @@ def phase_pretrain(pmixes, tmp):
     outs = [trainer.train_step() for _ in range(PRETRAIN_UPDATES)]
     losses = torch.stack([loss for _, loss, _ in outs]).cpu()
     seconds = time.perf_counter() - t0
-    launches = dict(attn.launch_counts)
+    launches = tier_launches()
     trainer.close()  # the prefetch thread is done with the batcher
     draw = [task for task, _, _ in outs]
     want = {"attention_fwd": sum(sum(mixes[t][0].values()) for t in draw),
@@ -938,7 +995,7 @@ def phase_pretrain(pmixes, tmp):
     peak = torch.cuda.max_memory_allocated() / 2**30
     draw_mix = mix_launches({t: mixes[t] for t in set(draw)},
                             {t: draw.count(t) / len(draw) for t in set(draw)})
-    kernels = task_kernels(trainer, tasks)
+    kernels = task_kernels(trainer, PRETRAIN_TRACED)
 
     # card against CPU, dropout off, per task at batch 2
     cpu_model = init_pretrain(cfg, seed=0)
@@ -1125,7 +1182,7 @@ def phase_pretrain_bf16(mixes, table32, fp32_peak, fp32_kernels):
     outs = [trainer.train_step() for _ in range(PRETRAIN_UPDATES)]
     losses = torch.stack([loss for _, loss, _ in outs]).cpu()
     seconds = time.perf_counter() - t0
-    launches = dict(attn.launch_counts)
+    launches = tier_launches()
     trainer.close()
     draw = [task for task, _, _ in outs]
     want = {"attention_fwd": sum(sum(mixes[t][0].values()) for t in draw),
@@ -1136,7 +1193,7 @@ def phase_pretrain_bf16(mixes, table32, fp32_peak, fp32_kernels):
     peak = torch.cuda.max_memory_allocated() / 2**30
     draw_mix = mix_launches({t: mixes[t] for t in set(draw)},
                             {t: draw.count(t) / len(draw) for t in set(draw)})
-    kernels = task_kernels(trainer, tasks)
+    kernels = task_kernels(trainer, PRETRAIN_TRACED)
 
     # card against CPU per task at batch 2, both bf16, dropout off; the
     # card's fp32 model on the same weights (and the fp32 table) answers
@@ -1169,7 +1226,7 @@ def phase_pretrain_bf16(mixes, table32, fp32_peak, fp32_kernels):
          ms_per_update=seconds / PRETRAIN_UPDATES * 1e3, loss_mean=losses.mean().item(),
          launches=launches, peak_mem_gb=peak, fp32_peak_mem_gb=fp32_peak,
          kernels_per_update={t: {"float32": fp32_kernels[t], "bfloat16": kernels[t]}
-                             for t in tasks},
+                             for t in PRETRAIN_TRACED},
          parity={"batch": PRETRAIN_PARITY_B, "factor": BF16_FACTOR, "atol": BF16_ATOL,
                  "seconds": time.perf_counter() - t1, **parity})
     del trainer
@@ -1223,7 +1280,7 @@ def timed_greedy_batch(agent, per_batch, what):
     t0 = time.perf_counter()
     trajs, _, _ = greedy_batch(agent)
     seconds = time.perf_counter() - t0
-    launches = dict(attn.launch_counts)
+    launches = tier_launches()
     if launches != {"attention_fwd": per_batch, "attention_bwd": 0}:
         raise AssertionError(f"{what} greedy batch launches {launches}, expected {per_batch} "
                              "forward")
@@ -1441,7 +1498,7 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
     preds = agent.eval_split_device()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches["serving"] = dict(attn.launch_counts)
+    launches["serving"] = tier_launches()
     batches = len(world.instr_data) // B + 1
     if launches["serving"] != {"attention_fwd": per_batch * batches, "attention_bwd": 0}:
         raise AssertionError(f"bf16 greedy launches {launches['serving']}, expected "
@@ -1468,7 +1525,7 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
     losses = torch.stack([agent.train_iteration("teacher", sync=False)["loss"]
                           for _ in range(iters)]).cpu()
     seconds = time.perf_counter() - t0
-    launches["il"] = dict(attn.launch_counts)
+    launches["il"] = tier_launches()
     want = {"attention_fwd": per_batch * iters, "attention_bwd": per_update_bwd * iters}
     if launches["il"] != want or not torch.isfinite(losses).all():
         raise AssertionError(f"bf16 IL launches {launches['il']} != {want}, or losses "
@@ -1506,10 +1563,10 @@ def phase_bf16(cfg, world, per_batch, per_update_bwd, merged_per, fp32):
     agent = HAMTAgent(ocfg, slice_env(ocfg, world, seed=0), seed=0)
     agent.enable_feature_table()
     ep = agent._ep_to_device(agent.env.teacher_episode())
-    fit = torch.stack([agent._il_update(ep, 1.0) for _ in range(15)]).cpu()
+    fit = torch.stack([agent._il_update(ep, 1.0) for _ in range(FIT_UPDATES)]).cpu()
     if not torch.isfinite(fit).all() or not fit[-1] < fit[0]:
-        raise AssertionError(f"bf16: 15 updates on one batch did not lower the loss: "
-                             f"{fit.tolist()}")
+        raise AssertionError(f"bf16: {FIT_UPDATES} updates on one batch did not lower the "
+                             f"loss: {fit.tolist()}")
     del agent
     emit("bf16", preset="r2r", hidden=cfg.model.hidden_size, **runs,
          fp32=fp32, bf16_over_fp32_episodes_per_s={
@@ -1595,7 +1652,7 @@ def phase_packed(cfg, world, pmix, unpacked):
         outs = [agent.train_iteration("teacher", sync=False) for _ in range(iters)]
         losses = torch.stack([o["loss"] for o in outs]).cpu()
         seconds = time.perf_counter() - t0
-        launches[dtype] = dict(attn.launch_counts)
+        launches[dtype] = tier_launches()
         if launches[dtype] != {k: n * iters for k, n in per.items()} or not torch.isfinite(
                 losses).all():
             raise AssertionError(f"packed IL {dtype}: launches {launches[dtype]}, expected "
@@ -1790,7 +1847,7 @@ def timed_eval(agent, count, fn, per_batch, text, per_step, what):
     preds = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    got = dict(attn.launch_counts)
+    got = tier_launches()
     formula = (per_batch * count.texts if count.steps == 0
                else text * count.texts + per_step * count.steps)
     if got != {"attention_fwd": formula, "attention_bwd": 0}:
@@ -2027,7 +2084,7 @@ def timed_updates(agent, feedback, iters, per_update, what):
     outs = [agent.train_iteration(feedback, sync=False) for _ in range(iters)]
     losses = torch.stack([o["loss"] for o in outs]).cpu()
     seconds = time.perf_counter() - t0
-    launches = dict(attn.launch_counts)
+    launches = tier_launches()
     if launches != {k: n * iters for k, n in per_update.items()}:
         raise AssertionError(f"{what}: launches {launches} over {iters} updates, expected "
                              f"{per_update} per update")
@@ -2285,7 +2342,7 @@ def phase_featurizer():
         torch.cuda.synchronize()
         reset_counts()
         out = feat.extract(("synth", f"vp{i}", p) for i, p in enumerate(panos))
-        launches = dict(attn.launch_counts)
+        launches = tier_launches()
         if launches != per_call:
             raise AssertionError(f"featurizer {dtype}: launches {launches} for one call of "
                                  f"{PANOS_PER_BATCH} panoramas, expected {per_call}")
@@ -2297,7 +2354,7 @@ def phase_featurizer():
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         ips, _ = pipelined_images_per_s(feat, panos, VISION_PANOS)
-        launches = dict(attn.launch_counts)
+        launches = tier_launches()
         want = {"attention_fwd": vcfg.num_layers * VISION_PANOS // PANOS_PER_BATCH,
                 "attention_bwd": 0}
         if launches != want:
@@ -2368,7 +2425,7 @@ def e2e_parity(trainer):
         batch = batcher.batch(task, pargs.batch_size)
         reset_counts()
         loss_g, grads_g = e2e_gradients(trainer.model, batch, task, trainer.device)
-        launches = dict(attn.launch_counts)
+        launches = tier_launches()
         mix = image_pretrain_launch_mix(cfg, vit_cfg, task, pargs.batch_size, pargs.max_txt_len,
                                         E2E_PARITY_HIST)
         want = {name: sum(m.values()) for name, m in zip(("attention_fwd", "attention_bwd"), mix)}
@@ -2404,26 +2461,27 @@ def phase_e2e():
         for task in tasks:
             reset_counts()
             t = timed_build_and_updates(trainer, task, n, args.batch_size)
-            launches = dict(attn.launch_counts)
+            launches = tier_launches()
             want = {name: n * sum(m.values())
                     for name, m in zip(("attention_fwd", "attention_bwd"), mixes[task])}
             if launches != want:
                 raise AssertionError(f"e2e {dtype} {task}: launches {launches} over {n} "
                                      f"updates, expected {want}")
+            per_task[task] = {**t, "examples_per_s_update": 1e3 / t["update_ms"],
+                              "examples_per_s_in_series": 1e3 / (t["update_ms"]
+                                                                 + t["build_ms"]),
+                              "launches_per_update": {k: v // n for k, v in launches.items()}}
+            if task not in E2E_TRACED:
+                continue
             batch = trainer.batcher.batch(task, args.batch_size)
             kernels, groups, whole = traced(
                 lambda: float(trainer.update(task, batch)[0]),
                 {name: sum(m.values()) for name, m in zip(("attention_fwd", "attention_bwd"),
                                                           mixes[task])})
             kernel_ms = sum(ms for _, ms, _ in kernels)
-            per_task[task] = {**t, "examples_per_s_update": 1e3 / t["update_ms"],
-                              "examples_per_s_in_series": 1e3 / (t["update_ms"]
-                                                                 + t["build_ms"]),
-                              "kernel_ms": kernel_ms,
-                              "idle_share": 1.0 - kernel_ms / t["update_ms"], "groups": groups,
-                              "trace_whole": whole,
-                              "kernels_per_update": sum(c for *_, c in kernels),
-                              "launches_per_update": {k: v // n for k, v in launches.items()}}
+            per_task[task].update(kernel_ms=kernel_ms, groups=groups, trace_whole=whole,
+                                  idle_share=1.0 - kernel_ms / t["update_ms"],
+                                  kernels_per_update=sum(c for *_, c in kernels))
         runs[dtype] = {"updates_per_task": n, "warmup_losses": warm, "tasks": per_task,
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
         cfg, vit_cfg = trainer.cfg, trainer.model.vit_config
@@ -2505,7 +2563,7 @@ def alongside(tmp, tag, ranks, *argv, backend="gloo"):
 def parallel_run(tmp, tag, ranks, *argv, backend="gloo"):
     """tests/torch_parallel_harness.py over ``argv``: ``ranks`` rank
     processes, or with 0 this process (undistributed, on the card); its
-    result."""
+    result, with the run's ``wall_seconds``."""
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.append(tests)
@@ -2513,6 +2571,7 @@ def parallel_run(tmp, tag, ranks, *argv, backend="gloo"):
 
     out = os.path.join(tmp, f"{tag}.json")
     argv = [*argv, "--backend", backend, "--out", out]
+    t0 = time.perf_counter()
     if ranks:
         harness.spawn(argv, ranks, MG_TIMEOUT)
     else:
@@ -2522,7 +2581,7 @@ def parallel_run(tmp, tag, ranks, *argv, backend="gloo"):
         finally:
             torch.set_num_threads(threads)
     with open(out) as f:
-        return json.load(f)
+        return {**json.load(f), "wall_seconds": time.perf_counter() - t0}
 
 
 def mg_losses_close(got, want, what, rtol=MG_RTOL, atol=MG_ATOL) -> float:
@@ -2563,7 +2622,7 @@ def mg_launches(res, want, what):
     """Each rank's launches per step equal ``want`` (per step name)."""
     for rank, steps in enumerate(res["launches_per_rank"]):
         for (step, _), got in zip(res["losses"], steps):
-            if got != want[step]:
+            if tier_launches(got) != want[step]:
                 raise AssertionError(f"{what}: rank {rank} {step} launches {got}, "
                                      f"expected {want[step]}")
 
@@ -2622,26 +2681,33 @@ def phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd, merged_per):
 
         ev = ("--eval", "device", "--eval_batch", str(MG_EVAL_B), "--val_items",
               str(MG_EVAL_ITEMS))
-        # (b) first, alone on the card, its times kept: two data ranks over
-        # gloo, 3 IL and 3 merged sample updates at global batch 8 (4 lanes
-        # per rank), the greedy evaluation of a split sharded over the
-        # ranks (16 lanes each)
-        # the gradients of the first IL and the first merged update
-        grads_at = ("--grads_steps", f"0,{MG_STEPS.split(',').index('merged')}")
-        t0 = time.perf_counter()
-        got = parallel_run(tmp, "b2", 2, *full, "--steps", MG_STEPS, *ev,
-                           "--params_out", p("b2.npz"), "--grads_out", p("b2g.npz"),
-                           *grads_at, "--time_allreduce", "5")
-        seconds_b = time.perf_counter() - t0
-        # (c) alone too: two model ranks, its update timed
+        # (b) and (c) first, side by side, their times kept (four ranks
+        # share the card: smoke output). (b): two data ranks over gloo, 3 IL
+        # and 3 merged sample updates at global batch 8 (4 lanes per rank),
+        # the greedy evaluation of a split sharded over the ranks (16 lanes
+        # each), and the gradients of the first IL and the first merged
+        # update. (c): two model ranks, its update timed. This process
+        # meanwhile runs the references of (b), (c), the bf16 IL update and
+        # the sharded feed
         tp_args = (*full, "--steps", "il", "--eval", "device", "--eval_batch", str(TRAIN_B),
                    "--val_items", str(TRAIN_B))
-        t0 = time.perf_counter()
-        tp = parallel_run(tmp, "c2", 2, *tp_args, "--model_shards", "2",
-                          "--grads_out", p("c2g.npz"), "--logits_out", p("c2l.npy"))
-        seconds_c = time.perf_counter() - t0
+        grads_at = ("--grads_steps", f"0,{MG_STEPS.split(',').index('merged')}")
+        tp = alongside(tmp, "c2", 2, *tp_args, "--model_shards", "2",
+                       "--grads_out", p("c2g.npz"), "--logits_out", p("c2l.npy"))
+        dp_run = alongside(tmp, "b2", 2, *full, "--steps", MG_STEPS, *ev,
+                           "--params_out", p("b2.npz"), "--grads_out", p("b2g.npz"),
+                           *grads_at, "--time_allreduce", "5")
+        want = parallel_run(tmp, "b0", 0, *full, "--steps", MG_STEPS, *ev,
+                            "--params_out", p("b0.npz"), "--grads_out", p("b0g.npz"),
+                            *grads_at)
+        tp0 = parallel_run(tmp, "c0", 0, *tp_args, "--grads_out", p("c0g.npz"),
+                           "--logits_out", p("c0l.npy"))
+        bf0 = parallel_run(tmp, "bf0", 0, *full, "--bf16", "--steps", "il")
+        shard0 = parallel_run(tmp, "bs0", 0, *full, "--sharded_feed", "2", "--steps", "il")
+        got, tp = dp_run.result(), tp.result()
+        seconds_b, seconds_bc = got["wall_seconds"], tp["wall_seconds"]
         # then the rest side by side: the ranks' processes of (a), the bf16
-        # IL update, the sharded feed and (d) at once, the references in
+        # IL update, the sharded feed and (d) at once, (d)'s reference in
         # this process meanwhile
         t0 = time.perf_counter()
         pt = ("--pretrain", "--batch", str(PRETRAIN_B), "--lr", "0")
@@ -2650,13 +2716,6 @@ def phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd, merged_per):
         bf2 = alongside(tmp, "bf2", 2, *full, "--bf16", "--steps", "il")
         shard = alongside(tmp, "bs", 2, *full, "--sharded_feed", "2", "--steps", "il")
         pt2 = alongside(tmp, "d2", 2, *pt, "--grads_out", p("d2.npz"))
-        want = parallel_run(tmp, "b0", 0, *full, "--steps", MG_STEPS, *ev,
-                            "--params_out", p("b0.npz"), "--grads_out", p("b0g.npz"),
-                            *grads_at)
-        bf0 = parallel_run(tmp, "bf0", 0, *full, "--bf16", "--steps", "il")
-        shard0 = parallel_run(tmp, "bs0", 0, *full, "--sharded_feed", "2", "--steps", "il")
-        tp0 = parallel_run(tmp, "c0", 0, *tp_args, "--grads_out", p("c0g.npz"),
-                           "--logits_out", p("c0l.npy"))
         pt0 = parallel_run(tmp, "d0", 0, *pt, "--grads_out", p("d0.npz"))
 
         # (a) NCCL, one rank: the IL update through the gradient all-reduce,
@@ -2687,7 +2746,7 @@ def phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd, merged_per):
         mg_launches(got, per_step, "data parallel")
         local_eval = MG_EVAL_B // 2
         eval_batches = (MG_EVAL_ITEMS // 2) // local_eval + 1
-        if got["eval_launches"] != {"attention_fwd": per_batch * eval_batches,
+        if tier_launches(got["eval_launches"]) != {"attention_fwd": per_batch * eval_batches,
                                     "attention_bwd": 0}:
             raise AssertionError(f"data-parallel eval launches {got['eval_launches']}")
         # episodes/s over each kind's updates after its first
@@ -2736,14 +2795,15 @@ def phase_multi_gpu(dev, mix, bwd_mix, per_batch, per_update_bwd, merged_per):
         if got["traj"] != tp0["traj"]:
             raise AssertionError("tensor parallel: greedy trajectories differ")
         mg_launches(got, per_step, "tensor parallel")
-        if got["eval_launches"] != {"attention_fwd": per_batch * 2, "attention_bwd": 0}:
+        if tier_launches(got["eval_launches"]) != {"attention_fwd": per_batch * 2,
+                                                   "attention_bwd": 0}:
             raise AssertionError(f"tensor-parallel eval launches {got['eval_launches']}")
         emit("multi_gpu", part="c", ranks=2, heads_per_rank=TP_HEADS, batch=TRAIN_B,
              loss=got["losses"][0][1]["loss"], loss_worst_over_tol=tp_loss,
              grad_worst_over_tol=tp_grads, logit_max_abs_err=logit_err,
              launches_per_rank=got["launches_per_rank"], eval_launches=got["eval_launches"],
              seconds_per_il_update=got["seconds"][0],
-             allreduces_per_update=got["allreduces"][0], seconds_alone=seconds_c)
+             allreduces_per_update=got["allreduces"][0], seconds_with_b=seconds_bc)
 
         # (d) pretraining, two data ranks at batch 16 (8 each): one update
         # per task from the same weights (lr 0), losses and summed gradients
@@ -2808,7 +2868,7 @@ def remat_update(agent, path):
     return {"loss": out["loss"], "episodes": episodes, "ms": seconds * 1e3,
             "episodes_per_s": episodes / seconds,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": dict(attn.launch_counts)}
+            "launches": tier_launches()}
 
 
 def remat_params(agent):
@@ -2833,13 +2893,7 @@ def remat_xprof(agent, cfg):
     agent.packed_il = False
     want = remat_per_update(cfg, "il", True)
     with tempfile.TemporaryDirectory() as tdir:
-        with profile_trace(tdir):
-            # the tracer can lose the first device events of its window (up to
-            # about 100 seen, PERF.md §6): a lead-in of 1,000 short spin
-            # kernels, no attention among them, takes that loss
-            for _ in range(1000):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+        with profile_trace(tdir):  # its own warm-up keeps every device event
             agent.train_iteration("teacher")
         res = xprof.analyze(tdir, top=5)
     cats = {c["category"]: c["launches"] for c in res["categories"]}
@@ -2936,6 +2990,337 @@ def phase_remat(cfg, world, smi):
     return per_update
 
 
+# phase 21, the shapes past the whole-row kernels, which the key-blocked
+# kernels take: the key rows and head widths both are held at against
+# their plain versions (SHAPE_LANES lanes of SHAPE_HEADS heads, the first
+# lane's keys all at -10000 and one more key inside the last key block
+# at -10000); the query and key rows each head width 1..128 is launched
+# at once; the key rows every head width's layout checks run at; the
+# ViT-B/16 featurizer's lanes at 197 keys, where the key-blocked kernels
+# are timed beside the whole-row ones; the task of the e2e updates (the
+# observation with gradient: both kernels); the pretraining CLI's text
+# length and task; the featurizer's image size; the ViT's card-against-
+# CPU images (phase 18's bar)
+SHAPE_LKS = (257, 301, 514, 577)
+SHAPE_DHS = (12, 48, 64, 80, 128)
+SHAPE_LANES, SHAPE_HEADS = 3, 4
+SWEEP_LQ, SWEEP_LK = 9, 70
+LAYOUT_LKS = (1, 40, 41, 72, 73, 160, 161, 192, 193, 256, 257, 301, 514, 577, 1024)
+VIT197_LANES = {"attention_fwd": 36 * PANOS_PER_BATCH, "attention_bwd": 36}
+SHAPE_E2E_TASK = "sap"
+LONG_TEXT, LONG_TEXT_TASK = 300, "mlm"
+FEAT_IMAGE = 384
+VIT_PARITY_IMAGES = 2
+
+
+def phase_shape_routes(dev):
+    """Phase 21's routes: the whole-row kernels' key limits by head width
+    (``ops/attention.py:FWD_SMEM_MAX_LK``, ``BWD_SMEM_MAX_LK``, else
+    FWD_MAX_LK) against their libraries' shared memory: the limit within
+    MAX_SMEM_BYTES, one key more past it, so no routed shape can fail the
+    launch for its shared memory; every head
+    width 1..128 at LAYOUT_LKS, as the layer's views in fp32 and bf16,
+    through check_fwd_layout and check_bwd_layout; and both kernels once
+    per head width (SWEEP_LQ x SWEEP_LK, fp32, dropout 0.1) against their
+    plain versions. Returns the largest errors."""
+    libs = ((attn._library("attention_fwd").hamt_attention_smem_bytes, attn.FWD_SMEM_MAX_LK),
+            (attn._library("attention_bwd").hamt_attention_bwd_smem_bytes,
+             attn.BWD_SMEM_MAX_LK))
+    for smem, limits in libs:
+        for dh in attn.FWD_HEAD_DIMS:
+            lk = limits.get(dh, attn.FWD_MAX_LK)
+            if not (smem(lk, dh) <= attn.MAX_SMEM_BYTES
+                    and (lk == attn.FWD_MAX_LK or smem(lk + 1, dh) > attn.MAX_SMEM_BYTES)):
+                raise AssertionError(f"{smem.__name__} at Dh {dh}: {smem(lk, dh)} B at the "
+                                     f"route's limit Lk {lk}, {smem(lk + 1, dh)} B past it")
+    routes = collections.Counter()
+    for dh in range(1, attn.MAX_HEAD_DIM + 1):
+        for lk in LAYOUT_LKS:
+            for dtype in (torch.float32, torch.bfloat16):
+                def view(l, t=dtype):  # (B, L, 3 * Dh) as (B, 3, L, Dh)
+                    return torch.empty(2, l, 3 * dh, dtype=t, device=dev).view(
+                        2, l, 3, dh).transpose(1, 2)
+                q, k, g = view(SWEEP_LQ), view(lk), view(SWEEP_LQ, torch.float32)
+                attn.check_fwd_layout(q, k, k)
+                attn.check_bwd_layout(q, k, k, g)
+            routes[f"{attn.fwd_kernel(lk, dh)} / {attn.bwd_kernel(lk, dh)}"] += 1
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ferr = berr = 0.0
+    for dh in range(1, attn.MAX_HEAD_DIM + 1):
+        q, k, v, m, g = kernel_inputs(2, 3, SWEEP_LQ, SWEEP_LK, dh, torch.float32, gen, dev,
+                                      masked_rows=True)
+        where = f"({SWEEP_LQ},{SWEEP_LK}) Dh {dh}"
+        ferr = max(ferr, check_fwd(q, k, v, m, 2**31 + 7, 0.1, where))
+        berr = max(berr, check_bwd(q, k, v, m, g, 2**31 + 7, 0.1, where)[1])
+    emit("shapes", part="routes", key_limits_hold=True,
+         layout_checks=len(LAYOUT_LKS) * attn.MAX_HEAD_DIM * 2, routes=dict(routes),
+         head_widths_launched=attn.MAX_HEAD_DIM, max_abs_err={"fwd": ferr, "bwd": berr})
+    return ferr, berr
+
+
+def phase_shape_kernels(dev):
+    """Both key-blocked kernels against their plain versions at every Lk
+    of SHAPE_LKS (Lq = Lk) and Dh of SHAPE_DHS, fp32 and bf16, dropout 0
+    and 0.1, at phase 3's bars; each call launches exactly the key-blocked
+    kernel. Returns the largest errors."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    seed = 2**31 + 7
+    rows, ferr, berr = [], 0.0, 0.0
+    want = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_blocked": 1,
+            "attention_bwd_blocked": 1}
+    for lk in SHAPE_LKS:
+        for dh in SHAPE_DHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, m, g = kernel_inputs(SHAPE_LANES, SHAPE_HEADS, lk, lk, dh, dtype, gen,
+                                              dev, masked_rows=True)
+                m[1:, lk - 2] = -10000.0  # a key inside the last key block
+                for rate in (0.0, 0.1):
+                    where = f"key-blocked ({lk},{lk}) Dh {dh}"
+                    reset_counts()
+                    err = check_fwd(q, k, v, m, seed, rate, where)
+                    errs, aerr = check_bwd(q, k, v, m, g, seed, rate, where)
+                    if dict(attn.launch_counts) != want:
+                        raise AssertionError(f"{where}: launches {attn.launch_counts}")
+                    ferr, berr = max(ferr, err), max(berr, aerr)
+                    rows.append({"lk": lk, "head_dim": dh, "dtype": dtype_name(dtype),
+                                 "rate": rate, "max_abs_err": err, "rel_err": errs})
+    emit("shapes", part="kernels", lanes=SHAPE_LANES, heads=SHAPE_HEADS, tol=dict(
+        fwd={f"{dtype_name(d)} {r}": t for (d, r), t in TOL.items()},
+        bwd={dtype_name(d): t for d, t in BWD_RTOL.items()}, dm=BWD_DM_RTOL), results=rows)
+    return ferr, berr
+
+
+def blocked_shapes(mixes, heads, dh):
+    """The shapes of a (forward, backward) pair of launch mixes by (lanes,
+    Lq, Lk) that the key-blocked kernels take, by kernel: {name: {(lanes,
+    heads, Lq, Lk, Dh): launches}}."""
+    out = {name: collections.Counter() for name in attn.BLOCKED}
+    for mix, route in zip(mixes, (attn.fwd_kernel, attn.bwd_kernel)):
+        for (lanes, lq, lk), n in mix.items():
+            name = route(lk, dh)
+            if name in out:
+                out[name][(lanes, heads, lq, lk, dh)] += n
+    return out
+
+
+def counted_run(fn, want, what):
+    """``fn()`` (a loss, or a dict of finite outputs) with every count set
+    to 0 just before and read just after: its launches equal ``want`` by
+    kernel. Returns the loss or outputs and the launches."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(attn.launch_counts)
+    finite = (math.isfinite(out) if isinstance(out, float)
+              else all(np.isfinite(x).all() for x in out.values()))
+    if got != want or not finite:
+        raise AssertionError(f"{what}: launches {got}, expected {want}; finite {finite}")
+    return out, got
+
+
+def shape_e2e(extra):
+    """One e2e image-pretraining update of SHAPE_E2E_TASK of the CLI at
+    ``extra`` (``--transform none``: the ViT at the store's 248 x 330, 301
+    tokens; ``--tiny``: the ViT's Dh 12) on the card. Returns its line and
+    its key-blocked shapes."""
+    args = e2e_args(extra)
+    trainer, _ = slice_e2e_trainer(extra)
+    vit, task = trainer.model.vit_config, SHAPE_E2E_TASK
+    mix_args = (task, args.batch_size, args.max_txt_len, args.max_hist_len)
+    trunk = pretrain_launch_mix(trainer.cfg, *mix_args)
+    vit_mix = tuple(a - b for a, b in zip(
+        image_pretrain_launch_mix(trainer.cfg, vit, *mix_args), trunk))
+    batch = trainer.batcher.batch(task, args.batch_size)
+    loss, got = counted_run(lambda: float(trainer.update(task, batch)[0]),
+                            image_pretrain_kernel_counts(trainer.cfg, vit, *mix_args),
+                            f"e2e {' '.join(extra)} {task}")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    line = {"cli": "run/image_pretrain.py --synthetic " + " ".join(extra), "task": task,
+            "vit": [vit.hidden_size, vit.num_layers, vit.num_heads], "image": list(vit.img_size),
+            "tokens": vit.num_patches + 1, "loss": loss, "launches": got}
+    return line, blocked_shapes(vit_mix, vit.num_heads, vit.hidden_size // vit.num_heads)
+
+
+def shape_featurize():
+    """One ``run/precompute_features.py --synthetic 1 --image_size 384 384``
+    call (its defaults otherwise: bf16, the timm eval transform) on the
+    card through its own set-up: 577 tokens. Returns its line and its
+    key-blocked shapes."""
+    args = precompute_features.parse_args(
+        ["--synthetic", "1", "--image_size", str(FEAT_IMAGE), str(FEAT_IMAGE),
+         "--output_file", "unused.hdf5"])
+    feat, source, _ = precompute_features.build(args)
+    vit = feat.vit.config
+    n, dh = vit.num_patches + 1, vit.hidden_size // vit.num_heads
+    mix = ({(36, n, n): vit.num_layers}, {})
+    out, got = counted_run(lambda: {k: np.asarray(v) for k, v in feat.extract(source).items()},
+                           kernel_counts(mix, dh), "precompute_features 384")
+    if [v.shape for v in out.values()] != [(36, vit.hidden_size + vit.num_classes)]:
+        raise AssertionError(f"precompute_features 384: {[v.shape for v in out.values()]}")
+    del feat
+    torch.cuda.empty_cache()
+    line = {"cli": "run/precompute_features.py --synthetic 1 --image_size 384 384",
+            "dtype": vit.dtype, "tokens": n, "viewpoints": len(out), "launches": got,
+            "features_max_abs": float(max(np.abs(v).max() for v in out.values()))}
+    return line, blocked_shapes(mix, vit.num_heads, dh)
+
+
+def shape_long_text():
+    """One ``run/pretrain.py --synthetic --max_txt_len 300`` update of
+    LONG_TEXT_TASK at full `r2r` width and the CLI's batch on the card.
+    Returns its line and its key-blocked shapes."""
+    extra = ("--max_txt_len", str(LONG_TEXT))
+    trainer, _ = slice_trainer("r2r", batch_size=PRETRAIN_B, seed=0, extra=extra)
+    mixes, _ = slice_mixes("r2r", PRETRAIN_B, extra)
+    cfg, task = trainer.cfg, LONG_TEXT_TASK
+    batch = trainer.batcher.batch(task, PRETRAIN_B)
+    loss, got = counted_run(lambda: float(trainer.update(task, batch)[0]),
+                            kernel_counts(mixes[task], cfg.head_dim),
+                            f"pretrain --max_txt_len {LONG_TEXT} {task}")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    line = {"cli": f"run/pretrain.py --synthetic --max_txt_len {LONG_TEXT}", "task": task,
+            "batch": PRETRAIN_B, "loss": loss, "launches": got}
+    return line, blocked_shapes(mixes[task], cfg.num_attention_heads, cfg.head_dim)
+
+
+def shape_vit_parity(dev):
+    """ViT-B/16 at 248 x 330 (301 tokens) and 384 x 384 (577), fp32, on
+    VIT_PARITY_IMAGES images: the card's features and logits within
+    FEAT_ATOL of the CPU's, the card's attention all key-blocked."""
+    out = {}
+    for size in ((248, 330), (FEAT_IMAGE, FEAT_IMAGE)):
+        vit = vit_base_patch16(img_size=size)
+        cfg = vit.config
+        n = cfg.num_patches + 1
+        images = torch.from_numpy(np.random.default_rng(21).standard_normal(
+            (VIT_PARITY_IMAGES, *size, 3)).astype(np.float32))
+        with torch.no_grad():
+            want = [x.numpy() for x in vit(images)]
+            vit.to(dev)
+            got, _ = counted_run(
+                lambda: dict(zip(("features", "logits"),
+                                 (x.cpu().numpy() for x in vit(images.to(dev))))),
+                kernel_counts(({(VIT_PARITY_IMAGES, n, n): cfg.num_layers}, {}),
+                              cfg.hidden_size // cfg.num_heads), f"ViT at {size}")
+        errs = {k: float(np.abs(got[k] - w).max()) for k, w in zip(got, want)}
+        if not max(errs.values()) <= FEAT_ATOL:
+            raise AssertionError(f"ViT at {size}, card vs CPU: {errs} > {FEAT_ATOL}")
+        out[f"{size[0]}x{size[1]}"] = {"tokens": n, "max_abs_err": errs}
+        del vit
+    return {"images": VIT_PARITY_IMAGES, "atol": FEAT_ATOL, **out}
+
+
+def blocked_rows(dev, shapes):
+    """Each key-blocked shape of the configurations' runs held against its
+    plain version at dropout 0 and 0.1 (phase 3's bars), then timed in
+    fp32 and bf16 against its plain version, scaled_dot_product_attention
+    and the bound (dropout off): {kernel: [rows]}, each row with the run's
+    launches of its shape, and the largest errors {kernel: err}."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = {name: [] for name in attn.BLOCKED}
+    errs = dict.fromkeys(attn.BLOCKED, 0.0)
+    for name, mix in shapes.items():
+        fwd = name == "attention_fwd_blocked"
+        for (lanes, heads, lq, lk, dh), n in mix.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, m, g = kernel_inputs(lanes, heads, lq, lk, dh, dtype, gen, dev)
+                where = f"{name} {lanes} x {heads} ({lq},{lk}) Dh {dh}"
+                err = {rate: (check_fwd(q, k, v, m, 2**31 + 7, rate, where) if fwd
+                              else check_bwd(q, k, v, m, g, 2**31 + 7, rate, where)[1])
+                       for rate in (0.0, 0.1)}
+                errs[name] = max(errs[name], *err.values())
+                torch.cuda.empty_cache()  # the plain versions' scores at 900 lanes
+                t = time_forward(q, k, v, m) if fwd else time_backward(q, k, v, m, g)
+                rows[name].append({"lanes": lanes, "heads": heads, "lq": lq, "lk": lk,
+                                   "head_dim": dh, "dtype": dtype_name(dtype), "launches": n,
+                                   "max_abs_err": err,
+                                   "bound_ms": max(t["bytes_ms"], t["flops_ms"]), **t})
+                del q, k, v, m, g
+    return rows, errs
+
+
+def blocked_times(rows, dtype):
+    """The rows' times and bound of ``dtype``, weighted by their launches."""
+    rows = [r for r in rows if r["dtype"] == dtype]
+    total = sum(r["launches"] for r in rows)
+    mean = lambda key: sum(r["launches"] * key(r) for r in rows) / total  # noqa: E731
+    bytes_ms, flops_ms = mean(lambda r: r["bytes_ms"]), mean(lambda r: r["flops_ms"])
+    return {"ms": mean(lambda r: r["ms"]), "plain_ms": mean(lambda r: r["plain_ms"]),
+            "bound_ms": mean(lambda r: r["bound_ms"]),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": mean(lambda r: r["library_ms"])}
+
+
+def vit197_times(dev):
+    """At the ViT's 197 keys (the featurizer's lanes forward, the e2e
+    observation's backward; Dh 64, fp32 and bf16, dropout off), which the
+    whole-row kernels take, each key-blocked kernel timed beside its
+    whole-row one, in turns: a finding for later work, not a route."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for tier, lanes in VIT197_LANES.items():
+        blocked = tier + "_blocked"
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, m, g = kernel_inputs(lanes, H, 197, 197, DH, dtype, gen, dev)
+            if tier == "attention_fwd":
+                calls = {name: (lambda name=name: attn._launch(q, k, v, m, 0, 0.0, name))
+                         for name in (tier, blocked)}
+            else:
+                calls = {name: (lambda name=name: attn._launch_bwd(q, k, v, m, g, 0, 0.0,
+                                                                   False, name))
+                         for name in (tier, blocked)}
+            times = {name: [] for name in calls}
+            for name in (tier, blocked, blocked, tier):
+                times[name].append(cuda_time_ms(calls[name]))
+            out[f"{blocked} {dtype_name(dtype)}"] = {
+                "lanes": lanes, "ms": min(times[blocked]), "whole_row_ms": min(times[tier])}
+    return out
+
+
+def phase_shapes(dev):
+    """Phase 21 (see the module docstring). Returns the summary's lines of
+    the key-blocked kernels."""
+    t_phase = time.perf_counter()
+    ferr, berr = phase_shape_routes(dev)
+    e1, e2 = phase_shape_kernels(dev)
+    ferr, berr = max(ferr, e1), max(berr, e2)
+    runs, shapes = [], {name: collections.Counter() for name in attn.BLOCKED}
+    for run in (lambda: shape_e2e(("--transform", "none")), shape_featurize,
+                lambda: shape_e2e(("--tiny",)), shape_long_text):
+        line, blocked = run()
+        emit("shapes", part="run", **line)
+        runs.append(line)
+        for name in attn.BLOCKED:
+            shapes[name].update(blocked[name])
+    launches = {name: sum(r["launches"][name] for r in runs) for name in attn.BLOCKED}
+    if not all(launches.values()):
+        raise AssertionError(f"the configurations' runs missed a key-blocked kernel: {launches}")
+    parity = shape_vit_parity(dev)
+    rows, errs = blocked_rows(dev, shapes)
+    ferr = max(ferr, errs["attention_fwd_blocked"])
+    berr = max(berr, errs["attention_bwd_blocked"])
+    vit197 = vit197_times(dev)
+    emit("shapes", part="times", smi=nvidia_smi(), rows=rows, vit197=vit197, vit_parity=parity,
+         seconds=time.perf_counter() - t_phase)
+    sources = {"attention_fwd_blocked": ("vln_hamt_torch/csrc/attention_blocked.cu",
+                                         "vln_hamt_tpu/ops/attention.py:53", ferr),
+               "attention_bwd_blocked": ("vln_hamt_torch/csrc/attention_blocked_bwd.cu",
+                                         "vln_hamt_tpu/ops/attention.py:85", berr)}
+    return [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+             "launches": launches[name], "max_abs_err": err,
+             **blocked_times(rows[name], "float32"),
+             "bf16": blocked_times(rows[name], "bfloat16"),
+             "runs": {r["cli"]: r["launches"][name] for r in runs},
+             "shapes": [[r[k] for k in ("lanes", "heads", "lq", "lk", "head_dim")]
+                        for r in rows[name] if r["dtype"] == "float32"],
+             "vit197": {k: t for k, t in vit197.items() if k.startswith(name)}}
+            for name, (src, replaces, err) in sources.items()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3003,7 +3388,7 @@ def main() -> int:
     preds = agent.eval_split_device()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    slice_launches = dict(attn.launch_counts)
+    slice_launches = tier_launches()
     # the fp32 numbers the bf16 phase stands beside
     fp32 = {"serving": {"episodes_per_s": len(preds) / seconds,
                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}}
@@ -3062,7 +3447,7 @@ def main() -> int:
     losses = [agent.train_iteration("teacher", sync=False)["loss"] for _ in range(iters)]
     losses = torch.stack(losses).cpu()  # waits for the last update
     seconds = time.perf_counter() - t0
-    train_launches = dict(attn.launch_counts)
+    train_launches = tier_launches()
     want = {"attention_fwd": per_batch * iters, "attention_bwd": per_update_bwd * iters}
     if train_launches != want:
         raise AssertionError(f"IL launches {train_launches} != {want} "
@@ -3090,9 +3475,10 @@ def main() -> int:
     agent = HAMTAgent(ocfg, slice_env(ocfg, world, seed=0), seed=0)
     agent.enable_feature_table()
     ep = agent._ep_to_device(agent.env.teacher_episode())
-    fit = torch.stack([agent._il_update(ep, 1.0) for _ in range(15)]).cpu()
+    fit = torch.stack([agent._il_update(ep, 1.0) for _ in range(FIT_UPDATES)]).cpu()
     if not torch.isfinite(fit).all() or not fit[-1] < fit[0]:
-        raise AssertionError(f"15 updates on one batch did not lower the loss: {fit.tolist()}")
+        raise AssertionError(f"{FIT_UPDATES} updates on one batch did not lower the loss: "
+                             f"{fit.tolist()}")
     emit("train", overfit_losses=fit.tolist())
     del agent
 
@@ -3109,7 +3495,7 @@ def main() -> int:
             res[device] = il_logits_and_grads(
                 pagent, pagent._ep_to_device(pagent.env.teacher_episode()))[1:]
             del pagent
-        counts = dict(attn.launch_counts)
+        counts = tier_launches()
         (loss_g, grads_g), (loss_c, grads_c) = res["cuda"], res["cpu"]
         loss_err = abs(loss_g - loss_c) / abs(loss_c)
         if not loss_err <= TRAIN_LOSS_RTOL:
@@ -3199,7 +3585,7 @@ def main() -> int:
         res[device] = ({k: v.cpu() for k, v in ep.items()},
                        {k: v.cpu() for k, v in ex.items()}, loss, grads)
         del pagent
-    counts = dict(attn.launch_counts)
+    counts = tier_launches()
     (ep_g, ex_g, loss_g, grads_g), (ep_c, ex_c, loss_c, grads_c) = res["cuda"], res["cpu"]
     for key in ("node_idx", "view_index", "actions", "step_mask", "final_node_idx"):
         if not torch.equal(ep_g[key], ep_c[key]):
@@ -3286,6 +3672,9 @@ def main() -> int:
     # ------------------------------------------------------------- remat
     marks.append(("remat", time.perf_counter()))
     remat = phase_remat(cfg, world, smi)
+    # ------------------------------------------------------------ shapes
+    marks.append(("shapes", time.perf_counter()))
+    blocked_lines = phase_shapes(dev)
     marks.append(("summary", time.perf_counter()))
 
     pretrain = {}
@@ -3382,6 +3771,7 @@ def main() -> int:
                     train_launches["attention_bwd"], bwd_err, bwd_rows, bwd_mix, TRAIN_B,
                     sample["attention_bwd"], family["attention_bwd"], pretrain["attention_bwd"],
                     **extra["attention_bwd"]),
+        *blocked_lines,
     ]}
     marks.append(("end", time.perf_counter()))
     emit("timing", seconds={a: t1 - t0 for (a, t0), (_, t1) in zip(marks, marks[1:])},

@@ -93,16 +93,30 @@ def _layer_view(dtype=torch.float32, b=2, l=5, h=3, dh=16, offset=0):
     return buf[offset:].view(b, l, h, dh).transpose(1, 2)
 
 
+#: head widths past the whole-row kernels' (the --tiny ViT's 12, and 48
+#: and 80), which the key-blocked kernels take
+BLOCKED_HEAD_DIMS = (12, 48, 80)
+#: key rows past the whole-row kernels' 256: the ViT at 248 x 330 (301)
+#: and at 384 x 384 (577)
+LONG_KEYS = (257, 577)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", tops.FWD_HEAD_DIMS)
+@pytest.mark.parametrize("dh", tops.FWD_HEAD_DIMS + BLOCKED_HEAD_DIMS)
 def test_kernel_layout_checks_accept_layer_views(dtype, dh):
-    """The forward kernel's argument checks, run on CPU tensors (no card
-    needed): the layer's strided views at every instantiated head width
-    pass, as does Lk = 256 and a size-1 batch whose stride is unused."""
+    """The forward kernels' argument checks, run on CPU tensors (no card
+    needed): the layer's strided views at every head width the JAX CLIs
+    run pass, as do Lk = 256, 257 and 577 and a size-1 batch whose stride
+    is unused; the whole-row kernel takes Lk = 256 at its head widths up
+    to Dh 64, the key-blocked one the rest. At Dh 12 in bf16 the layer's
+    heads lie 24 bytes apart, which only the key-blocked kernel reads."""
     x = _layer_view(dtype, dh=dh)
     tops.check_fwd_layout(x, x, x)
-    long_k = _layer_view(dtype, l=tops.FWD_MAX_LK, dh=dh)
-    tops.check_fwd_layout(x, long_k, long_k)
+    for lk in (tops.FWD_MAX_LK,) + LONG_KEYS:
+        long_k = _layer_view(dtype, l=lk, dh=dh)
+        tops.check_fwd_layout(x, long_k, long_k)
+        tiered = dh in tops.FWD_HEAD_DIMS and lk <= tops.FWD_MAX_LK and dh < 128
+        assert tops.fwd_kernel(lk, dh) == "attention_fwd" + ("" if tiered else "_blocked")
     one = torch.zeros(15 * dh, dtype=dtype).as_strided((1, 3, 5, dh), (7, 5 * dh, dh, 1))
     tops.check_fwd_layout(one, one, one)
 
@@ -112,12 +126,12 @@ def test_kernel_layout_checks_accept_layer_views(dtype, dh):
     ("bf16_offset", "16-byte boundary"),  # 8 bytes into a 16-byte word
     ("row_stride", "along dim 2"),  # rows 17 floats apart
     ("head_stride", "along dim 1"),  # heads 2 bf16 values apart
-    ("head_dim", "head widths"),  # Dh 48 is not instantiated
-    ("long_keys", "Lk <= 256"),  # scores of 257 keys do not fit the registers
+    ("head_dim", "head widths"),  # Dh 144 is past both kernels' 128
 ])
 def test_kernel_layout_checks_raise(case, match):
-    """Views the forward kernel's 16-byte loads cannot take raise a
-    ValueError that names the problem, before anything is launched."""
+    """Views the whole-row forward kernel's 16-byte loads cannot take, and
+    a head width past 128, raise a ValueError that names the problem,
+    before anything is launched."""
     q = k = _layer_view()
     if case == "fp32_offset":
         q = _layer_view(offset=1)
@@ -127,28 +141,32 @@ def test_kernel_layout_checks_raise(case, match):
         k = torch.zeros(1000).as_strided((2, 3, 5, 16), (400, 100, 17, 1))
     elif case == "head_stride":
         q = k = torch.zeros(960, dtype=torch.bfloat16).as_strided((2, 3, 5, 16), (480, 2, 48, 1))
-    elif case == "head_dim":
-        q = k = _layer_view(dh=48)
     else:
-        k = _layer_view(l=tops.FWD_MAX_LK + 1)
+        q = k = _layer_view(dh=144)
     with pytest.raises(ValueError, match=match):
         tops.check_fwd_layout(q, k, k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", tops.FWD_HEAD_DIMS)
+@pytest.mark.parametrize("dh", tops.FWD_HEAD_DIMS + BLOCKED_HEAD_DIMS)
 def test_bwd_layout_checks_accept_layer_views(dtype, dh):
-    """The backward kernel's argument checks, on CPU tensors: the layer's
-    views of q, k, v at every instantiated head width, with the output
+    """The backward kernels' argument checks, on CPU tensors: the layer's
+    views of q, k, v at every head width the JAX CLIs run, with the output
     cotangent as autograd hands it over (the (B, H, Lq, Dh) view of the
-    fp32 (B, Lq, H, Dh) gradient) or contiguous, Lk = 256, and a size-1
-    batch whose stride is unused."""
+    fp32 (B, Lq, H, Dh) gradient) or contiguous, Lk = 256, 257 and 577,
+    and a size-1 batch whose stride is unused; the whole-row backward
+    takes Dh 128 up to 160 keys, the key-blocked one the rest."""
     x = _layer_view(dtype, dh=dh)
     g = _layer_view(dh=dh)
     tops.check_bwd_layout(x, x, x, g)
     tops.check_bwd_layout(x, x, x, g.contiguous())
-    long_k = _layer_view(dtype, l=tops.FWD_MAX_LK, dh=dh)
-    tops.check_bwd_layout(x, long_k, long_k, g)
+    for lk in (tops.FWD_MAX_LK,) + LONG_KEYS:
+        long_k = _layer_view(dtype, l=lk, dh=dh)
+        tops.check_bwd_layout(x, long_k, long_k, g)
+        tiered = dh in tops.FWD_HEAD_DIMS and lk <= tops.FWD_MAX_LK and dh < 128
+        assert tops.bwd_kernel(lk, dh) == "attention_bwd" + ("" if tiered else "_blocked")
+    assert tops.bwd_kernel(160, 128) == "attention_bwd"
+    assert tops.bwd_kernel(161, 128) == "attention_bwd_blocked"
     one = torch.zeros(15 * dh, dtype=dtype).as_strided((1, 3, 5, dh), (7, 5 * dh, dh, 1))
     tops.check_bwd_layout(one, one, one, g[:1])
 
@@ -157,12 +175,12 @@ def test_bwd_layout_checks_accept_layer_views(dtype, dh):
     ("q_offset", "16-byte boundary"),  # q 4 bytes into a 16-byte word
     ("g_offset", "16-byte boundary"),  # the cotangent 4 bytes in
     ("row_stride", "along dim 2"),  # k rows 17 floats apart
-    ("head_dim", "head widths"),  # Dh 48 is not instantiated
-    ("long_keys", "Lk <= 256"),  # scores of 257 keys do not fit the registers
+    ("head_dim", "head widths"),  # Dh 144 is past both kernels' 128
 ])
 def test_bwd_layout_checks_raise(case, match):
-    """Inputs the backward kernel's 16-byte loads cannot take raise a
-    ValueError that names the problem, before anything is launched."""
+    """Inputs the whole-row backward kernel's 16-byte loads cannot take,
+    and a head width past 128, raise a ValueError that names the problem,
+    before anything is launched."""
     q = k = _layer_view()
     g = _layer_view()
     if case == "q_offset":
@@ -171,11 +189,9 @@ def test_bwd_layout_checks_raise(case, match):
         g = _layer_view(offset=1)
     elif case == "row_stride":
         k = torch.zeros(1000).as_strided((2, 3, 5, 16), (400, 100, 17, 1))
-    elif case == "head_dim":
-        q = k = _layer_view(dh=48)
-        g = _layer_view(dh=48)
     else:
-        k = _layer_view(l=tops.FWD_MAX_LK + 1)
+        q = k = _layer_view(dh=144)
+        g = _layer_view(dh=144)
     with pytest.raises(ValueError, match=match):
         tops.check_bwd_layout(q, k, k, g)
 

@@ -18,6 +18,8 @@ attention (interpret mode on the CPU), whose kernels widen bf16 q, k, v
 to fp32 as the port's CUDA kernels and plain twins do. Tiny sizes,
 dropout off, one thread."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,8 @@ import pytest
 import torch
 
 from test_torch_model import B, HIST, SIZES, _inputs, _port, flax_params  # noqa: F401
-from test_torch_pretrain import BATCH, batcher, jax_params, model_kwargs  # noqa: F401
+from test_torch_pretrain import BATCH, batcher, model_kwargs  # noqa: F401
+from test_torch_pretrain import HIST as PT_HIST, TXT as PT_TXT, WORLD as PT_WORLD
 from test_torch_train import (WORLD, make_env, named, tiny_cfg,
                               train_test_setup)  # noqa: F401 (autouse fixture)
 from vln_hamt_tpu.agents.agent import HAMTAgent as JaxAgent
@@ -36,13 +39,15 @@ from vln_hamt_tpu.env import R2RNavEnv as JaxEnv
 from vln_hamt_tpu.models.hamt import HAMT as JaxHAMT
 from vln_hamt_tpu.models.hamt import Critic as JaxCritic
 from vln_hamt_tpu.pretrain.model import HAMTPretrain as JaxHAMTPretrain
+from vln_hamt_tpu.pretrain.model import init_pretrain_params
 from vln_hamt_torch.agents.agent import HAMTAgent
 from vln_hamt_torch.configs import HAMTConfig, ModelConfig
 from vln_hamt_torch.data.fixtures import make_synthetic_world
 from vln_hamt_torch.env import ObsSpec, R2RNavEnv
 from vln_hamt_torch.models.convert import pretrain_params_from_flax
 from vln_hamt_torch.models.layers import extend_mask
-from vln_hamt_torch.pretrain import TASK_NAMES, init_pretrain
+from vln_hamt_torch.pretrain import (TASK_NAMES, PretrainBatcher, TrajectoryDataset,
+                                     init_pretrain, make_synthetic_trajectories)
 from vln_hamt_torch.pretrain.model import batch_to_device
 
 # the yardstick: the worst ratio measured here is 2.2 (the text stack's
@@ -236,7 +241,7 @@ def test_pretrain_task_losses_match_jax_bf16(batcher, task):  # noqa: F811
     batches against the JAX package's bf16 HAMTPretrain on the same
     weights and batches."""
     batches = [batcher.batch(task, BATCH) for _ in range(N_LOSSES)]
-    _, params = jax_params("r2r")
+    params = jax_pretrain_params(0)
     want = {}
     for dtype in ("bfloat16", "float32"):
         jmodel = JaxHAMTPretrain(JaxModelConfig(**model_kwargs("r2r"), dtype=dtype,
@@ -256,3 +261,68 @@ def test_pretrain_task_losses_match_jax_bf16(batcher, task):  # noqa: F811
             assert loss.dtype == torch.float32
             got.append(loss.item())
     assert_bf16_close(got, want["bfloat16"], want["float32"], task)
+
+
+# the gradient whose card-against-CPU bf16 distance sat at 1.03 times its
+# bound in a chip_smoke.py phase 12 run: the language self-attention
+# output LayerNorm of the next-to-last cross-modal layer, whose language
+# half still reaches MRC's loss (x_layers.2 of the r2r preset's 4)
+MRC_TENSOR = "bert.encoder.x_layers.0.lang_self_att.output.LayerNorm.weight"
+
+
+@functools.lru_cache(maxsize=None)
+def jax_pretrain_init():
+    """The JAX pretraining model's initializer, jitted once for the file."""
+    jcfg = JaxModelConfig(**model_kwargs("r2r"))
+    return jax.jit(lambda r: init_pretrain_params(jcfg, r, max_hist_len=PT_HIST,
+                                                  instr_len=PT_TXT)[1])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_pretrain_params(seed):
+    """The JAX pretraining model's weights at ``seed`` as numpy (seed 0:
+    ``test_torch_pretrain.jax_params``'s)."""
+    return jax.tree.map(np.asarray, jax_pretrain_init()(jax.random.PRNGKey(seed)))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_mrc_grad(dtype):
+    """The JAX model's MRC gradient function in ``dtype``, jitted once: in
+    bf16 through the Pallas kernels (interpret mode), as the yardstick's
+    other bf16 sides; the fp32 reference through XLA's attention, the
+    same math in fp32, which compiles in two thirds of the time."""
+    jmodel = JaxHAMTPretrain(JaxModelConfig(**model_kwargs("r2r"), dtype=dtype,
+                                            use_pallas_attention=dtype == "bfloat16"))
+    return jax.jit(jax.grad(lambda p, b: jmodel.apply({"params": p}, b, "mrc",
+                                                      deterministic=True)[0]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pretrain_mrc_gradients_match_jax_bf16(seed):
+    """MRC's gradients in bf16 against the JAX package's bf16 gradients on
+    the same weights and batch, for 3 seeds of the weights and the batch
+    (the yardstick above). Prints the port's and the JAX package's
+    distance from fp32 for MRC_TENSOR."""
+    w = make_synthetic_world(**PT_WORLD)
+    ds = TrajectoryDataset(make_synthetic_trajectories(w), w.graphs, w.feat_db,
+                           image_feat_size=32, image_prob_size=16, max_txt_len=PT_TXT,
+                           max_hist_len=PT_HIST)
+    batch = PretrainBatcher(ds, seed=seed + 1, vocab_mask_range=(1000, 2000)).batch("mrc", BATCH)
+    params = jax_pretrain_params(seed)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    cfg = ModelConfig(**model_kwargs("r2r"), **BF16)
+    want = {dtype: pretrain_params_from_flax(jax.tree.map(
+        lambda x: np.asarray(x, np.float32), jax_mrc_grad(dtype)(params, jb)), cfg)
+        for dtype in ("bfloat16", "float32")}
+    model = init_pretrain(cfg, seed=0)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           pretrain_params_from_flax(params, model.config).items()}, strict=True)
+    model.eval()
+    loss, _ = model(batch_to_device(batch, "cpu"), "mrc")
+    loss.backward()
+    for k, p in model.named_parameters():
+        got = p.grad if p.grad is not None else torch.zeros_like(p)
+        dist = assert_bf16_close(_f32(got), want["bfloat16"][k], want["float32"][k], k)
+        if k == MRC_TENSOR:
+            print(f"seed {seed} {k}: port {dist[0]:.4g}, JAX {dist[1]:.4g}, "
+                  f"ratio {dist[0] / dist[1]:.4g}")

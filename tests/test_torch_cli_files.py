@@ -10,6 +10,7 @@ the JAX package's for every R2R-family preset. Set-up from
 tests/test_torch_train.py (one thread, the JAX init under jit)."""
 
 import json
+import warnings
 
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ from vln_hamt_torch.data.fixtures import export_real_format, make_synthetic_worl
 from vln_hamt_torch.env import R2RNavEnv
 from vln_hamt_torch.models.hamt import init_hamt
 from vln_hamt_torch.run import finetune
-from vln_hamt_torch.utils.flops import analytic_update_flops, chip_peak_flops
+from vln_hamt_torch.utils.flops import analytic_update_flops, chip_peak_flops, update_flops_and_peak
 
 # the model of both CLIs' --tiny
 TINY_MODEL = {"hidden_size": 64, "num_attention_heads": 4, "intermediate_size": 128,
@@ -134,12 +135,46 @@ def test_cli_training_with_aug_and_eval_first(tmp_path, capsys, monkeypatch):
     assert "loaded" in (tmp_path / "valid" / "valid.txt").read_text()
 
 
-@pytest.mark.parametrize("task", ["r2r", "r2r_last", "r4r", "rxr"])
+@pytest.mark.parametrize("task", ["r2r", "r2r_last", "r4r", "rxr", "reverie"])
 @pytest.mark.parametrize("lanes", [8, 16])
 def test_analytic_update_flops_matches_jax(task, lanes):
+    """The count of every R2R-family preset and REVERIE's, whose visual
+    stream carries the viewpoint's object tokens."""
     n_ob = 14 + 1 + 36
-    assert analytic_update_flops(get_preset(task), lanes, n_ob) == \
-        jax_flops(jax_get_preset(task), lanes, n_ob)
+    cfg = get_preset(task)
+    n_obj = cfg.env.max_objects if cfg.model.obj_feat_size > 0 else 0
+    assert analytic_update_flops(cfg, lanes, n_ob, n_obj) == \
+        jax_flops(jax_get_preset(task), lanes, n_ob, n_obj=n_obj)
+
+
+@pytest.mark.parametrize("task", ["r2r", "reverie"])
+@pytest.mark.parametrize("world", [1, 2])
+def test_cli_mfu_terms_match_jax(task, world):
+    """The fine-tune CLI's MFU terms are the JAX CLI's
+    (vln_hamt_tpu/run/finetune.py:410-416): the FLOPs of one update of the
+    global batch with REVERIE's object tokens, over one card's peak times
+    the number of cards."""
+    jcfg = jax_get_preset(task)
+    n_ob = jcfg.env.max_candidates + 1 + 36
+    n_obj = jcfg.env.max_objects if jcfg.model.obj_feat_size > 0 else 0
+    lanes = jcfg.train.batch_size * (2 if jcfg.train.feedback == "sample" else 1)
+    flops, peak = update_flops_and_peak(get_preset(task), "NVIDIA H100 80GB HBM3", world)
+    assert flops == jax_flops(jcfg, lanes, n_ob, n_obj=n_obj)
+    assert peak == 989e12 * world
+    assert update_flops_and_peak(get_preset(task), None, world) == (flops, None)
+
+
+def test_unknown_card_logs_null_mfu():
+    """A card the peak table does not hold gives no peak, hence a null
+    mfu, and one warning, not an error; the H100's other parts are known."""
+    cfg = get_preset("r2r")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert update_flops_and_peak(cfg, "NVIDIA A100-SXM4-80GB", 1)[1] is None
+        assert update_flops_and_peak(cfg, "NVIDIA A100-SXM4-80GB", 2)[1] is None
+    assert len(caught) == 1 and "A100" in str(caught[0].message)
+    assert update_flops_and_peak(cfg, "NVIDIA H100 PCIe", 1)[1] == 756e12
+    assert update_flops_and_peak(cfg, "NVIDIA H100 NVL", 1)[1] == 835e12
 
 
 def test_chip_peak_flops_knows_the_h100_only():

@@ -66,21 +66,60 @@ def test_kernel_matches_plain(cuda, dtype, rate, lq, lk, dh, masked):
 
 
 def test_misaligned_views_raise(cuda):
-    """Views the kernel's 16-byte loads cannot take raise before any
-    launch: a q 4 bytes past a 16-byte boundary, a head width that is
-    not instantiated."""
+    """Views the whole-row kernel's 16-byte loads cannot take raise before
+    any launch (a q 4 bytes past a 16-byte boundary), as does a head width
+    past the kernels' 128."""
     b, h, l, dh = 2, 12, 60, 64
     flat = torch.randn(1 + b * l * h * dh, device=cuda)
     q = flat[1:].view(b, l, h, dh).transpose(1, 2)
     k = torch.randn(b, l, h, dh, device=cuda).transpose(1, 2)
     m = torch.zeros(b, l, device=cuda)
-    wide = torch.randn(b, h, l, 48, device=cuda)
-    n0 = tops.launch_counts["attention_fwd"]
+    wide = torch.randn(b, h, l, 144, device=cuda)
+    before = dict(tops.launch_counts)
     with pytest.raises(ValueError, match="16-byte boundary"):
         tops.fused_attention(q, k, k, m)
-    with pytest.raises(ValueError, match="head widths"):
+    with pytest.raises(ValueError, match="up to 128"):
         tops.fused_attention(wide, wide, wide, m)
-    assert tops.launch_counts["attention_fwd"] == n0
+    assert tops.launch_counts == before
+
+
+# (Lq, Lk, Dh, masked rows) of the key-blocked kernels: keys past 256
+# (the ViT at 248 x 330 and 384 x 384, long text), head widths outside the
+# whole-row kernels' (the --tiny ViT's 12, 48, 80), Dh 128 past the
+# whole-row tiles' shared memory, a ragged last key block with batch
+# elements whose keys all read -10000, and one key
+_BLOCKED_CASES = [pytest.param(lq, lk, dh, masked, id=f"{lq}-{lk}-dh{dh}" + ("-masked" if masked
+                                                                            else ""))
+                  for lq, lk, dh, masked in
+                  [(301, 301, 64, False), (577, 577, 64, False), (40, 257, 64, True),
+                   (65, 300, 12, False), (33, 197, 48, True), (20, 514, 80, False),
+                   (70, 200, 128, False), (5, 1, 12, False)]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("lq,lk,dh,masked", _BLOCKED_CASES)
+def test_blocked_kernels_match_plain(cuda, dtype, rate, lq, lk, dh, masked):
+    """Both key-blocked kernels against their plain twins, each launched
+    once and the whole-row kernels not at all."""
+    g = torch.Generator(device=cuda).manual_seed(lq * 1000 + lk + dh)
+    q, k, v, m, cot = kernel_inputs(3, 4, lq, lk, dh, dtype, g, cuda, masked_rows=masked)
+    seed = 2**31 + 11
+    before = dict(tops.launch_counts)
+    got = tops.fused_attention(q, k, v, m, dropout_rate=rate, dropout_seed=seed)
+    grads = tops.attention_bwd(q, k, v, m, cot, seed, rate)
+    torch.cuda.synchronize()
+    assert {n: tops.launch_counts[n] - before[n] for n in before} == {
+        "attention_fwd": 0, "attention_bwd": 0, "attention_fwd_blocked": 1,
+        "attention_bwd_blocked": 1}
+    want = tops.attention_reference(q, k, v, m, seed, rate)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL[(dtype, rate)]
+    want = tops.attention_bwd_reference(q, k, v, m, cot, seed, rate)
+    for name, x, y in zip(("dq", "dk", "dv", "dm"), grads, want):
+        assert x.shape == y.shape and x.dtype == y.dtype and torch.isfinite(x).all(), name
+        err = _rel_err(x, y)
+        assert err <= (BWD_DM_RTOL if name == "dm" else BWD_RTOL[dtype]), (name, err)
 
 
 def _rel_err(got, want):
@@ -130,26 +169,23 @@ def test_backward_kernel_matches_plain(cuda, batch, dtype, rate, lq, lk, dh, mas
         assert err <= (BWD_DM_RTOL if name == "dm" else BWD_RTOL[dtype]), (name, err)
 
 
-@pytest.mark.parametrize("lk,dh,match", [
-    (257, 64, "Lk <= 256"),  # the scores of 257 keys do not fit the register tile
-    (168, 128, "shared memory"),  # at Dh 128 the staged tiles fit up to Lk 160
+@pytest.mark.parametrize("lk,dh,kernel", [
+    (257, 64, "attention_bwd_blocked"),  # past the whole-row kernel's 256 keys
+    (168, 128, "attention_bwd_blocked"),  # at Dh 128 the whole-row tiles fit up to Lk 160
+    (160, 128, "attention_bwd"),
 ])
-def test_backward_raises_before_launch(cuda, lk, dh, match):
+def test_backward_takes_every_length(cuda, lk, dh, kernel):
+    """The lengths the whole-row backward refuses run in the key-blocked
+    one; the longest key row it takes at Dh 128 stays in it."""
     b, h, lq = 2, 12, 40
     q, cot = (torch.randn(b, h, lq, dh, device=cuda) for _ in range(2))
     k = torch.randn(b, h, lk, dh, device=cuda)
     m = torch.zeros(b, lk, device=cuda)
-    n0 = tops.launch_counts["attention_bwd"]
-    with pytest.raises(ValueError, match=match):
-        tops.attention_bwd(q, k, k, m, cot)
-    assert tops.launch_counts["attention_bwd"] == n0
-    # the longest key row that fits at Dh 128 still runs
-    if dh == 128:
-        k = k[:, :, :160]
-        got = tops.attention_bwd(q, k, k, m[:, :160], cot)
-        want = tops.attention_bwd_reference(q, k, k, m[:, :160], cot)
-        assert all(_rel_err(x, y) <= BWD_RTOL[torch.float32] for x, y in zip(got[:3], want))
-        assert tops.launch_counts["attention_bwd"] == n0 + 1
+    n0 = tops.launch_counts[kernel]
+    got = tops.attention_bwd(q, k, k, m, cot)
+    want = tops.attention_bwd_reference(q, k, k, m, cot)
+    assert all(_rel_err(x, y) <= BWD_RTOL[torch.float32] for x, y in zip(got[:3], want))
+    assert tops.launch_counts[kernel] == n0 + 1
 
 
 def test_autograd_function_launches_both_kernels(cuda):

@@ -3,11 +3,17 @@
 ``fused_attention`` is the port of ``vln_hamt_tpu/ops/attention.py:
 fused_attention``: one ``torch.autograd.Function`` whose forward and
 backward replace the two Pallas kernels and the custom VJP that joins
-them. On CUDA tensors it launches the kernels of ``csrc/attention.cu``
-(forward) and ``csrc/attention_bwd.cu`` (backward), each built with
-``nvcc`` for ``sm_90a`` at first use into ``vln_hamt_torch/build/``
-(keyed by a hash of its sources) and bound through its plain C
-interface with ``ctypes``. On CPU tensors it runs the plain twins
+them. On CUDA tensors it launches, for the forward, the whole-row kernel
+of ``csrc/attention.cu`` or the key-blocked one of
+``csrc/attention_blocked.cu``, and for the backward ``csrc/attention_bwd.cu``
+or ``csrc/attention_blocked_bwd.cu``, each built with ``nvcc`` for
+``sm_90a`` at first use into ``vln_hamt_torch/build/`` (keyed by a hash
+of its sources) and bound through its plain C interface with ``ctypes``.
+The whole-row kernels take the shapes of every preset (Dh 16, 32, 64 or
+128, Lk <= 256, their tiles within a block's shared memory); the
+key-blocked ones every other shape up to Dh 128 (:func:`fwd_kernel`,
+:func:`bwd_kernel`), so the card takes every shape the Pallas kernels
+take up to that width. On CPU tensors it runs the plain twins
 :func:`attention_reference` and :func:`attention_bwd_reference`, the same
 math in torch, which are also the kernels' checks. It never falls back
 from one to the other.
@@ -35,18 +41,24 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-#: one shared library per kernel source; the header is part of each hash
-SOURCES = {"attention_fwd": CSRC / "attention.cu", "attention_bwd": CSRC / "attention_bwd.cu"}
-HEADERS = (CSRC / "attention_common.cuh",)
+#: one shared library per kernel source; the headers are part of each hash
+SOURCES = {"attention_fwd": CSRC / "attention.cu", "attention_bwd": CSRC / "attention_bwd.cu",
+           "attention_fwd_blocked": CSRC / "attention_blocked.cu",
+           "attention_bwd_blocked": CSRC / "attention_blocked_bwd.cu"}
+HEADERS = (CSRC / "attention_common.cuh", CSRC / "attention_blocked.cuh")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-block shared-memory limit of an H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 
-#: kernel launches per wrapper (plain-version calls are not counted);
-#: a run resets and reads these to show which path it took
-launch_counts: Dict[str, int] = {"attention_fwd": 0, "attention_bwd": 0}
+#: kernel launches per kernel (plain-version calls are not counted), one
+#: per wrapper call that launches it; a run resets and reads these to
+#: show which path it took
+launch_counts: Dict[str, int] = {"attention_fwd": 0, "attention_bwd": 0,
+                                 "attention_fwd_blocked": 0, "attention_bwd_blocked": 0}
+#: the key-blocked kernels, which no preset's shapes reach
+BLOCKED = ("attention_fwd_blocked", "attention_bwd_blocked")
 
 _MASK32 = 0xFFFFFFFF
 
@@ -188,7 +200,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib.hamt_attention_fwd.restype = i
         lib.hamt_attention_smem_bytes.argtypes = [i, i]
         lib.hamt_attention_smem_bytes.restype = ll
-    else:
+    elif name == "attention_bwd":
         lib.hamt_attention_bwd.argtypes = (
             [p] * 12 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
         lib.hamt_attention_bwd.restype = i
@@ -197,6 +209,18 @@ def _library(name: str) -> ctypes.CDLL:
         for fn in (lib.hamt_attention_bwd_query_blocks, lib.hamt_attention_bwd_needs_scratch):
             fn.argtypes = [i]
             fn.restype = i
+    elif name == "attention_fwd_blocked":
+        lib.hamt_attention_fwd_blocked.argtypes = (
+            [p] * 5 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
+        lib.hamt_attention_fwd_blocked.restype = i
+    else:
+        lib.hamt_attention_bwd_blocked.argtypes = (
+            [p] * 12 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
+        lib.hamt_attention_bwd_blocked.restype = i
+        lib.hamt_attention_blocked_width.argtypes = [i]
+        lib.hamt_attention_blocked_width.restype = i
+        lib.hamt_attention_bwd_blocked_key_blocks.argtypes = [i, i]
+        lib.hamt_attention_bwd_blocked_key_blocks.restype = i
     return lib
 
 
@@ -216,16 +240,56 @@ def _check_inputs(q, k, v, m):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head widths both kernels are instantiated for, and their longest key
-#: row (the scores stay in registers: 8 lanes x 32 columns)
+#: head widths the whole-row kernels are instantiated for, and their
+#: longest key row (the scores stay in registers: 8 lanes x 32 columns)
 FWD_HEAD_DIMS = (16, 32, 64, 128)
 FWD_MAX_LK = 256
+#: the longest key row each whole-row kernel takes, by head width, where
+#: its tiles would pass MAX_SMEM_BYTES before FWD_MAX_LK (K and V at pitch
+#: Dh + 4 in shared memory; ``chip_smoke.py`` holds both limits against the
+#: libraries' ``hamt_attention_smem_bytes`` and
+#: ``hamt_attention_bwd_smem_bytes``)
+FWD_SMEM_MAX_LK = {128: 192}
+BWD_SMEM_MAX_LK = {128: 160}
+#: the widest head the kernels take (the key-blocked ones pad Dh to the
+#: next of FWD_HEAD_DIMS in shared memory); no JAX CLI configuration
+#: reaches past it
+MAX_HEAD_DIM = 128
+
+
+def _check_head_dim(kernel: str, dh: int) -> None:
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"the {kernel} takes head widths up to {MAX_HEAD_DIM}, got Dh={dh}")
+
+
+def _whole_row(lk: int, dh: int, smem_max_lk: Dict[int, int]) -> bool:
+    return dh in FWD_HEAD_DIMS and lk <= smem_max_lk.get(dh, FWD_MAX_LK)
+
+
+def fwd_kernel(lk: int, dh: int) -> str:
+    """The forward kernel (a key of :data:`launch_counts`) a call with Lk
+    keys at head width Dh launches: the whole-row kernel where it takes
+    the shape (Dh one of :data:`FWD_HEAD_DIMS`, Lk <= :data:`FWD_MAX_LK`,
+    and <= 192 at Dh 128, :data:`FWD_SMEM_MAX_LK`), the key-blocked one up
+    to :data:`MAX_HEAD_DIM` otherwise; raises past it."""
+    _check_head_dim("attention kernel", dh)
+    return "attention_fwd" if _whole_row(lk, dh, FWD_SMEM_MAX_LK) else "attention_fwd_blocked"
+
+
+def bwd_kernel(lk: int, dh: int) -> str:
+    """The backward kernel a call with Lk keys at head width Dh launches,
+    by :func:`fwd_kernel`'s rule with the backward's limits
+    (:data:`BWD_SMEM_MAX_LK`): at Dh 128 the whole-row backward takes up
+    to 160 keys."""
+    _check_head_dim("attention backward kernel", dh)
+    return "attention_bwd" if _whole_row(lk, dh, BWD_SMEM_MAX_LK) else "attention_bwd_blocked"
 
 
 def _misalignment(name: str, t: torch.Tensor) -> Optional[str]:
-    """Why the kernels' 16-byte loads cannot read ``t`` as it lies, or
-    None: its base address and every batch, head and row stride must be
-    multiples of 16 bytes (strides of size-1 dimensions are never used)."""
+    """Why the whole-row kernels' 16-byte loads cannot read ``t`` as it
+    lies, or None: its base address and every batch, head and row stride
+    must be multiples of 16 bytes (strides of size-1 dimensions are never
+    used)."""
     if t.data_ptr() % 16:
         return f"{name} starts {t.data_ptr() % 16} bytes past a 16-byte boundary"
     for dim in range(3):
@@ -236,11 +300,7 @@ def _misalignment(name: str, t: torch.Tensor) -> Optional[str]:
     return None
 
 
-def _check_layout(kernel: str, dh: int, lk: int, tensors: Dict[str, torch.Tensor]) -> None:
-    if dh not in FWD_HEAD_DIMS:
-        raise ValueError(f"the {kernel} takes head widths {FWD_HEAD_DIMS}, got Dh={dh}")
-    if lk > FWD_MAX_LK:
-        raise ValueError(f"the {kernel} takes Lk <= {FWD_MAX_LK}, got Lk={lk}")
+def _check_alignment(tensors: Dict[str, torch.Tensor]) -> None:
     for name, t in tensors.items():
         problem = _misalignment(name, t)
         if problem:
@@ -248,24 +308,29 @@ def _check_layout(kernel: str, dh: int, lk: int, tensors: Dict[str, torch.Tensor
 
 
 def check_fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise unless the forward kernel can take q, k, v as they lie: a
-    head width it is built for, Lk <= :data:`FWD_MAX_LK`, and what its
-    16-byte loads need, every base address and every batch, head and row
-    stride a multiple of 16 bytes (strides of size-1 dimensions are never
-    used). Reads only shapes, strides and addresses, so it runs on CPU
-    tensors too."""
-    _check_layout("attention kernel", q.shape[3], k.shape[2], {"q": q, "k": k, "v": v})
+    """Raise unless a forward kernel can take q, k, v as they lie: a head
+    width up to :data:`MAX_HEAD_DIM`, and, where the whole-row kernel
+    takes the shape (:func:`fwd_kernel`), what its 16-byte loads need,
+    every base address and every batch, head and row stride a multiple of
+    16 bytes (strides of size-1 dimensions are never used). The
+    key-blocked kernel reads elements and takes any layout with a unit
+    stride on Dh, such as the bf16 Dh 12 heads 24 bytes apart of a
+    (B, L, H * 12) projection. Reads only shapes, strides and addresses,
+    so it runs on CPU tensors too."""
+    if fwd_kernel(k.shape[2], q.shape[3]) == "attention_fwd":
+        _check_alignment({"q": q, "k": k, "v": v})
 
 
 def check_bwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      g: torch.Tensor) -> None:
-    """Raise unless the backward kernel can take q, k, v and the output
+    """Raise unless a backward kernel can take q, k, v and the output
     cotangent g as they lie: the forward's rules (:func:`check_fwd_layout`)
-    for all four. Runs on CPU tensors too. The wrapper copies a cotangent
-    that fails them (:func:`_kernel_cotangent`), so on the autograd path
-    only q, k, v can raise here, and the forward has checked them."""
-    _check_layout("attention backward kernel", q.shape[3], k.shape[2],
-                  {"q": q, "k": k, "v": v, "g": g})
+    for all four, by :func:`bwd_kernel`'s route. Runs on CPU tensors too.
+    The wrapper copies a cotangent that fails them
+    (:func:`_kernel_cotangent`), so on the autograd path only q, k, v can
+    raise here, and the forward has checked them."""
+    if bwd_kernel(k.shape[2], q.shape[3]) == "attention_bwd":
+        _check_alignment({"q": q, "k": k, "v": v, "g": g})
 
 
 def _kernel_cotangent(g: torch.Tensor) -> torch.Tensor:
@@ -294,7 +359,10 @@ def _dropout_args(seed: int, rate: float):
     return (int(seed) & _MASK32, _threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0))
 
 
-def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
+def _launch(q, k, v, m, seed: int, rate: float, kernel: Optional[str] = None) -> torch.Tensor:
+    """The forward kernel that :func:`fwd_kernel` picks for the shape, or
+    ``kernel`` (``chip_smoke.py`` times the key-blocked kernel at shapes
+    the whole-row one takes)."""
     b, h, lq, lk, dh = _check_inputs(q, k, v, m)
     _check_cuda({"q": q, "k": k, "v": v, "m": m}, q.dtype)
     m = m.to(torch.float32)
@@ -304,39 +372,44 @@ def _launch(q, k, v, m, seed: int, rate: float) -> torch.Tensor:
     if out.numel() == 0 or lk == 0:
         return out.zero_().permute(0, 2, 1, 3)
     check_fwd_layout(q, k, v)
-    lib = _library("attention_fwd")
-    smem = lib.hamt_attention_smem_bytes(lk, dh)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"attention over Lk={lk}, Dh={dh} needs {smem} B of "
-                         f"shared memory per block (limit {MAX_SMEM_BYTES})")
+    kernel = kernel or fwd_kernel(lk, dh)
+    lib = _library(kernel)
+    strides = ([s for t in (q, k, v) for s in t.stride()[:3]]
+               + [out.stride(0), out.stride(2), out.stride(1)])
     # the stream, the kernel's cudaFuncSetAttribute and the launch all act
     # on the current device: make it the tensors' card (a process may see
     # several)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hamt_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, h, lq, lk, dh,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            m.stride(0), m.stride(1),
-            out.stride(0), out.stride(2), out.stride(1),
-            1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
+        if kernel == "attention_fwd":
+            err = lib.hamt_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], b, h, lq, lk, dh, *strides[:9], *m.stride(), *strides[9:],
+                1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
+        else:
+            err = lib.hamt_attention_fwd_blocked(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], b, h, lq, lk, dh,
+                (ctypes.c_longlong * 14)(*strides, *m.stride()),
+                1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    launch_counts["attention_fwd"] += 1
+    launch_counts[kernel] += 1
     return out.permute(0, 2, 1, 3)
 
 
-def _launch_bwd(q, k, v, m, g, seed: int, rate: float,
-                need_dm: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
-    """The backward kernel; without ``need_dm`` it skips the mask's
-    cotangent (its column sums, scratch and block-and-head-sum pass) and
-    returns None for it. One call issues the main kernel (a pair's query
-    blocks sum dk and dv inside their thread-block cluster), then, for
-    Lq > 256 only, the pass that sums their dk / dv partials, then the dm
-    pass when it is wanted."""
+def _launch_bwd(q, k, v, m, g, seed: int, rate: float, need_dm: bool = True,
+                kernel: Optional[str] = None) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward kernel that :func:`bwd_kernel` picks for the shape (or
+    ``kernel``, as in :func:`_launch`);
+    without ``need_dm`` it skips the mask's cotangent (its column sums,
+    scratch and head-sum pass) and returns None for it. A call of the
+    whole-row kernel issues the main kernel (a pair's query blocks sum dk
+    and dv inside their thread-block cluster), then, for Lq > 256 only,
+    the pass that sums their dk / dv partials, then the dm pass when it is
+    wanted. A call of the key-blocked one issues its row-statistics pass,
+    its key-block kernel, the pass that sums dq's partials over the key
+    blocks, then the dm pass when it is wanted."""
     b, h, lq, lk, dh = _check_inputs(q, k, v, m)
     if g.shape != (b, h, lq, dh):
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {(b, h, lq, dh)}")
@@ -356,31 +429,39 @@ def _launch_bwd(q, k, v, m, g, seed: int, rate: float,
                 t.zero_()
         return (*views, dm)
     check_bwd_layout(q, k, v, g)
-    lib = _library("attention_bwd")
-    smem = lib.hamt_attention_bwd_smem_bytes(lk, dh)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"attention backward over Lk={lk}, Dh={dh} needs {smem} B "
-                         f"of shared memory per block (limit {MAX_SMEM_BYTES})")
-    nqb = lib.hamt_attention_bwd_query_blocks(lq)
+    kernel = kernel or bwd_kernel(lk, dh)
+    lib = _library(kernel)
     f32 = dict(dtype=torch.float32, device=q.device)
-    # fp32 partials of dk and dv per query block where a thread-block
-    # cluster cannot hold the pair's blocks (Lq > 256)
-    dk_part, dv_part = (torch.empty((2, nqb, b * h, lk, dh), **f32)
-                        if lib.hamt_attention_bwd_needs_scratch(lq) else (None, None))
-    dm_part = torch.empty((nqb, b, h, lk), **f32) if need_dm else None
+    if kernel == "attention_bwd":
+        nqb = lib.hamt_attention_bwd_query_blocks(lq)
+        # fp32 partials of dk and dv per query block where a thread-block
+        # cluster cannot hold the pair's blocks (Lq > 256)
+        dk_part, dv_part = (torch.empty((2, nqb, b * h, lk, dh), **f32)
+                            if lib.hamt_attention_bwd_needs_scratch(lq) else (None, None))
+        dm_part = torch.empty((nqb, b, h, lk), **f32) if need_dm else None
+        scratch = (dk_part, dv_part, dm_part)
+        launch = lib.hamt_attention_bwd
+    else:
+        # fp32 partials of dq per key block, and each row's max, 1 / sum
+        # and D from the statistics pass
+        nkb = lib.hamt_attention_bwd_blocked_key_blocks(lk, dh)
+        dq_part = torch.empty((nkb, b * h, lq, lib.hamt_attention_blocked_width(dh)), **f32)
+        stats = torch.empty((3, b * h, lq), **f32)
+        dm_part = torch.empty((b * h, lk), **f32) if need_dm else None
+        scratch = (dq_part, stats, dm_part)
+        launch = lib.hamt_attention_bwd_blocked
     ptr = lambda t: None if t is None else t.data_ptr()
     strides = [s for t in (q, k, v, g, *views) for s in t.stride()[:3]] + list(m.stride())
     with torch.cuda.device(q.device):  # as in _launch
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hamt_attention_bwd(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            ptr(dk_part), ptr(dv_part), ptr(dm_part), ptr(dm),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *map(ptr, scratch), ptr(dm),
             _DTYPES[q.dtype], b, h, lq, lk, dh, (ctypes.c_longlong * 23)(*strides),
             1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
-    launch_counts["attention_bwd"] += 1
+    launch_counts[kernel] += 1
     return (*views, dm)
 
 

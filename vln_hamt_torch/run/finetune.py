@@ -91,7 +91,7 @@ from ..data.nav_graph import load_nav_graphs
 from ..env import CVDNNavEnv, ObsSpec, R2RBackNavEnv, R2RNavEnv, ReverieNavEnv
 from ..parallel.mesh import (Mesh, host_allgather, init_distributed, is_default_process,
                              local_device, make_mesh)
-from ..utils.flops import analytic_update_flops, chip_peak_flops
+from ..utils.flops import update_flops_and_peak
 from ..utils.logging import MetricsLogger, write_record
 from ..utils.misc import apply_rng_impl
 
@@ -399,12 +399,11 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
     best = {"score": -np.inf, "iter": 0}
 
     # per-interval throughput and MFU (analytic matmul FLOPs over wall
-    # time over the card's bf16 peak, utils/flops.py); null on the CPU
-    n_ob = cfg.env.max_candidates + 1 + 36
-    lanes_per_iter = cfg.train.batch_size * (2 if cfg.train.feedback == "sample" else 1)
-    flops_per_iter = analytic_update_flops(cfg, lanes_per_iter, n_ob)
-    peak = (chip_peak_flops(torch.cuda.get_device_name(agent.device))
-            if agent.device.type == "cuda" else None)
+    # time over the ranks' cards' bf16 peak, utils/flops.py); null on the
+    # CPU and on a card of unknown peak
+    flops_per_iter, peak = update_flops_and_peak(
+        cfg, torch.cuda.get_device_name(agent.device) if agent.device.type == "cuda" else None,
+        1 if mesh is None else mesh.data_shards * mesh.model_shards)
 
     step = 0
     while step < iters:

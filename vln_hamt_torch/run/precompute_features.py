@@ -123,12 +123,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def build(args):
+    """The featurizer of parsed ``args`` on its device, its view source and
+    the ViT's input (H, W)."""
     from ..agents.agent import resolve_device
     from ..models.convert import load_vit_checkpoint
     from ..vision import PanoramaFeaturizer, eval_transform, vit_base_patch16
-    from ..vision.featurizer import IMAGENET_MEAN, IMAGENET_STD, hdf5_writer
+    from ..vision.featurizer import IMAGENET_MEAN, IMAGENET_STD
 
     device = resolve_device("cpu" if args.cpu else None)
     h, w = args.image_size
@@ -153,6 +154,14 @@ def main(argv=None):
             raise ValueError("pass --connectivity_dir and --pano_dir, or --synthetic N")
         source = equirect_view_source(args.pano_dir, load_viewpoint_ids(args.connectivity_dir),
                                       rw, rh, np.deg2rad(args.vfov_deg), transform=transform)
+    return feat, source, (h, w)
+
+
+def main(argv=None):
+    from ..vision.featurizer import hdf5_writer
+
+    args = parse_args(argv)
+    feat, source, (h, w) = build(args)
 
     # warm-up outside the clock: cuBLAS handles, the kernel build, the allocator
     warm = np.zeros((36 * args.panos_per_batch, h, w, 3), np.uint8)

@@ -308,6 +308,34 @@ def image_pretrain_launch_mix(mcfg, vit_cfg, task: str, batch: int, txt_len: int
     return fwd, bwd
 
 
+def kernel_counts(mixes: Tuple[Dict[tuple, int], Dict[tuple, int]], dh: int
+                  ) -> Dict[str, int]:
+    """The launches of a (forward, backward) pair of mixes at head width
+    ``dh`` by kernel, as :data:`ops.attention.launch_counts` counts them:
+    each shape (its last entry is Lk) on the kernel that
+    ``ops/attention.py:fwd_kernel`` / ``bwd_kernel`` routes it to, every
+    kernel present (0 where none)."""
+    out = dict.fromkeys(attn.launch_counts, 0)
+    for mix, route in zip(mixes, (attn.fwd_kernel, attn.bwd_kernel)):
+        for shape, n in mix.items():
+            out[route(shape[-1], dh)] += n
+    return out
+
+
+def image_pretrain_kernel_counts(mcfg, vit_cfg, task: str, batch: int, txt_len: int,
+                                 hist_len: int) -> Dict[str, int]:
+    """:func:`image_pretrain_launch_mix` by kernel (:func:`kernel_counts`):
+    the trunk's shapes at its head width, the ViT's at the ViT's, which
+    differ under ``--tiny`` (16 and 12)."""
+    trunk = pretrain_launch_mix(mcfg, task, batch, txt_len, hist_len)
+    full = image_pretrain_launch_mix(mcfg, vit_cfg, task, batch, txt_len, hist_len)
+    vit = tuple(f - t for f, t in zip(full, trunk))
+    out = kernel_counts(trunk, mcfg.head_dim)
+    for name, n in kernel_counts(vit, vit_cfg.hidden_size // vit_cfg.num_heads).items():
+        out[name] += n
+    return out
+
+
 def bootstrap_mix(cfg) -> collections.Counter:
     """Forward launches of the sample updates' bootstrap value by
     (Lq, Lk): one planning step over the final observation, no

@@ -88,24 +88,37 @@ class profile_trace:
     that writes one Chrome trace, ``{worker}.{ns}.pt.trace.json``, into
     ``log_dir`` on exit (TensorBoard's profile plugin reads it; so does
     ``python -m vln_hamt_torch.utils.xprof log_dir``). Usage:
-    ``with profile_trace("runs/trace"): step()``. On the H100 the trace
-    can lack the first device events of the block (0 to about 100 of a
-    remat IL update's 24,600 kernels seen, torch 2.11): where every event
-    must count, run other device work first inside the block."""
+    ``with profile_trace("runs/trace"): step()``.
+
+    The tracer starts in a warm-up window whose events are dropped, and
+    on a card that window runs :data:`LEAD_IN` short spin kernels and
+    waits for them before the recorded window opens: on the H100 a trace
+    opened cold lost the first device events of the block (0 to about
+    100 of a remat IL update's 24,600 kernels, torch 2.11). So every
+    device event of the block is in the trace, and none of the lead-in's.
+    """
+
+    #: spin kernels of the warm-up window
+    LEAD_IN = 1000
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self._prof = None
 
     def __enter__(self):
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+        from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
 
         os.makedirs(self.log_dir, exist_ok=True)
         acts = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
                 if a in torch.profiler.supported_activities()]
-        self._prof = profile(activities=acts,
+        self._prof = profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1),
                              on_trace_ready=tensorboard_trace_handler(self.log_dir))
-        self._prof.__enter__()
+        self._prof.__enter__()  # the warm-up window: traced, not kept
+        if torch.cuda.is_available():
+            for _ in range(self.LEAD_IN):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        self._prof.step()  # the recorded window opens
         return self
 
     def __exit__(self, *exc):

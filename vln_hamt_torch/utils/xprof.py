@@ -9,7 +9,8 @@ reads every such file under a directory and, from the device events
 - device time and launches by category (:func:`kernel_group`, the groups
   ``run/profile_eval.py:kernel_table`` sums by): the attention forward
   kernel, the attention backward kernel (with its block-sum and dm
-  passes), matrix products, other;
+  passes), the key-blocked forward, the key-blocked backward (its
+  statistics, key-block, dq-sum and dm passes), matrix products, other;
 - the idle gaps between them: the span from the first event's start to
   the last one's end on each device, the busy time (the union of the
   events' intervals), the idle time and share, the number of gaps and the
@@ -38,12 +39,17 @@ from typing import Dict, List, Tuple
 
 #: the trace's device-event categories
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-GROUPS = ("attention_fwd_kernel", "attention_bwd_kernel", "matmul", "other")
+GROUPS = ("attention_fwd_kernel", "attention_bwd_kernel", "attention_fwd_blocked_kernel",
+          "attention_bwd_blocked_kernel", "matmul", "other")
 
 
 def kernel_group(name: str) -> str:
     """The group of a device kernel by its name (:data:`GROUPS`)."""
     low = name.lower()
+    if "attention_fwd_blocked" in low:
+        return "attention_fwd_blocked_kernel"
+    if "attention_bwd_blocked" in low:  # the key-blocked backward's passes
+        return "attention_bwd_blocked_kernel"
     if "attention_fwd_kernel" in low:
         return "attention_fwd_kernel"
     if "attention_bwd" in low:  # the backward kernel, its block-sum and dm passes
@@ -119,9 +125,13 @@ def analyze(logdir: str, top: int = 25) -> dict:
             line["max_gap_us"] = max(line["max_gap_us"], t["max_gap_us"])
     if not kernels:
         raise RuntimeError(f"no device kernels in the traces under {logdir}")
-    cats = {g: {"category": g, "us": 0.0, "launches": 0} for g in GROUPS}
+    # every group, the key-blocked kernels' only where the trace holds them
+    # (no preset's shape reaches them)
+    cats = {g: {"category": g, "us": 0.0, "launches": 0} for g in GROUPS
+            if "blocked" not in g}
     for name, (us, n) in kernels.items():
-        c = cats[kernel_group(name)]
+        g = kernel_group(name)
+        c = cats.setdefault(g, {"category": g, "us": 0.0, "launches": 0})
         c["us"] += us
         c["launches"] += n
     total = sum(c["us"] for c in cats.values())
