@@ -9,7 +9,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. build    -- nvcc builds of every kernel of the main paths from this
                checkout's sources, one nvcc per source, all started
                together, with each instantiation's registers and spill
-               bytes from the -Xptxas -v reports.
+               bytes from the -Xptxas -v reports; meanwhile the weights of
+               the slice's, the family presets' and the task variants'
+               architectures are drawn, once each (memo_init_hamt: the
+               agents of later phases load a copy).
 3. kernels  -- each kernel against its plain torch twin on the card at
                the main paths' shapes (batch 32, full width), fp32 and
                bf16, dropout off and on: the attention forward, and the
@@ -308,7 +311,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                Lk 257, 301, 514 and 577 (Lq = Lk) and Dh 12, 48, 64, 80 and
                128, fp32 and bf16, dropout 0 and 0.1, with one lane's keys
                all at -10000 and a key inside the last key block dropped,
-               at phase 3's bars, each call on the key-blocked kernels;
+               at phase 3's bars, each call on the key-blocked kernels, and
+               the forward's element loads beside its 16-byte staging at
+               every such shape (ops/attention.py:blocked_staging: copies
+               shifted off the 16-byte boundary, and the bf16 Dh 12 views);
                then, counts zeroed just before each and read just after,
                one update or call of each JAX CLI configuration that
                reaches them, at full width, with exact launches by kernel
@@ -323,9 +329,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and Dh as the runs gave them) held against its plain
                version in fp32 and bf16 at dropout 0 and 0.1, at phase 3's
                bars, then timed against its plain version, scaled_dot_product_attention and
-               the bound; and at the ViT's 197 keys, which the whole-row
-               kernels keep, each key-blocked kernel timed beside its
-               whole-row one.
+               the bound, with the forward's staging path of each; the
+               key-blocked forward's shared memory per CTA and CTAs per SM
+               by type and padded head width; and at the ViT's 197 keys,
+               which the whole-row kernels keep, each key-blocked kernel
+               timed beside its whole-row one.
 
 The second-to-last line is the kernel summary {"kernels": [...]}, each
 kernel at the batch of its main path: the forward's launches from the
@@ -382,10 +390,12 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from vln_hamt_torch.agents import agent as agent_module
 from vln_hamt_torch.agents.agent import HAMTAgent, _PackedEvalGroup
 from vln_hamt_torch.agents.losses import IGNORE_ID, il_loss
 from vln_hamt_torch.agents.packing import unpack_episodes
 from vln_hamt_torch.configs import get_preset
+from vln_hamt_torch.models.hamt import HAMT, Critic, init_hamt
 from vln_hamt_torch.data.fixtures import export_nav_and_annotations
 from vln_hamt_torch.native import navsim
 from vln_hamt_torch.ops import attention as attn
@@ -393,10 +403,10 @@ from vln_hamt_torch.pretrain.image_model import init_image_pretrain
 from vln_hamt_torch.pretrain.model import batch_to_device, init_pretrain
 from vln_hamt_torch.run import finetune, precompute_features
 from vln_hamt_torch.run.profile_attention import (
-    bootstrap_mix, build_all, cuda_time_ms, image_pretrain_kernel_counts,
-    image_pretrain_launch_mix, kernel_counts, kernel_inputs, launch_mix, nvidia_smi,
-    packed_il_mix, pretrain_launch_mix, rel_err, text_launches, time_backward, time_forward,
-    weighted)
+    bootstrap_mix, build_all, cuda_time_ms, element_layout, fwd_blocked_occupancy,
+    image_pretrain_kernel_counts, image_pretrain_launch_mix, kernel_counts, kernel_inputs,
+    launch_mix, nvidia_smi, packed_il_mix, pretrain_launch_mix, rel_err, staging_name,
+    text_launches, time_backward, time_forward, weighted)
 from vln_hamt_torch.run.profile_eval import kernel_table, slice_agent, slice_config, slice_env
 from vln_hamt_torch.run.profile_pretrain import slice_mixes, slice_trainer
 from vln_hamt_torch.run.profile_vision import (
@@ -521,6 +531,42 @@ E2E_PARITY_HIST = 2
 # tasks are held card against CPU in phase 12, all six e2e tasks against
 # the JAX package on the CPU (tests/test_torch_image_pretrain.py)
 E2E_PARITY_TASKS = ("mrc", "sap")
+
+
+# the ModelConfig fields that choose only how a model runs (its dropout
+# rates, compute type, recomputation and frozen stacks), never its weights
+RUN_ONLY = {"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
+            "pred_head_dropout_prob": 0.0, "feat_dropout": 0.0, "critic_dropout": 0.0,
+            "dtype": "float32", "use_pallas_attention": False, "remat": False,
+            "remat_policy": "full", "fix_lang_embedding": False,
+            "fix_hist_embedding": False, "fix_obs_embedding": False}
+# the initial state of each (config but RUN_ONLY, seed) the agents were
+# built with
+_INITS = {}
+
+
+def memo_init_hamt(mcfg, seed: int = 0):
+    """models/hamt.py:init_hamt, each (config, seed) drawn once, the
+    config with its RUN_ONLY fields set to one value: a later agent whose
+    config differs only there (another dtype, dropout or remat setting)
+    loads a copy of the same state into a model built from its own
+    config. Every other field, one that may come to shape the weights
+    (initializer_range) too, draws anew. The script builds some 40 agents,
+    and drawing each anew was among its largest costs; main() puts this
+    in place of the agents' init_hamt (tests/test_torch_smoke_init.py
+    holds it equal to init_hamt)."""
+    key = (seed, dataclasses.replace(mcfg, **RUN_ONLY))
+    if key not in _INITS:
+        model, critic = init_hamt(mcfg, seed)
+        _INITS[key] = tuple({k: v.clone() for k, v in m.state_dict().items()}
+                            for m in (model, critic))
+        return model, critic
+    with torch.device("meta"):
+        model, critic = HAMT(mcfg), Critic(mcfg)
+    for m, state in zip((model, critic), _INITS[key]):
+        m.to_empty(device="cpu")
+        m.load_state_dict(state)
+    return model, critic
 
 
 def emit(phase: str, **fields) -> None:
@@ -1722,9 +1768,10 @@ def phase_packed(cfg, world, pmix, unpacked):
 
 def kernels_per_call(fn) -> int:
     """Device kernels one call of ``fn`` launches, from a torch.profiler
-    trace as run/profile_train.py counts them."""
+    trace as run/profile_train.py counts them (the device's activity only:
+    the host's events would count nothing and take most of the parse)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(n for *_, n in kernel_table(prof)[0])
@@ -2607,11 +2654,12 @@ def mg_arrays_close(got_path, want_path, rtol, what, floor=1e-6) -> float:
     got, want = np.load(got_path), np.load(want_path)
     if sorted(got.files) != sorted(want.files):
         raise AssertionError(f"{what}: different tensors")
-    top = max(float(np.abs(want[k]).max()) for k in want.files)
+    want = {k: want[k] for k in want.files}  # each array read from the file once
+    top = max(float(np.abs(w).max()) for w in want.values())
     worst = 0.0
-    for k in want.files:
-        err = float(np.abs(got[k] - want[k]).max())
-        tol = rtol * float(np.abs(want[k]).max()) + floor * top
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max())
+        tol = rtol * float(np.abs(w).max()) + floor * top
         if not err <= tol:
             raise AssertionError(f"{what}: {k} off by {err} (tolerance {tol})")
         worst = max(worst, err / tol if tol else 0.0)
@@ -3062,18 +3110,25 @@ def phase_shape_kernels(dev):
     """Both key-blocked kernels against their plain versions at every Lk
     of SHAPE_LKS (Lq = Lk) and Dh of SHAPE_DHS, fp32 and bf16, dropout 0
     and 0.1, at phase 3's bars; each call launches exactly the key-blocked
-    kernel. Returns the largest errors."""
+    kernel. The layer's views take the forward's 16-byte staging where a
+    head is a multiple of 16 bytes; there the forward runs again on copies
+    one element past a 16-byte boundary, its element loads (the bf16
+    Dh 12 views take them as they lie). Returns the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(21)
     seed = 2**31 + 7
     rows, ferr, berr = [], 0.0, 0.0
     want = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_blocked": 1,
             "attention_bwd_blocked": 1}
+    want_fwd = dict(want, attention_bwd_blocked=0)
     for lk in SHAPE_LKS:
         for dh in SHAPE_DHS:
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, m, g = kernel_inputs(SHAPE_LANES, SHAPE_HEADS, lk, lk, dh, dtype, gen,
                                               dev, masked_rows=True)
                 m[1:, lk - 2] = -10000.0  # a key inside the last key block
+                staging = staging_name(q, k, v)
+                shifted = (None if staging == "element"
+                           else tuple(element_layout(x) for x in (q, k, v)))
                 for rate in (0.0, 0.1):
                     where = f"key-blocked ({lk},{lk}) Dh {dh}"
                     reset_counts()
@@ -3082,8 +3137,17 @@ def phase_shape_kernels(dev):
                     if dict(attn.launch_counts) != want:
                         raise AssertionError(f"{where}: launches {attn.launch_counts}")
                     ferr, berr = max(ferr, err), max(berr, aerr)
-                    rows.append({"lk": lk, "head_dim": dh, "dtype": dtype_name(dtype),
-                                 "rate": rate, "max_abs_err": err, "rel_err": errs})
+                    row = {"lk": lk, "head_dim": dh, "dtype": dtype_name(dtype), "rate": rate,
+                           "staging": staging, "max_abs_err": err, "rel_err": errs}
+                    if shifted is not None:
+                        reset_counts()
+                        row["element_max_abs_err"] = check_fwd(*shifted, m, seed, rate,
+                                                               f"{where}, element loads")
+                        if dict(attn.launch_counts) != want_fwd:
+                            raise AssertionError(f"{where}, element loads: launches "
+                                                 f"{attn.launch_counts}")
+                        ferr = max(ferr, row["element_max_abs_err"])
+                    rows.append(row)
     emit("shapes", part="kernels", lanes=SHAPE_LANES, heads=SHAPE_HEADS, tol=dict(
         fwd={f"{dtype_name(d)} {r}": t for (d, r), t in TOL.items()},
         bwd={dtype_name(d): t for d, t in BWD_RTOL.items()}, dm=BWD_DM_RTOL), results=rows)
@@ -3228,6 +3292,7 @@ def blocked_rows(dev, shapes):
         for (lanes, heads, lq, lk, dh), n in mix.items():
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, m, g = kernel_inputs(lanes, heads, lq, lk, dh, dtype, gen, dev)
+                staging = {"staging": staging_name(q, k, v)} if fwd else {}
                 where = f"{name} {lanes} x {heads} ({lq},{lk}) Dh {dh}"
                 err = {rate: (check_fwd(q, k, v, m, 2**31 + 7, rate, where) if fwd
                               else check_bwd(q, k, v, m, g, 2**31 + 7, rate, where)[1])
@@ -3237,7 +3302,7 @@ def blocked_rows(dev, shapes):
                 t = time_forward(q, k, v, m) if fwd else time_backward(q, k, v, m, g)
                 rows[name].append({"lanes": lanes, "heads": heads, "lq": lq, "lk": lk,
                                    "head_dim": dh, "dtype": dtype_name(dtype), "launches": n,
-                                   "max_abs_err": err,
+                                   **staging, "max_abs_err": err,
                                    "bound_ms": max(t["bytes_ms"], t["flops_ms"]), **t})
                 del q, k, v, m, g
     return rows, errs
@@ -3305,7 +3370,7 @@ def phase_shapes(dev):
     berr = max(berr, errs["attention_bwd_blocked"])
     vit197 = vit197_times(dev)
     emit("shapes", part="times", smi=nvidia_smi(), rows=rows, vit197=vit197, vit_parity=parity,
-         seconds=time.perf_counter() - t_phase)
+         fwd_blocked_occupancy=fwd_blocked_occupancy(), seconds=time.perf_counter() - t_phase)
     sources = {"attention_fwd_blocked": ("vln_hamt_torch/csrc/attention_blocked.cu",
                                          "vln_hamt_tpu/ops/attention.py:53", ferr),
                "attention_bwd_blocked": ("vln_hamt_torch/csrc/attention_blocked_bwd.cu",
@@ -3317,6 +3382,9 @@ def phase_shapes(dev):
              "runs": {r["cli"]: r["launches"][name] for r in runs},
              "shapes": [[r[k] for k in ("lanes", "heads", "lq", "lk", "head_dim")]
                         for r in rows[name] if r["dtype"] == "float32"],
+             **({"staging": [[r[k] for k in ("lanes", "heads", "lq", "lk", "head_dim", "dtype",
+                                              "staging")] for r in rows[name]]}
+                if name == "attention_fwd_blocked" else {}),
              "vit197": {k: t for k, t in vit197.items() if k.startswith(name)}}
             for name, (src, replaces, err) in sources.items()]
 
@@ -3341,12 +3409,23 @@ def main() -> int:
     # ------------------------------------------------------------- build
     marks.append(("build", time.perf_counter()))
     t0 = time.perf_counter()
-    for name, built in build_all().items():  # registers and spills per instantiation
-        emit("build", kernel=name, **built)
-    emit("build", wall_seconds=time.perf_counter() - t0)
+    agent_module.init_hamt = memo_init_hamt
+    with ThreadPoolExecutor(1) as pool:
+        builds = pool.submit(build_all)  # nvcc's processes, all at once
+        # meanwhile, on this thread, the weights of the architectures the
+        # phases build agents of: the slice's, the family presets' and the
+        # task variants'
+        cfg, world = slice_config(B, seed=0)
+        for task in (None,) + FAMILY + VARIANTS:
+            wcfg = cfg if task is None else slice_config(
+                get_preset(task).train.batch_size, seed=0, task=task)[0]
+            memo_init_hamt(wcfg.model, 0)
+        init_seconds = time.perf_counter() - t0
+        for name, built in builds.result().items():  # registers and spills per instantiation
+            emit("build", kernel=name, **built)
+    emit("build", wall_seconds=time.perf_counter() - t0, weight_init_seconds=init_seconds)
 
     # ------------------------------------------------- the slice's world
-    cfg, world = slice_config(B, seed=0)
     mcfg, t_max = cfg.model, cfg.env.max_action_len
     # attention launches by (Lq, Lk): the forward's per greedy batch or IL
     # update, the backward's per IL update

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from vln_hamt_torch.ops import attention as tops
-from vln_hamt_torch.run.profile_attention import kernel_inputs
+from vln_hamt_torch.run.profile_attention import element_layout, kernel_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -120,6 +120,38 @@ def test_blocked_kernels_match_plain(cuda, dtype, rate, lq, lk, dh, masked):
         assert x.shape == y.shape and x.dtype == y.dtype and torch.isfinite(x).all(), name
         err = _rel_err(x, y)
         assert err <= (BWD_DM_RTOL if name == "dm" else BWD_RTOL[dtype]), (name, err)
+
+
+# (Lq, Lk, Dh, masked rows) at which the key-blocked forward's two staging
+# paths are held against its plain version: the history ViT's 301 tokens,
+# the --tiny ViT's Dh 12 (in bf16 its heads lie 24 bytes apart, which no
+# 16-byte copy reads: element loads even as the layer lays them out), a
+# ragged last key block with batch elements whose keys all read -10000
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["layer", "element"])
+@pytest.mark.parametrize("lq,lk,dh,masked", [(301, 301, 64, False), (65, 301, 12, False),
+                                             (40, 257, 80, True)],
+                         ids=["301-301-dh64", "65-301-dh12", "40-257-dh80-masked"])
+def test_blocked_forward_staging_paths(cuda, dtype, rate, layout, lq, lk, dh, masked):
+    """The key-blocked forward by 16-byte copies (the layer's views where
+    a head is a multiple of 16 bytes) and by element loads (views that are
+    not, and copies shifted off the 16-byte boundary) against its plain
+    twin, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(lq * 1000 + lk + dh)
+    q, k, v, m, _ = kernel_inputs(3, 4, lq, lk, dh, dtype, g, cuda, masked_rows=masked)
+    if layout == "element":
+        q, k, v = (element_layout(x) for x in (q, k, v))
+    async_ok = layout == "layer" and dh * q.element_size() % 16 == 0
+    assert tops.blocked_staging(q, k, v) == int(async_ok)
+    seed = 2**31 + 11
+    before = tops.launch_counts["attention_fwd_blocked"]
+    got = tops.fused_attention(q, k, v, m, dropout_rate=rate, dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert tops.launch_counts["attention_fwd_blocked"] == before + 1
+    want = tops.attention_reference(q, k, v, m, seed, rate)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL[(dtype, rate)]
 
 
 def _rel_err(got, want):
@@ -255,7 +287,8 @@ def test_pretraining_update_per_task_on_the_card(cuda):
         trainer.update(task, batch)
         torch.cuda.synchronize()
         assert {k: tops.launch_counts[k] - n0[k] for k in n0} == {
-            "attention_fwd": sum(fwd.values()), "attention_bwd": sum(bwd.values())}, task
+            "attention_fwd": sum(fwd.values()), "attention_bwd": sum(bwd.values()),
+            "attention_fwd_blocked": 0, "attention_bwd_blocked": 0}, task
         cpu.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
         trainer.model.eval()
         with torch.no_grad():
@@ -295,7 +328,8 @@ def test_bf16_layer_launches_both_kernels(cuda):
         if dev == cuda:
             torch.cuda.synchronize()
             assert {k: tops.launch_counts[k] - n0[k] for k in n0} == {
-                "attention_fwd": 1, "attention_bwd": 1}
+                "attention_fwd": 1, "attention_bwd": 1, "attention_fwd_blocked": 0,
+                "attention_bwd_blocked": 0}
         assert out.dtype == torch.bfloat16 and xi.grad.dtype == torch.float32
         outs[str(dev)] = (out.float().cpu(), xi.grad.cpu())
     for got, want in zip(outs["cuda"], outs["cpu"]):
@@ -326,7 +360,8 @@ def test_packed_il_update_launches_on_the_card(cuda):
         n0 = dict(tops.launch_counts)
         out = agent.train_iteration("teacher")
         assert {k: tops.launch_counts[k] - n0[k] for k in n0} == {
-            "attention_fwd": sum(fwd.values()), "attention_bwd": sum(bwd.values())}, dtype
+            "attention_fwd": sum(fwd.values()), "attention_bwd": sum(bwd.values()),
+            "attention_fwd_blocked": 0, "attention_bwd_blocked": 0}, dtype
         assert out["episodes"] >= 4 and torch.isfinite(torch.tensor(out["loss"]))
 
 
@@ -334,7 +369,8 @@ def test_vit_runs_its_attention_through_both_kernels(cuda):
     """A ViT at Dh 64 (2 heads of 64, 197 tokens) on the card against the
     same weights on the CPU: features and logits within 2e-4, one forward
     launch per block, and with gradient one backward launch per block;
-    the tiny CLI's Dh 12 raises on the card."""
+    the tiny CLI's Dh 12 runs on the card through the key-blocked forward,
+    one launch per block, within 2e-4 of the CPU."""
     from vln_hamt_torch.vision.vit import ViTConfig, init_vit
 
     cfg = ViTConfig(hidden_size=128, num_layers=2, num_heads=2, num_classes=10)
@@ -351,7 +387,14 @@ def test_vit_runs_its_attention_through_both_kernels(cuda):
     torch.cuda.synchronize()
     assert tops.launch_counts["attention_fwd"] == n0["attention_fwd"] + 2
     assert tops.launch_counts["attention_bwd"] == n0["attention_bwd"] + 2
-    tiny = init_vit(ViTConfig(img_size=(32, 32), hidden_size=48, num_layers=1, num_heads=4),
-                    seed=0).to(cuda)
-    with pytest.raises(ValueError, match="head widths"):
-        tiny(torch.zeros(1, 32, 32, 3, device=cuda))
+    tiny_cfg = ViTConfig(img_size=(32, 32), hidden_size=48, num_layers=1, num_heads=4)
+    tiny_cpu = init_vit(tiny_cfg, seed=0).eval()
+    tiny = init_vit(tiny_cfg, seed=0).to(cuda).eval()
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    n0 = dict(tops.launch_counts)
+    with torch.no_grad():
+        got, want = tiny(x.to(cuda)), tiny_cpu(x)
+    torch.cuda.synchronize()
+    assert tops.launch_counts["attention_fwd_blocked"] == n0["attention_fwd_blocked"] + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2e-4)

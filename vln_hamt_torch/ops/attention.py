@@ -211,8 +211,10 @@ def _library(name: str) -> ctypes.CDLL:
             fn.restype = i
     elif name == "attention_fwd_blocked":
         lib.hamt_attention_fwd_blocked.argtypes = (
-            [p] * 5 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
+            [p] * 5 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, i, p])
         lib.hamt_attention_fwd_blocked.restype = i
+        lib.hamt_attention_fwd_blocked_occupancy.argtypes = [i, i, ctypes.POINTER(ll)]
+        lib.hamt_attention_fwd_blocked_occupancy.restype = i
     else:
         lib.hamt_attention_bwd_blocked.argtypes = (
             [p] * 12 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
@@ -251,8 +253,9 @@ FWD_MAX_LK = 256
 #: ``hamt_attention_bwd_smem_bytes``)
 FWD_SMEM_MAX_LK = {128: 192}
 BWD_SMEM_MAX_LK = {128: 160}
-#: the widest head the kernels take (the key-blocked ones pad Dh to the
-#: next of FWD_HEAD_DIMS in shared memory); no JAX CLI configuration
+#: the widest head the kernels take (in shared memory the key-blocked
+#: backward and the fp32 forward pad Dh to the next of FWD_HEAD_DIMS, the
+#: bf16 forward to the next multiple of 16); no JAX CLI configuration
 #: reaches past it
 MAX_HEAD_DIM = 128
 
@@ -300,6 +303,15 @@ def _misalignment(name: str, t: torch.Tensor) -> Optional[str]:
     return None
 
 
+def blocked_staging(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """How the key-blocked forward stages q, k and v: 1, all three by
+    16-byte ``cp.async``, where all three pass the 16-byte rule of
+    :func:`_misalignment`; 0, all three by element loads, which take any
+    layout with a unit stride on Dh (the bf16 Dh 12 heads 24 bytes apart
+    of a (B, L, H * 12) projection). Reads only addresses and strides."""
+    return int(all(_misalignment(name, t) is None for name, t in (("q", q), ("k", k), ("v", v))))
+
+
 def _check_alignment(tensors: Dict[str, torch.Tensor]) -> None:
     for name, t in tensors.items():
         problem = _misalignment(name, t)
@@ -313,10 +325,11 @@ def check_fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     takes the shape (:func:`fwd_kernel`), what its 16-byte loads need,
     every base address and every batch, head and row stride a multiple of
     16 bytes (strides of size-1 dimensions are never used). The
-    key-blocked kernel reads elements and takes any layout with a unit
-    stride on Dh, such as the bf16 Dh 12 heads 24 bytes apart of a
-    (B, L, H * 12) projection. Reads only shapes, strides and addresses,
-    so it runs on CPU tensors too."""
+    key-blocked kernel takes any layout with a unit stride on Dh, such as
+    the bf16 Dh 12 heads 24 bytes apart of a (B, L, H * 12) projection: by
+    16-byte copies where the same rule holds, by element loads elsewhere
+    (:func:`blocked_staging`). Reads only
+    shapes, strides and addresses, so it runs on CPU tensors too."""
     if fwd_kernel(k.shape[2], q.shape[3]) == "attention_fwd":
         _check_alignment({"q": q, "k": k, "v": v})
 
@@ -391,7 +404,7 @@ def _launch(q, k, v, m, seed: int, rate: float, kernel: Optional[str] = None) ->
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
                 _DTYPES[q.dtype], b, h, lq, lk, dh,
                 (ctypes.c_longlong * 14)(*strides, *m.stride()),
-                1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
+                1.0 / dh ** 0.5, *_dropout_args(seed, rate), blocked_staging(q, k, v), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     launch_counts[kernel] += 1

@@ -1,43 +1,70 @@
-"""Builds of the attention backward kernel against each other, timed in turns in one process.
+"""Builds of an attention kernel against each other, timed in turns in one process.
 
-    python -m vln_hamt_torch.run.compare_bwd_builds NAME=SOURCE[@NVCC_FLAGS] ...
+    python -m vln_hamt_torch.run.compare_bwd_builds [--kernel bwd|fwd_blocked]
+        [--unstaged NAME] ... NAME=SOURCE[@NVCC_FLAGS] ...
 
-Each SOURCE is a version of ``csrc/attention_bwd.cu`` that exports its
-C interface (``hamt_attention_bwd`` with the arguments
-``ops/attention.py:_launch_bwd`` passes), for example the parent
-commit's (``git show REV:vln_hamt_torch/csrc/attention_bwd.cu``) beside
-the working tree's; ``@`` adds nvcc flags (``-DNAME=1``) for builds
-instrumented with compile-time switches. All sources are built at once
-(one nvcc each), then for each training shape of the R2R main path
-(12 heads, Dh 64, fp32) at batches 8 and 32 every build is checked
-against ``attention_bwd_reference`` (dropout 0.1, dm included) and
-timed with and without dm, in the order A B ... B A, on the same card
-in the same process. Every call is handed fp32 dk / dv scratch when Lq
-spans several query blocks, as older versions need it; builds that sum
-the blocks otherwise ignore it. Prints the card's name and power
-limit, one JSON line per build (registers, spills), per shape, per
-batch (means over the shapes, which the IL update launches equally
-often) and the device time per call by kernel name from
-``torch.profiler`` at batch 8, 65 x 65.
+Each SOURCE is a version of the kernel's source that exports its C
+interface, for example the parent commit's (``git show
+REV:vln_hamt_torch/csrc/attention_bwd.cu``, saved to a file first)
+beside the working tree's; ``@`` adds nvcc flags (``-DNAME=1``) for
+builds instrumented with compile-time switches. All sources are built at
+once (one nvcc each, ``-I csrc`` for the headers), then every build is
+checked against the plain version and timed in the order A B ... B A, on
+the same card in the same process. Prints the card's name and power
+limit and one JSON line per build (registers, spills), per shape and per
+summary.
+
+``--kernel bwd`` (the default), ``csrc/attention_bwd.cu``
+(``hamt_attention_bwd`` with the arguments ``ops/attention.py:_launch_bwd``
+passes): for each training shape of the R2R main path (12 heads, Dh 64,
+fp32) at batches 8 and 32, checked against ``attention_bwd_reference``
+(dropout 0.1, dm included) and timed with and without dm; per batch the
+means over the shapes, which the IL update launches equally often, and
+the device time per call by kernel name from ``torch.profiler`` at batch
+8, 65 x 65. Every call is handed fp32 dk / dv scratch when Lq spans
+several query blocks, as older versions need it; builds that sum the
+blocks otherwise ignore it.
+
+``--kernel fwd_blocked``, ``csrc/attention_blocked.cu``
+(``hamt_attention_fwd_blocked``): at each key-blocked forward shape of
+``chip_smoke.py`` phase 21's configuration runs (:data:`FWD_BLOCKED_SHAPES`,
+with their launches), fp32 and bf16, the layer's views as the model hands
+them over, checked against ``attention_reference`` at dropout 0 and 0.1
+and timed (dropout off) beside the plain version,
+``scaled_dot_product_attention`` and the bound; per type the times
+weighted by the launches. Every build takes the staging flag
+(``ops/attention.py:blocked_staging``) before the stream, as the working
+tree's does, but those named by ``--unstaged``: versions before the
+flag (the element-loading forward of ``git show
+56522f6:vln_hamt_torch/csrc/attention_blocked.cu``) take none.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
 import re
 import subprocess
-import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from ..agents.agent import resolve_device
 from ..ops import attention as attn
-from .profile_attention import cuda_time_ms, kernel_inputs, nvidia_smi, ptxas_report, rel_err
+from .profile_attention import (attention_bound_ms, cuda_time_ms, kernel_inputs, nvidia_smi,
+                                ptxas_report, rel_err, staging_name)
 
 SHAPES = ((60, 60), (60, 65), (65, 60), (65, 65))  # an IL update's, 60 launches each
+#: the key-blocked forward's shapes in chip_smoke.py phase 21's configuration
+#: runs, (lanes, heads, Lq, Lk, Dh): launches per run (image_pretrain
+#: --transform none, precompute_features --image_size 384 384,
+#: image_pretrain --tiny, pretrain --max_txt_len 300)
+FWD_BLOCKED_SHAPES = {(900, 12, 301, 301, 64): 12, (36, 12, 301, 301, 64): 12,
+                      (36, 12, 577, 577, 64): 12, (900, 4, 5, 5, 12): 2, (36, 4, 5, 5, 12): 2,
+                      (16, 12, 300, 300, 64): 13, (16, 12, 26, 300, 64): 4}
+FWD_TOL = {0.0: 1e-5, 0.1: 2e-5}  # chip_smoke.py:TOL, both types
 
 
 def build(name: str, spec: str, out_dir: str):
@@ -52,13 +79,20 @@ def build(name: str, spec: str, out_dir: str):
     return name, out, {k: report[k] for k in ("max_registers", "spill_bytes")}
 
 
-def load(path: str) -> ctypes.CDLL:
+def load(path: str, kernel: str, staged: bool = True) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p, i, ll, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_uint32, ctypes.c_float)
-    lib.hamt_attention_bwd.argtypes = (
-        [p] * 12 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
-    lib.hamt_attention_bwd.restype = i
+    if kernel == "bwd":
+        lib.hamt_attention_bwd.argtypes = (
+            [p] * 12 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
+        lib.hamt_attention_bwd.restype = i
+    else:
+        lib.staged = staged
+        lib.hamt_attention_fwd_blocked.argtypes = (
+            [p] * 5 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i]
+            + ([i] if lib.staged else []) + [p])
+        lib.hamt_attention_fwd_blocked.restype = i
     return lib
 
 
@@ -91,20 +125,29 @@ def make_call(lib, q, k, v, m, g, need_dm: bool, seed: int = 0, rate: float = 0.
     return call, (*views, dm)
 
 
-def main(argv=None):
-    specs = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None else argv))
-    dev = resolve_device()  # the card; raises without one
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(nvidia_smi(), flush=True)
-    out_dir = os.path.join(attn.BUILD_DIR, "compare")
-    os.makedirs(out_dir, exist_ok=True)
-    with ThreadPoolExecutor(min(len(specs), os.cpu_count() or 1)) as pool:
-        built = list(pool.map(lambda kv: build(*kv, out_dir), specs.items()))
-    libs = {}
-    for name, path, report in built:
-        print(json.dumps({"build": name, "ok": path is not None, "report": report}), flush=True)
-        if path:
-            libs[name] = load(path)
+def make_fwd_call(lib, q, k, v, m, seed: int = 0, rate: float = 0.0):
+    """A function that launches ``lib``'s key-blocked forward on these
+    inputs into an output allocated once (as ``ops/attention.py:_launch``
+    lays it out), and that output's (B, H, Lq, Dh) view."""
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    out = torch.empty((b, lq, h, dh), dtype=torch.float32, device=q.device)
+    strides = ([s for t in (q, k, v) for s in t.stride()[:3]]
+               + [out.stride(0), out.stride(2), out.stride(1)] + list(m.stride()))
+    staging = [attn.blocked_staging(q, k, v)] if lib.staged else []
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
+            attn._DTYPES[q.dtype], b, h, lq, lk, dh, (ctypes.c_longlong * 14)(*strides),
+            1.0 / dh ** 0.5, *attn._dropout_args(seed, rate), *staging,
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        err = lib.hamt_attention_fwd_blocked(*args)
+        if err:
+            raise RuntimeError(f"key-blocked forward launch failed: cudaError {err}")
+    return call, out.permute(0, 2, 1, 3)
+
+
+def compare_bwd(libs, dev) -> None:
     names = list(libs)
     order = names + names[::-1]
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -148,6 +191,79 @@ def main(argv=None):
                 key = found.group(1) if found else e.name[:60]
                 by_kernel[key] = by_kernel.get(key, 0.0) + e.device_time / 1e3 / 20
         print(json.dumps({"build": n, "ms_per_call_by_kernel_b8_65x65": by_kernel}), flush=True)
+
+
+def compare_fwd_blocked(libs, dev) -> None:
+    names = list(libs)
+    order = names + names[::-1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = []
+        for (lanes, heads, lq, lk, dh), launches in FWD_BLOCKED_SHAPES.items():
+            q, k, v, m, _ = kernel_inputs(lanes, heads, lq, lk, dh, dtype, gen, dev)
+            row = {"lanes": lanes, "heads": heads, "lq": lq, "lk": lk, "head_dim": dh,
+                   "dtype": str(dtype).split(".")[1], "launches": launches,
+                   "staging": staging_name(q, k, v)}
+            for rate in (0.0, 0.1):
+                want = attn.attention_reference(q, k, v, m, 2**31 + 7, rate)
+                for n in names:
+                    call, out = make_fwd_call(libs[n], q, k, v, m, 2**31 + 7, rate)
+                    call()
+                    torch.cuda.synchronize()
+                    err = (out - want).abs().max().item()
+                    if not err <= FWD_TOL[rate]:
+                        raise AssertionError(f"{n} at {row}, rate {rate}: {err}")
+                    row[f"{n}_max_abs_err_{rate}"] = err
+                del want, out
+                torch.cuda.empty_cache()  # the plain version's scores at 900 lanes
+            times = {n: [] for n in names}
+            for n in order:
+                times[n].append(cuda_time_ms(make_fwd_call(libs[n], q, k, v, m)[0]))
+            for n in names:
+                row[f"{n}_ms"] = min(times[n])
+                row[f"{n}_ms_each"] = times[n]
+            row["plain_ms"] = cuda_time_ms(lambda: attn.attention_reference(q, k, v, m))
+            row["library_ms"] = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=m[:, None, None, :].to(dtype)))
+            row["bound_ms"] = max(attention_bound_ms(lanes, heads, lq, lk, dh,
+                                                     q.element_size()))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del q, k, v, m
+            torch.cuda.empty_cache()
+        total = sum(r["launches"] for r in rows)
+        keys = [f"{n}_ms" for n in names] + ["plain_ms", "library_ms", "bound_ms"]
+        print(json.dumps({"dtype": str(dtype).split(".")[1], "launches": total, "weighted": {
+            key: sum(r["launches"] * r[key] for r in rows) / total for key in keys}}),
+            flush=True)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=("bwd", "fwd_blocked"), default="bwd")
+    parser.add_argument("--unstaged", action="append", default=[], metavar="NAME",
+                        help="a fwd_blocked build whose C interface has no staging argument "
+                             "(repeatable)")
+    parser.add_argument("builds", nargs="+", metavar="NAME=SOURCE[@NVCC_FLAGS]")
+    args = parser.parse_args(argv)
+    specs = dict(a.split("=", 1) for a in args.builds)
+    unknown = set(args.unstaged) - set(specs)
+    if unknown:
+        parser.error(f"--unstaged names no build: {sorted(unknown)}")
+    dev = resolve_device()  # the card; raises without one
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(nvidia_smi(), flush=True)
+    out_dir = os.path.join(attn.BUILD_DIR, "compare")
+    os.makedirs(out_dir, exist_ok=True)
+    with ThreadPoolExecutor(min(len(specs), os.cpu_count() or 1)) as pool:
+        built = list(pool.map(lambda kv: build(*kv, out_dir), specs.items()))
+    libs = {}
+    for name, path, report in built:
+        print(json.dumps({"build": name, "ok": path is not None, "report": report}), flush=True)
+        if path:
+            libs[name] = load(path, args.kernel, name not in args.unstaged)
+    (compare_bwd if args.kernel == "bwd" else compare_fwd_blocked)(libs, dev)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ Also the home of the timing, bound, build-report and input helpers that
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import re
 import subprocess
@@ -368,6 +369,40 @@ def kernel_inputs(b: int, h: int, lq: int, lk: int, dh: int, dtype, gen, dev,
         m[::3] = -10000.0
     g = torch.randn(b, lq, h, dh, device=dev, generator=gen).transpose(1, 2)
     return q, k, v, m, g
+
+
+def element_layout(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the (B, H, L, Dh) view ``t`` laid out as the layer's
+    (B, L, H, Dh) projection but starting one element past a 16-byte
+    boundary, which the key-blocked forward stages by element loads
+    (``ops/attention.py:blocked_staging``)."""
+    b, h, l, dh = t.shape
+    flat = torch.empty(1 + t.numel(), dtype=t.dtype, device=t.device)
+    out = flat[1:].view(b, l, h, dh).transpose(1, 2)
+    out.copy_(t)
+    return out
+
+
+def staging_name(q, k, v) -> str:
+    """How the key-blocked forward stages q, k and v: "async" (16-byte
+    copies) or "element" (element loads)."""
+    return "async" if attn.blocked_staging(q, k, v) else "element"
+
+
+def fwd_blocked_occupancy() -> Dict[str, Dict[int, List[int]]]:
+    """The key-blocked forward's dynamic shared memory per CTA in bytes
+    and CTAs per SM on this card, by type and padded head width:
+    {"float32" | "bfloat16": {width: [bytes, ctas]}}."""
+    lib = attn._library("attention_fwd_blocked")
+    out = {}
+    for name, code, widths in (("float32", 0, (16, 32, 64, 128)),
+                               ("bfloat16", 1, range(16, 129, 16))):
+        out[name] = {}
+        for width in widths:
+            nbytes = ctypes.c_longlong(0)
+            ctas = lib.hamt_attention_fwd_blocked_occupancy(code, width, ctypes.byref(nbytes))
+            out[name][width] = [nbytes.value, ctas]
+    return out
 
 
 def time_forward(q, k, v, m) -> Dict[str, float]:
