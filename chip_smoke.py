@@ -312,9 +312,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                128, fp32 and bf16, dropout 0 and 0.1, with one lane's keys
                all at -10000 and a key inside the last key block dropped,
                at phase 3's bars, each call on the key-blocked kernels, and
-               the forward's element loads beside its 16-byte staging at
-               every such shape (ops/attention.py:blocked_staging: copies
-               shifted off the 16-byte boundary, and the bf16 Dh 12 views);
+               both kernels' element loads beside their 16-byte staging at
+               every such shape (ops/attention.py:blocked_staging: q, k
+               and v copied one element past a 16-byte boundary, and the
+               bf16 Dh 12 views);
                then, counts zeroed just before each and read just after,
                one update or call of each JAX CLI configuration that
                reaches them, at full width, with exact launches by kernel
@@ -329,9 +330,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and Dh as the runs gave them) held against its plain
                version in fp32 and bf16 at dropout 0 and 0.1, at phase 3's
                bars, then timed against its plain version, scaled_dot_product_attention and
-               the bound, with the forward's staging path of each; the
-               key-blocked forward's shared memory per CTA and CTAs per SM
-               by type and padded head width; and at the ViT's 197 keys,
+               the bound, with each row's staging path; both key-blocked
+               kernels' shared memory per CTA and CTAs per SM by type and
+               padded head width (the backward's statistics pass and
+               key-block kernel each); and at the ViT's 197 keys,
                which the whole-row kernels keep, each key-blocked kernel
                timed beside its whole-row one.
 
@@ -359,7 +361,9 @@ e2e update of each task, and its times at the ViT's lanes (the
 featurizer's 144, the e2e update's 900 and 36), fp32 and bf16. Two more
 lines are the key-blocked kernels': launches summed over phase 21's
 configuration runs (and per run), times weighted by those runs' launches
-by shape, fp32 and bf16 (``bf16``), and the 197-key comparison. The family
+by shape, fp32 and bf16 (``bf16``), each shape's staging path, the
+build's registers and spill bytes per entry and CTAs per SM, and the
+197-key comparison. The family
 times and the `rxr` pretraining mix's come in fp32 and bf16 (``bf16``
 under each preset). The bf16
 phases' lines carry the fp32 peak memory beside the bf16 one and the
@@ -403,7 +407,8 @@ from vln_hamt_torch.pretrain.image_model import init_image_pretrain
 from vln_hamt_torch.pretrain.model import batch_to_device, init_pretrain
 from vln_hamt_torch.run import finetune, precompute_features
 from vln_hamt_torch.run.profile_attention import (
-    bootstrap_mix, build_all, cuda_time_ms, element_layout, fwd_blocked_occupancy,
+    bootstrap_mix, build_all, bwd_blocked_occupancy, cuda_time_ms,
+    element_layout, fwd_blocked_occupancy,
     image_pretrain_kernel_counts, image_pretrain_launch_mix, kernel_counts, kernel_inputs,
     launch_mix, nvidia_smi, packed_il_mix, pretrain_launch_mix, rel_err, staging_name,
     text_launches, time_backward, time_forward, weighted)
@@ -3110,16 +3115,17 @@ def phase_shape_kernels(dev):
     """Both key-blocked kernels against their plain versions at every Lk
     of SHAPE_LKS (Lq = Lk) and Dh of SHAPE_DHS, fp32 and bf16, dropout 0
     and 0.1, at phase 3's bars; each call launches exactly the key-blocked
-    kernel. The layer's views take the forward's 16-byte staging where a
-    head is a multiple of 16 bytes; there the forward runs again on copies
-    one element past a 16-byte boundary, its element loads (the bf16
-    Dh 12 views take them as they lie). Returns the largest errors."""
+    kernel. The layer's views take both kernels' 16-byte staging of q, k
+    and v where a head is a multiple of 16 bytes; there both run again on
+    copies one element past a 16-byte boundary, their element loads (the
+    bf16 Dh 12 views take them as they lie). Returns the largest errors."""
     gen = torch.Generator(device=dev).manual_seed(21)
     seed = 2**31 + 7
     rows, ferr, berr = [], 0.0, 0.0
     want = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_blocked": 1,
             "attention_bwd_blocked": 1}
     want_fwd = dict(want, attention_bwd_blocked=0)
+    want_bwd = dict(want, attention_fwd_blocked=0)
     for lk in SHAPE_LKS:
         for dh in SHAPE_DHS:
             for dtype in (torch.float32, torch.bfloat16):
@@ -3140,13 +3146,19 @@ def phase_shape_kernels(dev):
                     row = {"lk": lk, "head_dim": dh, "dtype": dtype_name(dtype), "rate": rate,
                            "staging": staging, "max_abs_err": err, "rel_err": errs}
                     if shifted is not None:
+                        where_e = f"{where}, element loads"
                         reset_counts()
-                        row["element_max_abs_err"] = check_fwd(*shifted, m, seed, rate,
-                                                               f"{where}, element loads")
+                        row["element_max_abs_err"] = check_fwd(*shifted, m, seed, rate, where_e)
                         if dict(attn.launch_counts) != want_fwd:
-                            raise AssertionError(f"{where}, element loads: launches "
+                            raise AssertionError(f"{where_e}: launches {attn.launch_counts}")
+                        reset_counts()
+                        row["element_rel_err"], eerr = check_bwd(*shifted, m, g, seed, rate,
+                                                                 where_e)
+                        if dict(attn.launch_counts) != want_bwd:
+                            raise AssertionError(f"{where_e}: backward launches "
                                                  f"{attn.launch_counts}")
                         ferr = max(ferr, row["element_max_abs_err"])
+                        berr = max(berr, eerr)
                     rows.append(row)
     emit("shapes", part="kernels", lanes=SHAPE_LANES, heads=SHAPE_HEADS, tol=dict(
         fwd={f"{dtype_name(d)} {r}": t for (d, r), t in TOL.items()},
@@ -3292,7 +3304,6 @@ def blocked_rows(dev, shapes):
         for (lanes, heads, lq, lk, dh), n in mix.items():
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, m, g = kernel_inputs(lanes, heads, lq, lk, dh, dtype, gen, dev)
-                staging = {"staging": staging_name(q, k, v)} if fwd else {}
                 where = f"{name} {lanes} x {heads} ({lq},{lk}) Dh {dh}"
                 err = {rate: (check_fwd(q, k, v, m, 2**31 + 7, rate, where) if fwd
                               else check_bwd(q, k, v, m, g, 2**31 + 7, rate, where)[1])
@@ -3302,7 +3313,7 @@ def blocked_rows(dev, shapes):
                 t = time_forward(q, k, v, m) if fwd else time_backward(q, k, v, m, g)
                 rows[name].append({"lanes": lanes, "heads": heads, "lq": lq, "lk": lk,
                                    "head_dim": dh, "dtype": dtype_name(dtype), "launches": n,
-                                   **staging, "max_abs_err": err,
+                                   "staging": staging_name(q, k, v), "max_abs_err": err,
                                    "bound_ms": max(t["bytes_ms"], t["flops_ms"]), **t})
                 del q, k, v, m, g
     return rows, errs
@@ -3346,9 +3357,10 @@ def vit197_times(dev):
     return out
 
 
-def phase_shapes(dev):
-    """Phase 21 (see the module docstring). Returns the summary's lines of
-    the key-blocked kernels."""
+def phase_shapes(dev, builds):
+    """Phase 21 (see the module docstring); ``builds`` are phase 2's build
+    reports by kernel. Returns the summary's lines of the key-blocked
+    kernels."""
     t_phase = time.perf_counter()
     ferr, berr = phase_shape_routes(dev)
     e1, e2 = phase_shape_kernels(dev)
@@ -3369,8 +3381,10 @@ def phase_shapes(dev):
     ferr = max(ferr, errs["attention_fwd_blocked"])
     berr = max(berr, errs["attention_bwd_blocked"])
     vit197 = vit197_times(dev)
+    occupancy = {"attention_fwd_blocked": fwd_blocked_occupancy(),
+                 "attention_bwd_blocked": bwd_blocked_occupancy()}
     emit("shapes", part="times", smi=nvidia_smi(), rows=rows, vit197=vit197, vit_parity=parity,
-         fwd_blocked_occupancy=fwd_blocked_occupancy(), seconds=time.perf_counter() - t_phase)
+         occupancy=occupancy, seconds=time.perf_counter() - t_phase)
     sources = {"attention_fwd_blocked": ("vln_hamt_torch/csrc/attention_blocked.cu",
                                          "vln_hamt_tpu/ops/attention.py:53", ferr),
                "attention_bwd_blocked": ("vln_hamt_torch/csrc/attention_blocked_bwd.cu",
@@ -3382,9 +3396,12 @@ def phase_shapes(dev):
              "runs": {r["cli"]: r["launches"][name] for r in runs},
              "shapes": [[r[k] for k in ("lanes", "heads", "lq", "lk", "head_dim")]
                         for r in rows[name] if r["dtype"] == "float32"],
-             **({"staging": [[r[k] for k in ("lanes", "heads", "lq", "lk", "head_dim", "dtype",
-                                              "staging")] for r in rows[name]]}
-                if name == "attention_fwd_blocked" else {}),
+             "staging": [[r[k] for k in ("lanes", "heads", "lq", "lk", "head_dim", "dtype",
+                                          "staging")] for r in rows[name]],
+             "build": {"max_registers": builds[name]["max_registers"],
+                       "spill_bytes": builds[name]["spill_bytes"],
+                       "entries": builds[name]["entries"]},
+             "ctas_per_sm": occupancy[name],
              "vit197": {k: t for k, t in vit197.items() if k.startswith(name)}}
             for name, (src, replaces, err) in sources.items()]
 
@@ -3411,7 +3428,7 @@ def main() -> int:
     t0 = time.perf_counter()
     agent_module.init_hamt = memo_init_hamt
     with ThreadPoolExecutor(1) as pool:
-        builds = pool.submit(build_all)  # nvcc's processes, all at once
+        pending = pool.submit(build_all)  # nvcc's processes, all at once
         # meanwhile, on this thread, the weights of the architectures the
         # phases build agents of: the slice's, the family presets' and the
         # task variants'
@@ -3421,7 +3438,8 @@ def main() -> int:
                 get_preset(task).train.batch_size, seed=0, task=task)[0]
             memo_init_hamt(wcfg.model, 0)
         init_seconds = time.perf_counter() - t0
-        for name, built in builds.result().items():  # registers and spills per instantiation
+        builds = pending.result()
+        for name, built in builds.items():  # registers and spills per instantiation
             emit("build", kernel=name, **built)
     emit("build", wall_seconds=time.perf_counter() - t0, weight_init_seconds=init_seconds)
 
@@ -3753,7 +3771,7 @@ def main() -> int:
     remat = phase_remat(cfg, world, smi)
     # ------------------------------------------------------------ shapes
     marks.append(("shapes", time.perf_counter()))
-    blocked_lines = phase_shapes(dev)
+    blocked_lines = phase_shapes(dev, builds)
     marks.append(("summary", time.perf_counter()))
 
     pretrain = {}

@@ -154,6 +154,41 @@ def test_blocked_forward_staging_paths(cuda, dtype, rate, layout, lq, lk, dh, ma
     assert (got - want).abs().max().item() <= TOL[(dtype, rate)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["layer", "element"])
+@pytest.mark.parametrize("lq,lk,dh,masked", [(301, 301, 64, False), (65, 301, 12, False),
+                                             (40, 257, 80, True), (33, 300, 6, False),
+                                             (301, 301, 10, True)],
+                         ids=["301-301-dh64", "65-301-dh12", "40-257-dh80-masked",
+                              "33-300-dh6", "301-301-dh10-masked"])
+def test_blocked_backward_staging_paths(cuda, dtype, rate, layout, lq, lk, dh, masked):
+    """The key-blocked backward with q, k and v by 16-byte copies (the
+    layer's views where a head is a multiple of 16 bytes) and by element
+    loads (views that are not, and copies shifted off the 16-byte
+    boundary), against its plain twin, one launch each. g always goes by
+    16-byte copies: at Dh 6 and 10 from _kernel_cotangent's copy with
+    padded rows, and at 301 query rows over several query blocks of the
+    statistics pass, which splits bf16 G."""
+    g = torch.Generator(device=cuda).manual_seed(lq * 1000 + lk + dh)
+    q, k, v, m, cot = kernel_inputs(3, 4, lq, lk, dh, dtype, g, cuda, masked_rows=masked)
+    if layout == "element":
+        q, k, v = (element_layout(x) for x in (q, k, v))
+    async_ok = layout == "layer" and dh * q.element_size() % 16 == 0
+    assert tops.blocked_staging(q, k, v) == int(async_ok)
+    assert tops._misalignment("g", tops._kernel_cotangent(cot)) is None
+    seed = 2**31 + 11
+    before = tops.launch_counts["attention_bwd_blocked"]
+    grads = tops.attention_bwd(q, k, v, m, cot, seed, rate)
+    torch.cuda.synchronize()
+    assert tops.launch_counts["attention_bwd_blocked"] == before + 1
+    want = tops.attention_bwd_reference(q, k, v, m, cot, seed, rate)
+    for name, x, y in zip(("dq", "dk", "dv", "dm"), grads, want):
+        assert x.shape == y.shape and x.dtype == y.dtype and torch.isfinite(x).all(), name
+        err = _rel_err(x, y)
+        assert err <= (BWD_DM_RTOL if name == "dm" else BWD_RTOL[dtype]), (name, err)
+
+
 def _rel_err(got, want):
     """max |got - want| over max |want|, in float32."""
     got, want = got.float(), want.float()

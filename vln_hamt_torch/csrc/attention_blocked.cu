@@ -172,59 +172,8 @@ struct Params {
   int dropout;
 };
 
-// ------------------------------------------------------------ staging
-// 16-byte copy global -> shared of the first `bytes` (0..16) bytes, the
-// rest zero-filled; with 0 bytes nothing is read. Both addresses 16-byte
-// aligned.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes)
-               : "memory");
-}
-
-// Rows [0, n) of a (ROWS, Dh) tile of T -- row stride `ld` elements, unit
-// stride on Dh -- into shared memory rows of W elements at pitch P, zero
-// in columns [Dh, W) and rows [n, ROWS). With `async` every row start is
-// 16-byte aligned and the rows go by cp.async (the caller commits); else
-// by element loads. W * sizeof(T) is a multiple of 16.
-template <typename T, int W, int P, int ROWS>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int n, int Dh,
-                                           bool async) {
-  if (async) {
-    constexpr int E = 16 / sizeof(T);  // elements per chunk
-    constexpr int C = W / E;           // chunks per row
-    constexpr int RP = kFwdThreads / C;   // rows per pass
-    const int c = threadIdx.x % C, r0 = threadIdx.x / C;
-    if (r0 >= RP) return;
-    const int left = (Dh - c * E) * (int)sizeof(T);
-    const int bytes = left < 0 ? 0 : left > 16 ? 16 : left;
-    for (int r = r0; r < ROWS; r += RP) {
-      const bool live = r < n && bytes > 0;
-      cp_async16_zfill(dst + r * P + c * E, live ? src + r * ld + c * E : src, live ? bytes : 0);
-    }
-  } else {
-    constexpr int RP = kFwdThreads / W;
-    const int d = threadIdx.x % W, r0 = threadIdx.x / W;
-    if (r0 >= RP) return;
-    const T zero = from_float<T>(0.f);
-    for (int r = r0; r < ROWS; r += RP) dst[r * P + d] = r < n && d < Dh ? src[r * ld + d] : zero;
-  }
-}
-
-// The block's mask entries [0, n) (stride `ld`), zero past n.
-template <int BK>
-__device__ __forceinline__ void stage_mask(float* dst, const float* src, long long ld, int n) {
-  for (int j = threadIdx.x; j < BK; j += kFwdThreads)
-    cp_async4_zfill(dst + j, j < n ? src + j * ld : src, j < n ? 4 : 0);
-}
+// Staging (stage_tile, stage_mask) and the warp-level tensor-core pieces
+// (ldmatrix, mma_bf16, split2) are in attention_blocked.cuh.
 
 // Where a CTA works: its (batch, head) pair and query block.
 struct Block {
@@ -238,46 +187,6 @@ __device__ __forceinline__ Block block_of(const Params& p) {
 }
 
 // ------------------------------------------------------- bf16 kernel
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a b for one m16n8k16 tile, bf16 inputs, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// The hi and lo bf16 parts of two fp32 values, packed as an mma operand
-// (the first value in the low half): hi = bf16(x), lo = bf16(x - hi).
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
-                 __float2bfloat16_rn(x1 - __bfloat162float(h1)));
-}
-
 // Shared memory of the bf16 kernel, in elements: the Q tile, then the
 // ring's stages, each K and V (BK rows of pitch DP + 8) and the mask (BK
 // floats, stored as 2 BK elements).

@@ -1,23 +1,10 @@
 // Helpers shared by the key-blocked attention kernels (attention_blocked.cu,
-// the forward, and attention_blocked_bwd.cu, the backward): the tiling,
-// the staging of rows of any head width and any alignment, and the
-// score tile.
-//
-// Tiling. A CTA of 128 threads works on a block of kBQ = 32 query rows
-// against a block of key_block(DP) keys. DP is the head width padded to
-// the next of 16, 32, 64 and 128: rows are staged in shared memory as
-// fp32 with zeros in columns [Dh, DP), so a head width of 12, 48 or 80
-// runs through the instantiation of 16, 64 or 128 with no copy in the
-// wrapper, and the zero columns add nothing to any product. Three
-// thread-to-data maps share the CTA, each the one the whole-row kernels
-// use (attention.cu, attention_bwd.cu):
-// * scores: 8 lanes share a row, each thread holds 2 rows x BK / 8
-//   columns (column tx + 8c);
-// * rows x d: each thread holds RO = DP / 16 rows x 4 contiguous d;
-// * keys x d (the backward's dK and dV): each thread holds KPT keys x 4
-//   contiguous d.
-// In the first two maps warp w owns query rows 8w .. 8w + 7, so what one
-// map writes for its rows the other reads after a __syncwarp.
+// the forward, and attention_blocked_bwd.cu, the backward): the padded head
+// width, the twice-rounded score, the staging of rows of any head width and
+// any alignment into shared memory (16-byte cp.async with a source size,
+// or element loads), and the warp-level tensor-core pieces (ldmatrix,
+// mma.sync m16n8k16 bf16 -> fp32, the hi / lo split of fp32 operands).
+// Every kernel that stages with them runs kTileThreads threads.
 #pragma once
 
 #include "attention_common.cuh"
@@ -25,20 +12,13 @@
 namespace hamt {
 namespace blocked {
 
-constexpr int kBQ = 32;          // query rows per block
-constexpr int kLanes = 8;        // threads that share one score row
-constexpr int kRows = 2;         // score rows per thread
-constexpr int kBlockThreads = kBQ / kRows * kLanes;  // 128
+constexpr int kTileThreads = 128;  // 4 warps, every key-blocked kernel
 
-// The padded head width: the next instantiated width at or above Dh, or 0
-// past 128.
+// The padded head width of the fp32 products and of the backward: the
+// next of 16, 32, 64 and 128 at or above Dh, or 0 past 128.
 __host__ __device__ constexpr int padded_width(int Dh) {
   return Dh <= 16 ? 16 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 128 ? 128 : 0;
 }
-
-// Keys per block: 64, or 32 at DP 128, which keeps every kernel's shared
-// memory under 80 KB and the backward's dK and dV tiles at 64 registers.
-__host__ __device__ constexpr int key_block(int DP) { return DP == 128 ? 32 : 64; }
 
 // score * scale + mask with two roundings, as torch and XLA compute it:
 // the compiler would otherwise fuse them into one FMA, and next to -10000,
@@ -59,71 +39,100 @@ __device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
   acc.w = fmaf(a, b.w, acc.w);
 }
 
-// Copies rows [0, n) of a (rows, Dh) tile -- row stride `ld` elements,
-// unit stride along Dh, any alignment -- into shared memory as fp32 rows
-// of DP floats at pitch `pitch`, zero in columns [Dh, DP) and in rows
-// [n, rows). Neighbouring threads read neighbouring elements of a row.
-template <typename T, int DP>
-__device__ __forceinline__ void stage_any(float* dst, int pitch, const T* src, long long ld,
-                                          int n, int rows, int Dh) {
-  for (int i = threadIdx.x; i < rows * DP; i += kBlockThreads) {
-    const int r = i / DP, d = i % DP;
-    dst[r * pitch + d] = r < n && d < Dh ? to_float(src[r * ld + d]) : 0.f;
+// ------------------------------------------------------------ staging
+// 16-byte copy global -> shared of the first `bytes` (0..16) bytes, the
+// rest zero-filled; with 0 bytes nothing is read. Both addresses 16-byte
+// aligned.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes)
+               : "memory");
+}
+
+// Rows [0, n) of a (ROWS, Dh) tile of T -- row stride `ld` elements, unit
+// stride on Dh -- into shared memory rows of W elements at pitch P, zero
+// in columns [Dh, W) and rows [n, ROWS). With `async` every row start is
+// 16-byte aligned and the rows go by cp.async (the caller commits); else
+// by element loads. W * sizeof(T) is a multiple of 16.
+template <typename T, int W, int P, int ROWS>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int n, int Dh,
+                                           bool async) {
+  if (async) {
+    constexpr int E = 16 / sizeof(T);  // elements per chunk
+    constexpr int C = W / E;           // chunks per row
+    constexpr int RP = kTileThreads / C;   // rows per pass
+    const int c = threadIdx.x % C, r0 = threadIdx.x / C;
+    if (r0 >= RP) return;
+    const int left = (Dh - c * E) * (int)sizeof(T);
+    const int bytes = left < 0 ? 0 : left > 16 ? 16 : left;
+    for (int r = r0; r < ROWS; r += RP) {
+      const bool live = r < n && bytes > 0;
+      cp_async16_zfill(dst + r * P + c * E, live ? src + r * ld + c * E : src, live ? bytes : 0);
+    }
+  } else {
+    constexpr int RP = kTileThreads / W;
+    const int d = threadIdx.x % W, r0 = threadIdx.x / W;
+    if (r0 >= RP) return;
+    const T zero = from_float<T>(0.f);
+    for (int r = r0; r < ROWS; r += RP) dst[r * P + d] = r < n && d < Dh ? src[r * ld + d] : zero;
   }
 }
 
-// s[r][c] = sum over d, in order, of A[r][d] * B[8c][d] for the thread's
-// 2 rows of A (from `ar`) and its CPT columns (rows of B from `br`, 8
-// rows apart), both of pitch DP + 4 floats: the 8 rows a warp's lanes
-// read at once fall into distinct banks.
-template <int DP, int CPT>
-__device__ __forceinline__ void tile_scores(float (&s)[kRows][CPT], const float* ar,
-                                            const float* br) {
-  constexpr int KP = DP + 4;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DP; d += 4) {
-    float4 a[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) a[r] = ld4(ar + r * KP + d);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const float4 bv = ld4(br + c * kLanes * KP + d);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        s[r][c] = fmaf(a[r].x, bv.x, s[r][c]);
-        s[r][c] = fmaf(a[r].y, bv.y, s[r][c]);
-        s[r][c] = fmaf(a[r].z, bv.z, s[r][c]);
-        s[r][c] = fmaf(a[r].w, bv.w, s[r][c]);
-      }
-    }
-  }
+// Entries [0, n) of a row of N fp32 values (stride `ld`), zero past n, by
+// 4-byte cp.async (the caller commits).
+template <int N>
+__device__ __forceinline__ void stage_mask(float* dst, const float* src, long long ld, int n) {
+  for (int j = threadIdx.x; j < N; j += kTileThreads)
+    cp_async4_zfill(dst + j, j < n ? src + j * ld : src, j < n ? 4 : 0);
 }
 
-// o[r] += sum over keys j < n4 (a multiple of 4), in order, of
-// P[r][j] * X[j][4 td .. 4 td + 3] for the thread's RO rows of P (from
-// `pr`, pitch pp) and X's columns (from `xc`, pitch xp).
-template <int RO>
-__device__ __forceinline__ void rows_times_keys(float4 (&o)[RO], const float* pr, int pp,
-                                                const float* xc, int xp, int n4) {
-#pragma unroll 2
-  for (int j = 0; j < n4; j += 4) {
-    const float4 x0 = ld4(xc + (j + 0) * xp);
-    const float4 x1 = ld4(xc + (j + 1) * xp);
-    const float4 x2 = ld4(xc + (j + 2) * xp);
-    const float4 x3 = ld4(xc + (j + 3) * xp);
-#pragma unroll
-    for (int r = 0; r < RO; ++r) {
-      const float4 pj = ld4(pr + r * pp + j);
-      fma4(o[r], pj.x, x0);
-      fma4(o[r], pj.y, x1);
-      fma4(o[r], pj.z, x2);
-      fma4(o[r], pj.w, x3);
-    }
-  }
+// ------------------------------------------------ tensor-core pieces
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a b for one m16n8k16 tile, bf16 inputs, fp32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The hi and lo bf16 parts of two fp32 values, packed as an mma operand
+// (the first value in the low half): hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
+  hi = pack_bf16(h0, h1);
+  lo = pack_bf16(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
+                 __float2bfloat16_rn(x1 - __bfloat162float(h1)));
 }
 
 }  // namespace blocked

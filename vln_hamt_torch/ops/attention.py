@@ -217,12 +217,14 @@ def _library(name: str) -> ctypes.CDLL:
         lib.hamt_attention_fwd_blocked_occupancy.restype = i
     else:
         lib.hamt_attention_bwd_blocked.argtypes = (
-            [p] * 12 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, p])
+            [p] * 13 + [i] * 6 + [ctypes.POINTER(ll), f32, u32, u32, f32, i, i, p])
         lib.hamt_attention_bwd_blocked.restype = i
         lib.hamt_attention_blocked_width.argtypes = [i]
         lib.hamt_attention_blocked_width.restype = i
         lib.hamt_attention_bwd_blocked_key_blocks.argtypes = [i, i]
         lib.hamt_attention_bwd_blocked_key_blocks.restype = i
+        lib.hamt_attention_bwd_blocked_occupancy.argtypes = [i, i, i, ctypes.POINTER(ll)]
+        lib.hamt_attention_bwd_blocked_occupancy.restype = i
     return lib
 
 
@@ -304,7 +306,7 @@ def _misalignment(name: str, t: torch.Tensor) -> Optional[str]:
 
 
 def blocked_staging(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """How the key-blocked forward stages q, k and v: 1, all three by
+    """How the key-blocked kernels stage q, k and v: 1, all three by
     16-byte ``cp.async``, where all three pass the 16-byte rule of
     :func:`_misalignment`; 0, all three by element loads, which take any
     layout with a unit stride on Dh (the bf16 Dh 12 heads 24 bytes apart
@@ -347,13 +349,18 @@ def check_bwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _kernel_cotangent(g: torch.Tensor) -> torch.Tensor:
-    """The output cotangent as the backward kernel reads it: fp32, Dh
-    contiguous, 16-byte aligned. The layer's gradient arrives as the
-    (B, H, Lq, Dh) view of a (B, Lq, H, Dh) fp32 tensor and is read in
-    place; any other float type or layout costs one copy."""
+    """The output cotangent as the backward kernels read it: fp32, Dh
+    contiguous, its base and every batch, head and row stride a multiple
+    of 16 bytes, so both backward kernels stage it by 16-byte copies. The
+    layer's gradient arrives as the (B, H, Lq, Dh) view of a (B, Lq, H, Dh)
+    fp32 tensor and is read in place where Dh is a multiple of 4; any
+    other float type or layout costs one copy, into rows padded to a
+    multiple of 4 floats (the padding is never read)."""
     g = g.to(torch.float32)
     if g.stride(3) != 1 or _misalignment("g", g):
-        g = g.clone(memory_format=torch.contiguous_format)
+        *lead, dh = g.shape
+        padded = torch.empty((*lead, -(-dh // 4) * 4), dtype=torch.float32, device=g.device)
+        g = padded[..., :dh].copy_(g)
     return g
 
 
@@ -453,16 +460,21 @@ def _launch_bwd(q, k, v, m, g, seed: int, rate: float, need_dm: bool = True,
                             if lib.hamt_attention_bwd_needs_scratch(lq) else (None, None))
         dm_part = torch.empty((nqb, b, h, lk), **f32) if need_dm else None
         scratch = (dk_part, dv_part, dm_part)
-        launch = lib.hamt_attention_bwd
+        launch, extra = lib.hamt_attention_bwd, ()
     else:
-        # fp32 partials of dq per key block, and each row's max, 1 / sum
-        # and D from the statistics pass
+        # fp32 partials of dq per key block, each row's max, 1 / sum and D
+        # from the statistics pass, and in bf16 the cotangent split into
+        # bf16 hi, mid and lo parts by the statistics pass
         nkb = lib.hamt_attention_bwd_blocked_key_blocks(lk, dh)
-        dq_part = torch.empty((nkb, b * h, lq, lib.hamt_attention_blocked_width(dh)), **f32)
+        width = lib.hamt_attention_blocked_width(dh)
+        dq_part = torch.empty((nkb, b * h, lq, width), **f32)
         stats = torch.empty((3, b * h, lq), **f32)
+        gsplit = (torch.empty((3, b * h, lq, width), dtype=torch.bfloat16, device=q.device)
+                  if q.dtype == torch.bfloat16 else None)
         dm_part = torch.empty((b * h, lk), **f32) if need_dm else None
-        scratch = (dq_part, stats, dm_part)
+        scratch = (dq_part, stats, gsplit, dm_part)
         launch = lib.hamt_attention_bwd_blocked
+        extra = (blocked_staging(q, k, v),)
     ptr = lambda t: None if t is None else t.data_ptr()
     strides = [s for t in (q, k, v, g, *views) for s in t.stride()[:3]] + list(m.stride())
     with torch.cuda.device(q.device):  # as in _launch
@@ -471,7 +483,7 @@ def _launch_bwd(q, k, v, m, g, seed: int, rate: float, need_dm: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *map(ptr, scratch), ptr(dm),
             _DTYPES[q.dtype], b, h, lq, lk, dh, (ctypes.c_longlong * 23)(*strides),
-            1.0 / dh ** 0.5, *_dropout_args(seed, rate), stream)
+            1.0 / dh ** 0.5, *_dropout_args(seed, rate), *extra, stream)
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
     launch_counts[kernel] += 1

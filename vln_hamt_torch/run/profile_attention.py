@@ -384,9 +384,29 @@ def element_layout(t: torch.Tensor) -> torch.Tensor:
 
 
 def staging_name(q, k, v) -> str:
-    """How the key-blocked forward stages q, k and v: "async" (16-byte
-    copies) or "element" (element loads)."""
+    """How the key-blocked kernels stage q, k and v: "async" (16-byte
+    copies) or "element" (element loads). The backward's cotangent always
+    goes by 16-byte copies (``ops/attention.py:_kernel_cotangent``)."""
     return "async" if attn.blocked_staging(q, k, v) else "element"
+
+
+def bwd_blocked_occupancy() -> Dict[str, Dict[int, Dict[str, List[int]]]]:
+    """The key-blocked backward's statistics pass and key-block kernel:
+    dynamic shared memory per CTA in bytes and CTAs per SM on this card,
+    by type and padded head width: {"float32" | "bfloat16": {width:
+    {"stats" | "keys": [bytes, ctas]}}}."""
+    lib = attn._library("attention_bwd_blocked")
+    out = {}
+    for name, code in (("float32", 0), ("bfloat16", 1)):
+        out[name] = {}
+        for width in attn.FWD_HEAD_DIMS:
+            out[name][width] = {}
+            for kernel, which in (("stats", 0), ("keys", 1)):
+                nbytes = ctypes.c_longlong(0)
+                ctas = lib.hamt_attention_bwd_blocked_occupancy(code, width, which,
+                                                                ctypes.byref(nbytes))
+                out[name][width][kernel] = [nbytes.value, ctas]
+    return out
 
 
 def fwd_blocked_occupancy() -> Dict[str, Dict[int, List[int]]]:
