@@ -433,3 +433,33 @@ def test_vit_runs_its_attention_through_both_kernels(cuda):
     assert tops.launch_counts["attention_fwd_blocked"] == n0["attention_fwd_blocked"] + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2e-4)
+
+
+def test_span_holds_its_kernel_on_the_profiler_clock(cuda):
+    """In a device-only profiler window, a span around a sleep kernel and
+    the wait for it holds the kernel's device interval, the span's times
+    put on the profiler's clock by ``SpanRecorder.to_profiler_ns``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_hamt_torch.utils.logging import SpanRecorder, span
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # the tracer's cold start, dropped
+        for _ in range(100):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    with SpanRecorder(keep=True) as rec:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                with span("sleep"):
+                    torch.cuda._sleep(5_000_000)  # cycles: a few ms
+                    torch.cuda.synchronize()
+    kernels = sorted((e.start_ns(), e.end_ns(), e.name())
+                     for e in prof.profiler.kineto_results.events()
+                     if "CUDA" in str(e.device_type()) and not e.is_user_annotation())
+    kept = [r for r in rec.records if r.name == "sleep"]
+    assert len(kernels) == len(kept) == 3, kernels
+    for (k0, k1, _), r in zip(kernels, kept):
+        s0, s1 = rec.to_profiler_ns(r.start_ns), rec.to_profiler_ns(r.end_ns)
+        print(f"sleep kernel {(k1 - k0) / 1e6:.3f} ms; span opens {(k0 - s0) / 1e3:.1f} us "
+              f"before it, closes {(s1 - k1) / 1e3:.1f} us after it")
+        assert s0 <= k0 and k1 <= s1

@@ -1,6 +1,6 @@
 """The port's utilities against the JAX package's: the dropout-PRNG names
 (``utils/misc.py:apply_rng_impl``), ``--rng_impl rbg`` through the
-fine-tuning CLI's replay update, ``RunningMeter``, the metrics logger's
+fine-tuning CLI's replay update, ``length_mask``, the metrics logger's
 TensorBoard mirror, ``profile_trace`` and the trace breakdown
 ``utils/xprof.py`` on synthetic Chrome traces."""
 
@@ -13,11 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from vln_hamt_tpu.utils.logging import RunningMeter as JaxRunningMeter
 from vln_hamt_tpu.utils.misc import apply_rng_impl as jax_apply_rng_impl
 from vln_hamt_tpu.utils.misc import length_mask as jax_length_mask
 from vln_hamt_torch.run import finetune
-from vln_hamt_torch.utils import MetricsLogger, RunningMeter, length_mask
+from vln_hamt_torch.utils import MetricsLogger, length_mask
 from vln_hamt_torch.utils import xprof
 from vln_hamt_torch.utils.logging import profile_trace
 from vln_hamt_torch.utils.misc import apply_rng_impl
@@ -68,14 +67,7 @@ def test_rbg_round_trips_through_the_replay_update(tmp_path, one_thread):
     assert any(np.isfinite(r.get("loss", np.nan)) for r in logged)
 
 
-def test_running_meter_and_length_mask_match_jax():
-    seq = np.random.default_rng(0).standard_normal(50).tolist()
-    for smooth in (0.99, 0.5):
-        a, b = RunningMeter("loss", smooth), JaxRunningMeter("loss", smooth)
-        for v in seq:
-            a.update(v)
-            b.update(v)
-            assert a.val == b.val
+def test_length_mask_matches_jax():
     lengths = [0, 3, 7]
     np.testing.assert_array_equal(length_mask(lengths, 7), jax_length_mask(lengths, 7))
 

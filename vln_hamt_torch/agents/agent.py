@@ -89,6 +89,7 @@ from ..models.layers import DropoutRNG, compute_dtype, drop_weight_cache, set_dr
 from ..parallel.mesh import (Mesh, barrier, gather_optimizer_state, gather_state_dict,
                              is_default_process, process_feed_rows, shard_model,
                              shard_optimizer_state, shard_state_dict)
+from ..utils.logging import allocator_counts, count, span, sync_span
 from .losses import IGNORE_ID, a2c_loss, il_loss
 from .optim import OptaxOptimizer
 from .packing import PackedILStream
@@ -321,23 +322,24 @@ class HAMTAgent:
         ``task_inputs`` (without them, greedy evaluation runs on GT-less
         test splits). A training rollout (``include_rewards``) ships this
         rank's rows only."""
-        env = self.env
-        obs = env.reset()
-        offs = np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
-        txt_ids, txt_mask = env.txt_batch()
-        dev = self.device
-        rows = self._rows if include_rewards else (lambda x: x)
-        ins = dict(
-            txt_ids=torch.as_tensor(rows(txt_ids), dtype=torch.long).to(dev),
-            txt_mask=torch.as_tensor(rows(txt_mask)).to(dev),
-            start_node=torch.as_tensor(rows(offs + obs.node)).to(dev),
-            start_view=torch.as_tensor(rows(obs.view_index), dtype=torch.long).to(dev),
-            offs=torch.as_tensor(rows(offs)).to(dev),
-        )
-        if include_rewards:
-            ins["task_inputs"] = {k: torch.as_tensor(rows(v)).to(dev) for k, v in
-                                  self._device_rollout_inputs(env, obs).items()}
-        return ins
+        with span("rollout_inputs"):
+            env = self.env
+            obs = env.reset()
+            offs = np.array([env.feat_offsets[it["scan"]] for it in env.batch], np.int64)
+            txt_ids, txt_mask = env.txt_batch()
+            ship = self._copy_to_device
+            rows = self._rows if include_rewards else (lambda x: x)
+            ins = dict(
+                txt_ids=ship(torch.as_tensor(rows(txt_ids), dtype=torch.long)),
+                txt_mask=ship(torch.as_tensor(rows(txt_mask))),
+                start_node=ship(torch.as_tensor(rows(offs + obs.node))),
+                start_view=ship(torch.as_tensor(rows(obs.view_index), dtype=torch.long)),
+                offs=ship(torch.as_tensor(rows(offs))),
+            )
+            if include_rewards:
+                ins["task_inputs"] = {k: ship(torch.as_tensor(rows(v))) for k, v in
+                                      self._device_rollout_inputs(env, obs).items()}
+            return ins
 
     def _goal_cost_slab(self, env, goal_nodes_fn) -> np.ndarray:
         """(B, N_scan_max): each node's distance to the nearest of the
@@ -378,9 +380,25 @@ class HAMTAgent:
         to keep running."""
         t = torch.from_numpy(np.ascontiguousarray(arr))
         t = t.to(dtype) if dtype is not None else (t.long() if t.dtype == torch.int32 else t)
+        count("h2d_bytes", t.nbytes)
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _copy_to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the device by a plain copy, which from pageable
+        memory waits for the device's queue: a ``sync`` span; its bytes
+        count under ``h2d_bytes``."""
+        count("h2d_bytes", t.nbytes)
+        with sync_span():
+            return t.to(self.device)
+
+    @staticmethod
+    def _fetch(x: torch.Tensor) -> np.ndarray:
+        """``x`` read back to the host, which waits for the device: a
+        ``sync`` span."""
+        with sync_span():
+            return x.cpu().numpy()
 
     @staticmethod
     def _start_fetch(x: torch.Tensor):
@@ -398,7 +416,8 @@ class HAMTAgent:
     def _finish_fetch(pending) -> np.ndarray:
         host, done = pending
         if done is not None:
-            done.synchronize()
+            with sync_span():
+                done.synchronize()
         return host.numpy()
 
     def _forbid(self, obs: ObsBatch, visited: List[set], no_cand_backtrack: bool) -> np.ndarray:
@@ -502,7 +521,7 @@ class HAMTAgent:
                     generator=self.action_rng,
                     **self._step_inputs(env, obs, live, self._forbid(obs, visited,
                                                                      no_cand_backtrack), given))
-                a_t = a_dev.cpu().numpy()
+                a_t = self._fetch(a_dev)
                 step_mask[:, t] = live
                 actions_rec[:, t] = np.where(live, a_t, stop)
                 if record_for_replay:
@@ -534,10 +553,10 @@ class HAMTAgent:
             extras = {
                 "ep": self._stack_obs_episode(obs_list, txt_ids, txt_mask, actions_rec,
                                               step_mask, final_obs=obs, feat_offs=feat_offs),
-                "rewards": torch.from_numpy(self._rows(rewards, 1).copy()).to(dev),
-                "masks": torch.from_numpy(self._rows(step_mask.T.astype(np.float32), 1)
-                                          .copy()).to(dev),
-                "bootstrap_mask": torch.from_numpy(self._rows(~ended).copy()).to(dev),
+                "rewards": self._copy_to_device(torch.from_numpy(self._rows(rewards, 1).copy())),
+                "masks": self._copy_to_device(torch.from_numpy(
+                    self._rows(step_mask.T.astype(np.float32), 1).copy())),
+                "bootstrap_mask": self._copy_to_device(torch.from_numpy(self._rows(~ended).copy())),
                 "rollout_logits": self._rows(torch.stack(logits_rec), 1),
             }
         return traj, extras
@@ -763,21 +782,24 @@ class HAMTAgent:
         self.critic.eval()
         old_env, self.env = self.env, env
         try:
-            fn = self._ensure_device_rollout_fn()
-            env.reset_epoch(shuffle=False)
-            results: Dict[str, dict] = {}
-            looped = False
-            while not looped:
-                ins = self._device_rollout_args(include_rewards=False)
-                with torch.no_grad():
-                    ep, extras = fn(ins["txt_ids"], ins["txt_mask"], self._feat_table,
-                                    self._nav_tables, ins["start_node"], ins["start_view"],
-                                    obj_tables=self._obj_tables)
-                for tr in self._decode_device_trajectories(env, ep, extras):
-                    if tr["instr_id"] in results:
-                        looped = True
-                    else:
-                        results[tr["instr_id"]] = tr
+            with span("eval_split_device"):
+                fn = self._ensure_device_rollout_fn()
+                env.reset_epoch(shuffle=False)
+                results: Dict[str, dict] = {}
+                looped = False
+                while not looped:
+                    ins = self._device_rollout_args(include_rewards=False)
+                    with span("rollout"), torch.no_grad():
+                        ep, extras = fn(ins["txt_ids"], ins["txt_mask"], self._feat_table,
+                                        self._nav_tables, ins["start_node"], ins["start_view"],
+                                        obj_tables=self._obj_tables)
+                    with span("decode"):
+                        trajs = self._decode_device_trajectories(env, ep, extras)
+                    for tr in trajs:
+                        if tr["instr_id"] in results:
+                            looped = True
+                        else:
+                            results[tr["instr_id"]] = tr
         finally:
             self.env = old_env
         return list(results.values())
@@ -785,12 +807,10 @@ class HAMTAgent:
     def _decode_device_trajectories(self, env, ep, extras) -> List[dict]:
         """Recorded rollout -> eval predictions (host-side), with the
         task's extras (:meth:`_decode_device_extras`)."""
-        node = ep["node_idx"].cpu().numpy()
-        view = ep["view_index"].cpu().numpy()
-        actions = ep["actions"].cpu().numpy()
-        mask = ep["step_mask"].cpu().numpy()
-        fnode = ep["final_node_idx"].cpu().numpy()
-        fview = ep["final_view_index"].cpu().numpy()
+        fetch = self._fetch
+        node, view = fetch(ep["node_idx"]), fetch(ep["view_index"])
+        actions, mask = fetch(ep["actions"]), fetch(ep["step_mask"])
+        fnode, fview = fetch(ep["final_node_idx"]), fetch(ep["final_view_index"])
         extras_np = self._fetch_decode_extras(extras)
         b, t_max = node.shape
         c = env.spec.max_candidates  # action < c is a nav move
@@ -870,7 +890,7 @@ class HAMTAgent:
             if k not in ("txt_ids", "txt_mask"):
                 v = self._rows(v)
             t = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
+            out[k] = self._copy_to_device(t.long() if t.dtype == torch.int32 else t)
         return out
 
     def _packed_il_loss(self, pack: Dict[str, torch.Tensor], n_episodes: float,
@@ -920,7 +940,7 @@ class HAMTAgent:
             t = torch.from_numpy(np.ascontiguousarray(self._rows(v)))
             if k in ("pano_feat", "final_pano_feat", "obj_fts", "final_obj_fts"):
                 t = t.to(self._feat_dtype)
-            out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
+            out[k] = self._copy_to_device(t.long() if t.dtype == torch.int32 else t)
         return out
 
     def _il_loss(self, ep: Dict[str, torch.Tensor], weight: float) -> torch.Tensor:
@@ -1051,13 +1071,17 @@ class HAMTAgent:
         across data ranks their sums, the global batch's values."""
         self.model.train()
         self.critic.train()
-        loss, aux = loss_fn()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.critic_optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        self.critic_optimizer.step()
-        self._weights_changed()
+        with span("forward"):
+            loss, aux = loss_fn()
+        with span("optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
+            self.critic_optimizer.zero_grad(set_to_none=True)
+        with span("backward"):
+            loss.backward()
+        with span("optimizer"):
+            self.optimizer.step()
+            self.critic_optimizer.step()
+            self._weights_changed()
         loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
         if self._data_group is not None:
             vals = torch.stack([loss, *aux.values()]).float()
@@ -1093,24 +1117,37 @@ class HAMTAgent:
         the host does not wait for the step, so the next episode's host
         work overlaps this one's device work; convert them (float()) at
         logging boundaries only.
+
+        Under an open ``utils.logging.SpanRecorder`` the call is one
+        ``train_iteration`` span, with the phases inside it as spans
+        (``teacher_episode``, ``rollout_inputs``, ``forward``,
+        ``backward``, ``optimizer``) and every wait for the device as a
+        ``sync`` span.
         """
+        with span("train_iteration"), allocator_counts(self.device):
+            return self._train_iteration(feedback, sync)
+
+    def _train_iteration(self, feedback: Optional[str], sync: bool) -> Dict[str, Any]:
         feedback = feedback or self.cfg.train.feedback
         extra = {}
         if feedback == "teacher" and self.packed_il:
             # one packed update; the critic's optimizer steps on zero
             # gradients, as in the unpacked update (weight decay applies)
-            pack = self._packer.next_pack()
+            with span("teacher_episode"):
+                pack = self._packer.next_pack()
+                dev_pack = self._pack_to_device(pack)
             extra["episodes"] = int(pack["n_episodes"])
-            dev_pack = self._pack_to_device(pack)
             loss = self._update(lambda: (self._packed_il_loss(
                 dev_pack, float(pack["n_episodes"]), self.cfg.train.teacher_weight), {}))[0]
             aux = {"IL_loss": loss}
         elif feedback == "teacher":
-            ep = self._teacher_episode()
+            with span("teacher_episode"):
+                ep = self._teacher_episode()
             loss = self._il_update(ep, self.cfg.train.teacher_weight)
             aux = {"IL_loss": loss}
         elif feedback == "sample":
-            il_ep = self._teacher_episode()
+            with span("teacher_episode"):
+                il_ep = self._teacher_episode()
             use_device = (self.device_rollout_rewards and self._nav_tables is not None
                           and self.env.feat_offsets is not None)
             if use_device and self.merged_sample_update:
@@ -1127,9 +1164,11 @@ class HAMTAgent:
         self.step += 1
         if not sync:
             return {"loss": loss, **aux, **extra}
-        out = {"loss": float(loss)}
+        with sync_span():
+            out = {"loss": float(loss)}
         for k, v in aux.items():
-            out[k] = float(v)
+            with sync_span():
+                out[k] = float(v)
             self.logs[k].append(out[k])
         return {**out, **extra}
 

@@ -167,7 +167,7 @@ class ReverieAgent(HAMTAgent):
         todo = [i for i in range(len(a_t)) if live[i] and "predObjId" not in traj[i]
                 and (a_t[i] >= self.num_ob_tokens or last)]
         if todo:
-            obj = ep_state["obj_logits"].float().cpu().numpy()
+            obj = self._fetch(ep_state["obj_logits"].float())
             for i in todo:
                 traj[i]["predObjId"] = self._grounded(obs.obj_ids[i], obj[i])
 
@@ -198,7 +198,7 @@ class ReverieAgent(HAMTAgent):
         return ins
 
     def _fetch_decode_extras(self, extras) -> Dict[str, np.ndarray]:
-        return {"obj_pred": extras["obj_pred"].cpu().numpy().T}  # (B, T)
+        return {"obj_pred": self._fetch(extras["obj_pred"]).T}  # (B, T)
 
     def _decode_device_extras(self, pred, env, i, node, actions, mask, extras_np) -> None:
         """The grounded object at the stop step (the first live object

@@ -92,7 +92,7 @@ from ..env import CVDNNavEnv, ObsSpec, R2RBackNavEnv, R2RNavEnv, ReverieNavEnv
 from ..parallel.mesh import (Mesh, host_allgather, init_distributed, is_default_process,
                              local_device, make_mesh)
 from ..utils.flops import update_flops_and_peak
-from ..utils.logging import MetricsLogger, write_record
+from ..utils.logging import MetricsLogger, SpanRecorder, write_record
 from ..utils.misc import apply_rng_impl
 
 #: each task's env and agent; the R2R family shares R2R's
@@ -405,44 +405,49 @@ def train(cfg: HAMTConfig, train_env, val_envs: Dict[str, R2RNavEnv], output_dir
         cfg, torch.cuda.get_device_name(agent.device) if agent.device.type == "cuda" else None,
         1 if mesh is None else mesh.data_shards * mesh.model_shards)
 
-    step = 0
-    while step < iters:
-        interval = min(log_every, iters - step)
-        with logger.timer("train") as train_t:
-            outs = []
-            for j in range(interval):
-                if aug_env is not None:
-                    agent.env = train_env if j % 2 == 0 else aug_env
-                # the host assembles the next episode while the device works
-                outs.append(agent.train_iteration(sync=False))
-            keys = [k for k in ("loss", "IL_loss", "RL_loss", "entropy") if k in outs[0]]
-            # one read of the interval's scalars, which waits for its work
-            vals = torch.stack([torch.stack([o[k] for k in keys]) for o in outs]).cpu().numpy()
-        step += interval
-        if not np.isfinite(vals).all():
-            raise FloatingPointError(f"non-finite loss by iter {step}: {dict(zip(keys, vals.T))}")
-        dt = train_t.last
-        # a packed update trains a varying number of episodes
-        eps_per_sec = sum(o.get("episodes", cfg.train.batch_size) for o in outs) / dt
-        logger.log(step, {"loss": float(vals[:, 0].mean()), "eps_per_sec": eps_per_sec,
-                          "mfu": None if peak is None else interval * flops_per_iter / dt / peak})
-        means = ", ".join(f"{k}={v:.4f}" for k, v in zip(keys, vals.mean(axis=0)))
-        write_record(record_file, f"iter {step}: {means}, eps_per_sec={eps_per_sec:.2f}")
+    # the phases of each update (agents/agent.py's spans), logged per
+    # interval as span/<name>_ms and count/<name> per update
+    with SpanRecorder() as spans:
+        step = 0
+        while step < iters:
+            interval = min(log_every, iters - step)
+            with logger.timer("train") as train_t:
+                outs = []
+                for j in range(interval):
+                    if aug_env is not None:
+                        agent.env = train_env if j % 2 == 0 else aug_env
+                    # the host assembles the next episode while the device works
+                    outs.append(agent.train_iteration(sync=False))
+                keys = [k for k in ("loss", "IL_loss", "RL_loss", "entropy") if k in outs[0]]
+                # one read of the interval's scalars, which waits for its work
+                vals = torch.stack([torch.stack([o[k] for k in keys])
+                                    for o in outs]).cpu().numpy()
+            step += interval
+            if not np.isfinite(vals).all():
+                raise FloatingPointError(
+                    f"non-finite loss by iter {step}: {dict(zip(keys, vals.T))}")
+            dt = train_t.last
+            # a packed update trains a varying number of episodes
+            eps_per_sec = sum(o.get("episodes", cfg.train.batch_size) for o in outs) / dt
+            logger.log(step, {"loss": float(vals[:, 0].mean()), "eps_per_sec": eps_per_sec,
+                              "mfu": None if peak is None else interval * flops_per_iter / dt / peak})
+            means = ", ".join(f"{k}={v:.4f}" for k, v in zip(keys, vals.mean(axis=0)))
+            write_record(record_file, f"iter {step}: {means}, eps_per_sec={eps_per_sec:.2f}")
 
-        for name, env in val_envs.items():
-            with logger.timer(f"eval_{name}"):
-                metrics, _ = env.eval_metrics(_merge_preds(
-                    agent.eval_split_fast(env, no_cand_backtrack), mesh))
-            logger.log(step, metrics, prefix=f"{name}/")
-            write_record(record_file, f"iter {step} {name}: " + ", ".join(
-                f"{k}={v:.2f}" for k, v in metrics.items()))
-            if name in ("val_unseen", "val_unseen_sampled"):
-                score = selection_score(dataset, metrics)
-                if score > best["score"]:
-                    best = {"score": score, "iter": step, **metrics}
-                    save("best_val_unseen")
-        save("latest")
-        logger.log_timers(step)
+            for name, env in val_envs.items():
+                with logger.timer(f"eval_{name}"):
+                    metrics, _ = env.eval_metrics(_merge_preds(
+                        agent.eval_split_fast(env, no_cand_backtrack), mesh))
+                logger.log(step, metrics, prefix=f"{name}/")
+                write_record(record_file, f"iter {step} {name}: " + ", ".join(
+                    f"{k}={v:.2f}" for k, v in metrics.items()))
+                if name in ("val_unseen", "val_unseen_sampled"):
+                    score = selection_score(dataset, metrics)
+                    if score > best["score"]:
+                        best = {"score": score, "iter": step, **metrics}
+                        save("best_val_unseen")
+            save("latest")
+            logger.log_timers(step, spans)
     agent.wait_for_checkpoints()
     logger.close()
     return best

@@ -1,10 +1,12 @@
-from .logging import MetricsLogger, RunningMeter, Timer, write_record
+from .logging import MetricsLogger, SpanRecorder, Timer, count, span, write_record
 from .misc import set_seed, length_mask
 
 __all__ = [
     "MetricsLogger",
-    "RunningMeter",
+    "SpanRecorder",
     "Timer",
+    "count",
+    "span",
     "write_record",
     "set_seed",
     "length_mask",

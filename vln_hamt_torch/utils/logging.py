@@ -1,17 +1,23 @@
-"""Observability: metrics logging, timers, running meters and the
-profiler scope (torch port of ``vln_hamt_tpu/utils/logging.py``;
-:class:`profile_trace` runs ``torch.profiler`` where the JAX package runs
-``jax.profiler``, and ``utils/xprof.py`` reads what it writes).
+"""Observability: metrics logging, timers, the program's spans and
+counters, and the profiler scope (torch port of
+``vln_hamt_tpu/utils/logging.py``; :class:`profile_trace` runs
+``torch.profiler`` where the JAX package runs ``jax.profiler``, and
+``utils/xprof.py`` reads what it writes).
 
 Parity targets: the reference's record files + TB scalars
 (``finetune_src/utils/logger.py``, ``pretrain_src/utils/logger.py``:
-``TensorboardLogger`` singleton, ``RunningMeter`` EMA, append-only
-``train.txt``/``valid.txt``). Here the primary sink is an append-only
-JSONL metrics file (machine-readable; one line per event) with optional
-tensorboardX mirroring when available, plus wall-clock timers for the
-per-phase profiling the reference lacks (SURVEY §5: env-step / H2D /
-model / eval timing as a first-class concern). Across ranks only rank 0
-writes (the reference's ``is_default_gpu`` gating).
+``TensorboardLogger`` singleton, append-only ``train.txt``/``valid.txt``).
+Here the primary sink is an append-only JSONL metrics file
+(machine-readable; one line per event) with optional tensorboardX
+mirroring when available, plus wall-clock timers for the per-phase
+profiling the reference lacks (SURVEY §5: env-step / H2D / model / eval
+timing as a first-class concern). Across ranks only rank 0 writes (the
+reference's ``is_default_gpu`` gating).
+
+Spans and counters (:func:`span`, :func:`count`, :class:`SpanRecorder`)
+mark the phases of the training update and the device-rollout evaluation
+(``agents/agent.py``). They cost nothing while no recorder is open: no
+clock, no allocation, no call into torch.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,18 +67,213 @@ class Timer:
         return self.total / max(self.count, 1)
 
 
-class RunningMeter:
-    """EMA-smoothed scalar (pretrain_src/utils/logger.py RunningMeter)."""
+# ---------------------------------------------------------------- spans
+#: the open recorder, if any: one per process
+_recorder: Optional["SpanRecorder"] = None
 
-    def __init__(self, name: str, smooth: float = 0.99):
-        self.name = name
-        self.smooth = smooth
-        self.val: Optional[float] = None
 
-    def update(self, v: float):
-        self.val = v if self.val is None else (
-            self.val * self.smooth + v * (1 - self.smooth)
-        )
+class SpanRecord(NamedTuple):
+    """One span a ``keep=True`` recorder kept: ``parent`` and ``root``
+    index the recorder's ``records`` (``parent`` is -1 for a root, whose
+    ``root`` is its own index); times by ``time.perf_counter_ns()``."""
+
+    name: str
+    parent: int
+    root: int
+    start_ns: int
+    end_ns: int
+
+
+class _NoSpan:
+    """What :func:`span` returns while no recorder is open."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("rec", "name", "index", "parent", "root", "root_name", "start", "children",
+                 "annotation")
+
+    def __init__(self, rec: "SpanRecorder", name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        parent = rec._stack[-1] if rec._stack else None
+        self.parent, self.index, self.children, self.annotation = parent, rec._next, 0, None
+        rec._next += 1
+        if parent is None:
+            self.root, self.root_name = self.index, self.name
+            rec.roots[self.name] += 1
+        else:
+            self.root, self.root_name = parent.root, parent.root_name
+        if rec.keep:
+            rec.records.append(None)  # filled in when the span closes
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        rec._stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self.rec._stack.pop()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        self.rec._close(self, end)
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as the span ``name``,
+    nested in the span under way, while a :class:`SpanRecorder` is open;
+    else the shared no-op :data:`NO_SPAN`. Under an active
+    ``torch.profiler`` the span also opens a ``record_function`` of its
+    name, so the profiler's traces show the program's phases."""
+    rec = _recorder
+    if rec is None:
+        return NO_SPAN
+    return _Span(rec, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name`` of the open recorder, if any."""
+    rec = _recorder
+    if rec is not None:
+        rec._count(name, n)
+
+
+def sync_span():
+    """The span of a point where the host waits for the device (a copy to
+    it from pageable memory, a read back, an event's wait): ``sync``, each
+    counted under ``syncs``."""
+    rec = _recorder
+    if rec is None:
+        return NO_SPAN
+    rec._count("syncs", 1)
+    return _Span(rec, "sync")
+
+
+def allocator_counts(device: torch.device):
+    """Over the block, on a card and while a recorder is open, counts the
+    caching allocator's cudaMalloc and cudaFree calls (``allocator_calls``:
+    its ``num_device_alloc`` and ``num_device_free``) and its retries after
+    a failed allocation (``alloc_retries``), from ``torch.cuda.memory_stats``."""
+    if _recorder is None or device.type != "cuda":
+        return NO_SPAN
+    return _AllocatorCounts(device)
+
+
+class _AllocatorCounts:
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def _read(self) -> Tuple[int, int]:
+        st = torch.cuda.memory_stats(self.device)
+        return st["num_device_alloc"] + st["num_device_free"], st["num_alloc_retries"]
+
+    def __enter__(self):
+        self.before = self._read()
+        return self
+
+    def __exit__(self, *exc):
+        calls, retries = self._read()
+        count("allocator_calls", calls - self.before[0])
+        count("alloc_retries", retries - self.before[1])
+        return False
+
+
+class SpanRecorder:
+    """Opens span recording for the process: ``with SpanRecorder() as rec:``.
+
+    A span's root is the outermost span under way when it opened (an
+    update's ``train_iteration``, an evaluation's ``eval_split_device``).
+    The recorder sums, per (root name, span name), the spans' count, total
+    time and self time (the time less what the span's children cover), in
+    ns, into ``stats``; the counters per (root name, counter) into
+    ``counters`` (root ``""`` outside every span); the roots' calls per
+    name into ``roots``. With ``keep`` it also keeps every span, in the
+    order they opened, as a :class:`SpanRecord` in ``records``, and each
+    root's counters in ``root_counters``: open such a recorder over a
+    bounded window.
+
+    It reads one pair of clocks as it opens, so :meth:`to_profiler_ns`
+    puts a span's times on the clock of ``torch.profiler``'s events,
+    ``time.time_ns()``'s (torch 2.13's host events on the CPU; on an H100
+    under torch 2.11 a span around a kernel and the wait for it holds the
+    kernel's device interval, ``tests/test_torch_gpu.py``). One recorder
+    at a time; spans are opened from one thread.
+    """
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.wall0 = self.perf0 = 0
+        self.reset()
+
+    def reset(self) -> None:
+        """Drops what was recorded."""
+        self.stats: Dict[Tuple[str, str], List[int]] = {}
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.roots: Dict[str, int] = defaultdict(int)
+        self.records: List[Optional[SpanRecord]] = []
+        self.root_counters: Dict[int, Dict[str, int]] = {}
+        self._stack: List[_Span] = []
+        self._next = 0
+
+    def __enter__(self):
+        global _recorder
+        if _recorder is not None:
+            raise RuntimeError("a span recorder is already open")
+        self.wall0, self.perf0 = time.time_ns(), time.perf_counter_ns()
+        _recorder = self
+        return self
+
+    def __exit__(self, *exc):
+        global _recorder
+        _recorder = None
+        return False
+
+    def to_profiler_ns(self, t: int) -> int:
+        """A ``time.perf_counter_ns()`` reading on the profiler's clock."""
+        return self.wall0 + (t - self.perf0)
+
+    def per_root(self, root: str) -> Tuple[int, Dict[str, List[int]], Dict[str, int]]:
+        """(calls of the roots named ``root``, their spans' [count, total
+        ns, self ns] by span name, their counters by name)."""
+        return (self.roots.get(root, 0),
+                {n: v for (r, n), v in self.stats.items() if r == root},
+                {n: v for (r, n), v in self.counters.items() if r == root})
+
+    def _close(self, s: _Span, end: int) -> None:
+        dur = end - s.start
+        if s.parent is not None:
+            s.parent.children += dur
+        st = self.stats.get((s.root_name, s.name))
+        if st is None:
+            st = self.stats[(s.root_name, s.name)] = [0, 0, 0]
+        st[0] += 1
+        st[1] += dur
+        st[2] += dur - s.children
+        if self.keep:
+            self.records[s.index] = SpanRecord(
+                s.name, -1 if s.parent is None else s.parent.index, s.root, s.start, end)
+
+    def _count(self, name: str, n: int) -> None:
+        top = self._stack[-1] if self._stack else None
+        self.counters[(top.root_name if top is not None else "", name)] += n
+        if self.keep and top is not None:
+            mine = self.root_counters.setdefault(top.root, {})
+            mine[name] = mine.get(name, 0) + n
 
 
 def write_record(path: str, text: str) -> None:
@@ -161,8 +362,19 @@ class MetricsLogger:
                 if k not in ("step", "time") and isinstance(v, float):
                     self._tb.add_scalar(k, v, step)
 
-    def log_timers(self, step: int) -> None:
-        self.log(step, {f"time/{k}": t.mean for k, t in self.timers.items()})
+    def log_timers(self, step: int, spans: Optional[SpanRecorder] = None) -> None:
+        """Each timer's mean (``time/<name>``); with ``spans``, also each
+        span's mean self time per update (``span/<name>_ms``) and each
+        counter per update (``count/<name>``) over the ``train_iteration``
+        spans recorded since the last call, and clears ``spans``."""
+        scalars = {f"time/{k}": t.mean for k, t in self.timers.items()}
+        if spans is not None:
+            n, stats, counters = spans.per_root("train_iteration")
+            if n:
+                scalars.update({f"span/{k}_ms": v[2] / 1e6 / n for k, v in stats.items()})
+                scalars.update({f"count/{k}": v / n for k, v in counters.items()})
+            spans.reset()
+        self.log(step, scalars)
 
     def close(self) -> None:
         """Flush and close the TensorBoard mirror, if any."""
